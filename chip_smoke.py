@@ -4,21 +4,25 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
-``build/repro_torch_kernels/``, holds each kernel against its plain PyTorch
-version and the numpy oracle on the card, drives the port's main path — a
-store-backed divisible-load sweep through ``SimulationService.sweep`` on the
-``cuda`` backend at the paper's largest platform — and checks the answers.
+``build/repro_torch_kernels/``, holds each kernel body — divisible load, DAG
+of tasks, adaptive tasks — against its plain PyTorch version and the numpy
+oracles on the card, drives the port's main paths — store-backed sweeps
+through ``SimulationService.sweep`` on the ``cuda`` backend: divisible load at
+the paper's largest platform, the repository's merge-sort DAG, and adaptive
+tasks at the paper's W and p — and checks the answers.
 
 Phases, one JSON line each: ``build``, ``kernels`` (bit-exact against the plain
-loop), ``oracle`` (bit-exact against the serial numpy simulator), ``main_path``
-(sweeps, invariants, repeat served from the store, sampled oracle rows) and
-``timing`` (the kernel, its plain version and its bound at a main-path shape).
-Then a ``{"kernels": [...]}`` line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``. Any failed phase raises: the exit code is
-then not 0 and no result line is printed. Needs one CUDA device, no network.
+loop), ``oracle`` (bit-exact against the serial numpy simulators),
+``main_path`` (one line per path: sweeps, invariants, repeat served from the
+store, sampled oracle rows) and ``timing`` (one line per body: the kernel, its
+plain version and its bound at a main-path shape). Then a ``{"kernels":
+[...]}`` line, the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``. Any failed phase raises: the exit code is then not 0 and
+no result line is printed. Needs one CUDA device, no network.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -40,7 +44,10 @@ if not torch.cuda.is_available():
              "is false")
 
 from repro_torch import obs  # noqa: E402
+from repro_torch.core import adaptive as ad  # noqa: E402
 from repro_torch.core import backend as bk  # noqa: E402
+from repro_torch.core import dag as dg  # noqa: E402
+from repro_torch.core import dag_gen as gen  # noqa: E402
 from repro_torch.core import divisible as dv  # noqa: E402
 from repro_torch.core import oracle as orc  # noqa: E402
 from repro_torch.core import sweep as sw  # noqa: E402
@@ -59,15 +66,21 @@ DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 
-SCALAR_FIELDS = ("makespan", "n_events", "n_requests", "n_success", "n_fail",
-                 "total_idle", "startup_end")
+BODIES = ("ws_sim_divisible", "ws_sim_dag", "ws_sim_adaptive")
+REPLACES = "src/repro/kernels/ws_sim.py:119"
+MODEL_SOURCE = {"ws_sim_divisible": "DivisibleModel (src/repro/core/divisible.py)",
+                "ws_sim_dag": "DagModel (src/repro/core/dag.py)",
+                "ws_sim_adaptive": "AdaptiveModel (src/repro/core/adaptive.py)"}
+
+#: the worst |kernel - plain| per body over every comparison of this run
+WORST = {b: 0 for b in BODIES}
 
 
 def say(phase: str, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def max_abs_diff(a: dv.SimResult, b: dv.SimResult) -> int:
+def max_abs_diff(a, b) -> int:
     """Largest |a - b| over every element of every leaf (0: bit-exact)."""
     worst = 0
     for x, y in zip(a, b):
@@ -83,6 +96,7 @@ def max_abs_diff(a: dv.SimResult, b: dv.SimResult) -> int:
 def hold_against_plain(model, scn, what: str) -> tuple:
     """Launch the kernel and the plain loop on the same CUDA tensors; every
     leaf must be ``torch.equal``. Returns (kernel result, max |diff|)."""
+    model = sw.as_model(model)
     got = ws.ws_sim_cuda(model, scn)
     torch.cuda.synchronize()
     want = ws_sim_ref(model, scn)
@@ -93,43 +107,82 @@ def hold_against_plain(model, scn, what: str) -> tuple:
     if bad or err:
         raise AssertionError(f"kernel != plain version on {what}: leaves "
                              f"{bad}, max abs diff {err}")
+    body = ws.kernel_name(model)
+    WORST[body] = max(WORST[body], err)
     return got, err
 
 
-def hold_against_oracle(topo, mwt, remote_prob, scn, res, rows, what: str,
-                        max_events: int):
-    """Rows ``rows`` of a kernel result against the serial numpy oracle."""
+def twin(model, row: dict, remote_prob: float, max_events: int) -> dict:
+    """The serial numpy twin's answer for one scenario row (``row`` holds
+    W, seed, lam_local, lam_remote, theta_static, theta_comm)."""
+    kw = dict(seed=int(row["seed"]), lam_local=int(row["lam_local"]),
+              lam_remote=int(row["lam_remote"]),
+              theta_static=int(row["theta_static"]), mwt=model.mwt,
+              remote_prob=remote_prob, max_events=max_events)
+    if isinstance(model, dg.DagModel):
+        return orc.simulate_dag_oracle(model.topology, model.cfg.dag,
+                                       owner_lifo=model.cfg.owner_lifo, **kw)
+    if isinstance(model, ad.AdaptiveModel):
+        c = model.cfg
+        return orc.simulate_adaptive_oracle(
+            model.topology, int(row["W"]), theta_comm=int(row["theta_comm"]),
+            merge_alpha=c.merge_alpha, merge_beta_num=c.merge_beta_num,
+            merge_beta_den=c.merge_beta_den, **kw)
+    return dataclasses.asdict(orc.simulate_oracle(
+        model.topology, int(row["W"]), theta_comm=int(row["theta_comm"]),
+        **kw))
+
+
+def twin_may_answer(model, want: dict) -> bool:
+    """The twins model no deque_cap/pool_cap (unbounded lists): a row is
+    theirs to answer only where no cap can bind (the oracle backend's
+    guard; an adaptive deque of one slot or more never binds)."""
+    if isinstance(model, dg.DagModel):
+        return model.cfg.cap >= model.cfg.dag.n
+    if isinstance(model, ad.AdaptiveModel):
+        return (want["n_created"] <= model.cfg.pool_cap
+                and model.cfg.deque_cap >= 1)
+    return True
+
+
+def hold_against_oracle(model, scn, res, rows, what: str,
+                        remote_prob: float) -> int:
+    """Rows ``rows`` of a kernel result against the serial numpy twin, every
+    field the twin returns. Returns the number of rows compared."""
+    model = sw.as_model(model)
     host = {f: getattr(res, f).cpu().numpy() for f in res._fields}
     s = {f: getattr(scn, f).cpu().numpy() for f in scn._fields}
     for k in rows:
-        o = orc.simulate_oracle(
-            topo, int(s["W"][k]), seed=int(s["seed"][k]),
-            lam_local=int(s["lam_local"][k]),
-            lam_remote=int(s["lam_remote"][k]),
-            theta_static=int(s["theta_static"][k]),
-            theta_comm=int(s["theta_comm"][k]), mwt=mwt,
-            remote_prob=remote_prob,
-            max_events=min(max_events, int(s["max_events"][k])))
-        for f in SCALAR_FIELDS:
-            if int(getattr(o, f)) != int(host[f][k]):
-                raise AssertionError(
-                    f"kernel != oracle on {what} row {k}: {f} "
-                    f"{int(host[f][k])} vs {int(getattr(o, f))}")
-        if bool(o.overflow) != bool(host["overflow"][k]) or not \
-                np.array_equal(o.executed, host["executed"][k]):
-            raise AssertionError(f"kernel != oracle on {what} row {k}: "
-                                 "executed/overflow")
+        want = twin(model, {f: s[f][k] for f in s}, remote_prob,
+                    min(int(model.max_events), int(s["max_events"][k])))
+        if not twin_may_answer(model, want):
+            raise AssertionError(f"{what} row {k}: a cap could bind; the "
+                                 "twin cannot answer it")
+        for f, v in want.items():
+            if not np.array_equal(np.asarray(v), host[f][k]):
+                raise AssertionError(f"kernel != oracle on {what} row {k}: "
+                                     f"{f} {host[f][k]} vs {v}")
+    return len(rows)
 
 
 # ---------------------------------------------------------------------------
-# Phase 2/3: the kernel against its plain version and the oracle.
+# Phase 2/3: each body against its plain version and the oracle.
 # ---------------------------------------------------------------------------
 
-P_LIST = (4, 16, 64)
-W_LIST = (1000, 20000)
+P_LIST = (4, 16)
+W_LIST = (1000, 5000)
 THETAS = ((0, 0), (3, 1))
 N_SEEDS = 16
 REMOTE_PROB = 0.3
+STRATEGIES = (T.UNIFORM, T.LOCAL_FIRST, T.INV_DISTANCE, T.ROUND_ROBIN)
+
+#: the DAGs of the DAG body's cases, taken in turn
+CASE_DAGS = (lambda: gen.merge_sort(500, 32),
+             lambda: gen.random_layered(8, 12, 0.3, seed=3),
+             lambda: gen.fork_join(5))
+DAG_THETAS = ((0, 0), (1, 0))    # a DAG's threshold is a queue length
+AD_W = 3000
+AD_THETAS = ((0, 0), (2, 1))
 
 
 def case_topologies(p: int):
@@ -140,74 +193,199 @@ def case_topologies(p: int):
             T.multi_cluster(4, p // 4, 7, 2, "ring"))
 
 
-def case_scenario(topo, budgets=None):
-    """W x theta x seeds rows for one (topology, strategy, mwt) model."""
-    rows = sw.grid_rows(W_LIST, [(topo.lam_local, topo.lam_remote)], N_SEEDS,
-                        theta=THETAS, seed0=1 + topo.p)
+def case_scenario(topo, W_list=None, thetas=None, n_seeds=None,
+                  budgets=None):
+    """W x theta x seeds rows for one (topology, strategy, mwt) model (the
+    divisible cases' W, theta and seeds unless given)."""
+    rows = sw.grid_rows(W_list or W_LIST, [(topo.lam_local, topo.lam_remote)],
+                        n_seeds or N_SEEDS, theta=thetas or THETAS,
+                        seed0=1 + topo.p)
     return sw.scenario_from_rows(rows, remote_prob=REMOTE_PROB,
                                  ev_budget=budgets, device=DEV)
 
 
-def phase_kernels_and_oracle():
-    t0 = time.perf_counter()
-    n_cases = n_rows = 0
-    worst = 0
-    oracle_rows = 0
+def check_budget_rows(res, cut, what):
+    """Rows with a budget of their own stop there (an overflow); the
+    budget-0 row runs no event."""
+    if not bool(res.overflow[cut].all()) or int(res.makespan[0]) != -1 \
+            or int(res.n_events[0]) != 0:
+        raise AssertionError(f"{what}: per-row budgets not honoured")
+
+
+def divisible_cases(stats):
     for p in P_LIST:
         for base in case_topologies(p):
-            for strategy in (T.UNIFORM, T.LOCAL_FIRST, T.INV_DISTANCE,
-                             T.ROUND_ROBIN):
+            for strategy in STRATEGIES:
                 topo = base.with_strategy(strategy, REMOTE_PROB)
                 for mwt in (False, True):
                     cfg = dv.EngineConfig(topology=topo, mwt=mwt,
                                           max_events=1 << 20)
                     scn = case_scenario(topo)
                     what = f"{topo.name} p={p} strategy={strategy} mwt={mwt}"
-                    res, err = hold_against_plain(cfg, scn, what)
+                    res, _ = hold_against_plain(cfg, scn, what)
                     if bool(res.overflow.any()):
                         raise AssertionError(f"unexpected overflow on {what}")
-                    worst = max(worst, err)
-                    n_cases += len(W_LIST) * len(THETAS)
-                    n_rows += int(scn.W.shape[0])
-                    if p == 16 or (p == 64 and not mwt):
+                    stats.add("ws_sim_divisible", scn)
+                    if p == 16:
                         # first and last row: (W, theta) = (1000, (0, 0)) and
-                        # (20000, (3, 1))
-                        rows = (0, int(scn.W.shape[0]) - 1)
-                        hold_against_oracle(topo, mwt, REMOTE_PROB, scn, res,
-                                            rows, what, 1 << 20)
-                        oracle_rows += len(rows)
+                        # (5000, (3, 1)). Not at p = 4: there the ring has
+                        # clusters of one processor, and LOCAL_FIRST with no
+                        # local candidate picks victim 0 in the engine but
+                        # (i + 1) % p in the numpy oracle (both reference
+                        # behaviours, kept by the port).
+                        stats.oracle += hold_against_oracle(
+                            cfg, scn, res, (0, int(scn.W.shape[0]) - 1),
+                            what, REMOTE_PROB)
     # the trace ring, and rows that stop at their own event budget
     topo = case_topologies(16)[0].with_strategy(T.LOCAL_FIRST, REMOTE_PROB)
     cfg = dv.EngineConfig(topology=topo, mwt=True, max_events=1 << 20,
                           log_trace=True, max_trace=256)
-    res, err = hold_against_plain(cfg, case_scenario(topo), "log_trace")
+    scn = case_scenario(topo)
+    res, _ = hold_against_plain(cfg, scn, "divisible log_trace")
     if int(res.n_trace.max()) != 256 or not bool(res.trace.any()):
         raise AssertionError("trace ring was not filled")
-    worst = max(worst, err)
+    stats.add("ws_sim_divisible", scn)
     n = len(W_LIST) * len(THETAS) * N_SEEDS
     budgets = np.where(np.arange(n) % 3 == 0, np.arange(n) * 5, 2**31 - 1)
     cfg = dv.EngineConfig(topology=topo, mwt=False, max_events=1 << 20)
     scn = case_scenario(topo, budgets=budgets)
-    res, err = hold_against_plain(cfg, scn, "per-row budgets")
+    res, _ = hold_against_plain(cfg, scn, "divisible per-row budgets")
     cut = torch.as_tensor(np.arange(n) % 3 == 0, device=DEV)
-    if not bool(res.overflow[cut].all()) or bool(res.overflow[~cut].any()) \
-            or int(res.makespan[0]) != -1 or int(res.n_events[0]) != 0:
-        raise AssertionError("per-row budgets: wrong rows overflowed")
-    hold_against_oracle(topo, False, REMOTE_PROB, scn, res, (0, 3, 4),
-                        "per-row budgets", 1 << 20)
-    worst = max(worst, err)
-    oracle_rows += 3
-    n_cases += 2
-    n_rows += 2 * n
-    say("kernels", kernels=[ws.KERNEL_NAME], cases=n_cases, rows=n_rows,
-        bit_exact=True, max_abs_err=worst,
-        seconds=round(time.perf_counter() - t0, 3))
-    say("oracle", rows=oracle_rows, bit_exact=True)
-    return worst
+    check_budget_rows(res, cut, "divisible")
+    if bool(res.overflow[~cut].any()):
+        raise AssertionError("divisible per-row budgets: wrong rows "
+                             "overflowed")
+    stats.oracle += hold_against_oracle(cfg, scn, res, (0, 3, 4),
+                                        "divisible per-row budgets",
+                                        REMOTE_PROB)
+    stats.add("ws_sim_divisible", scn)
+
+
+def dag_cases(stats):
+    k = 0
+    for p in P_LIST:
+        for base in case_topologies(p):
+            for strategy in STRATEGIES:
+                topo = base.with_strategy(strategy, REMOTE_PROB)
+                for mwt in (False, True):
+                    dagf = CASE_DAGS[k % len(CASE_DAGS)]()
+                    lifo = (strategy % 2 == 0) != mwt
+                    k += 1
+                    cfg = dg.DagEngineConfig(topology=topo, dag=dagf, mwt=mwt,
+                                             owner_lifo=lifo,
+                                             max_events=1 << 20)
+                    scn = case_scenario(topo, W_list=(0,),
+                                        thetas=DAG_THETAS, n_seeds=8)
+                    what = (f"{topo.name} p={p} strategy={strategy} "
+                            f"mwt={mwt} {dagf.name} lifo={lifo}")
+                    res, _ = hold_against_plain(cfg, scn, what)
+                    if bool(res.overflow.any()) or \
+                            bool((res.n_completed != dagf.n).any()):
+                        raise AssertionError(f"unexpected overflow on {what}")
+                    stats.add("ws_sim_dag", scn)
+                    if p == 16:
+                        stats.oracle += hold_against_oracle(
+                            cfg, scn, res, (0, int(scn.W.shape[0]) - 1),
+                            what, REMOTE_PROB)
+    # a FIFO deque whose positions reach a small cap: rows halt (overflow);
+    # with the trace ring and per-row budgets
+    topo = case_topologies(16)[1].with_strategy(T.UNIFORM, REMOTE_PROB)
+    dagf = gen.random_layered(8, 12, 0.3, seed=3)
+    n = 16
+    budgets = np.where(np.arange(n) % 3 == 0, np.arange(n) * 5, 2**31 - 1)
+    cfg = dg.DagEngineConfig(topology=topo, dag=dagf, owner_lifo=False,
+                             deque_cap=12, max_events=1 << 20,
+                             log_trace=True, max_trace=64)
+    scn = case_scenario(topo, W_list=(0,), thetas=DAG_THETAS, n_seeds=8,
+                        budgets=budgets)
+    res, _ = hold_against_plain(cfg, scn, "dag deque_cap halt, trace, budgets")
+    cut = torch.as_tensor(np.arange(n) % 3 == 0, device=DEV)
+    check_budget_rows(res, cut, "dag")
+    halted = res.overflow & ~cut
+    if not bool(halted.any()) or int(res.n_trace.max()) != 64:
+        raise AssertionError("dag: no row halted at the deque cap, or the "
+                             "trace ring was not filled")
+    stats.add("ws_sim_dag", scn)
+    stats.halted_rows += int(halted.sum())
+
+
+def adaptive_cases(stats):
+    for p in P_LIST:
+        for base in case_topologies(p):
+            for strategy in STRATEGIES:
+                topo = base.with_strategy(strategy, REMOTE_PROB)
+                for mwt in (False, True):
+                    beta = (strategy + mwt) % 2
+                    cfg = ad.AdaptiveEngineConfig(
+                        topology=topo, mwt=mwt, merge_alpha=2,
+                        merge_beta_num=beta, max_events=1 << 20)
+                    scn = case_scenario(topo, W_list=(AD_W,),
+                                        thetas=AD_THETAS, n_seeds=8)
+                    what = (f"{topo.name} p={p} strategy={strategy} "
+                            f"mwt={mwt} beta_num={beta}")
+                    res, _ = hold_against_plain(cfg, scn, what)
+                    if bool(res.overflow.any()):
+                        raise AssertionError(f"unexpected overflow on {what}")
+                    stats.add("ws_sim_adaptive", scn)
+                    if p == 16:
+                        stats.oracle += hold_against_oracle(
+                            cfg, scn, res, (0, int(scn.W.shape[0]) - 1),
+                            what, REMOTE_PROB)
+    # a pool that fills (splits are refused, no overflow), a one-slot deque
+    # (never halts: a readied merge is popped in the event that pushed it),
+    # the trace ring and per-row budgets
+    topo = case_topologies(16)[0].with_strategy(T.LOCAL_FIRST, REMOTE_PROB)
+    n = 16
+    budgets = np.where(np.arange(n) % 3 == 0, np.arange(n) * 5, 2**31 - 1)
+    cfg = ad.AdaptiveEngineConfig(topology=topo, pool_cap=9, deque_cap=1,
+                                  merge_beta_num=1, max_events=1 << 20,
+                                  log_trace=True, max_trace=64)
+    scn = case_scenario(topo, W_list=(AD_W,), thetas=AD_THETAS, n_seeds=8,
+                        budgets=budgets)
+    res, _ = hold_against_plain(cfg, scn, "adaptive pool_cap, trace, budgets")
+    cut = torch.as_tensor(np.arange(n) % 3 == 0, device=DEV)
+    check_budget_rows(res, cut, "adaptive")
+    if bool(res.overflow[~cut].any()) or \
+            bool((res.n_created[~cut] != 9).any()) or \
+            int(res.n_trace.max()) != 64:
+        raise AssertionError("adaptive: the pool did not fill as expected, "
+                             "a row overflowed, or the trace ring was short")
+    stats.add("ws_sim_adaptive", scn)
+
+
+@dataclasses.dataclass
+class CaseStats:
+    cases: dict = dataclasses.field(default_factory=lambda: dict.fromkeys(
+        BODIES, 0))
+    rows: dict = dataclasses.field(default_factory=lambda: dict.fromkeys(
+        BODIES, 0))
+    oracle: int = 0
+    halted_rows: int = 0
+
+    def add(self, body, scn):
+        self.cases[body] += 1
+        self.rows[body] += int(scn.W.shape[0])
+
+
+def phase_kernels_and_oracle():
+    t0 = time.perf_counter()
+    stats = CaseStats()
+    seconds = {}
+    for body, run in (("ws_sim_divisible", divisible_cases),
+                      ("ws_sim_dag", dag_cases),
+                      ("ws_sim_adaptive", adaptive_cases)):
+        t1 = time.perf_counter()
+        run(stats)
+        seconds[body] = round(time.perf_counter() - t1, 3)
+    say("kernels", kernels=list(BODIES), models=stats.cases, rows=stats.rows,
+        dag_rows_halted_at_deque_cap=stats.halted_rows, bit_exact=True,
+        max_abs_err=WORST, seconds=seconds,
+        total_seconds=round(time.perf_counter() - t0, 3))
+    say("oracle", rows=stats.oracle, bit_exact=True)
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the main path.
+# Phase 4: the main paths.
 # ---------------------------------------------------------------------------
 
 # configs/ws_paper.py of the JAX package, paper §4.1.1: one cluster, the
@@ -215,25 +393,48 @@ def phase_kernels_and_oracle():
 # then a two-cluster platform under the LOCAL_FIRST strategy.
 MAIN_W = 10**6
 MAIN_REPS = 256
-MAIN_SWEEPS = (
-    dict(name="one_cluster_p256",
-         topo=lambda: T.one_cluster(256, 1),
-         kw=dict(W_list=[MAIN_W], lam_list=[2, 62, 262, 482], reps=MAIN_REPS,
-                 chunk_size=256)),
-    dict(name="two_clusters_p64_local_first",
-         topo=lambda: T.two_clusters(64, 100).with_strategy(T.LOCAL_FIRST),
-         kw=dict(W_list=[MAIN_W], lam_list=[(1, 100)], reps=MAIN_REPS,
-                 chunk_size=256)),
-)
+CHUNK = 256
+# benchmarks/run.py of the JAX package, its DAG bench: merge sort of 20000
+# elements, leaves of 64, on one cluster of 32.
+MAIN_DAG = gen.merge_sort(20_000, 64)
 
 
-def check_invariants(g: sw.GridResult, name: str):
+def check_divisible(g: sw.GridResult, name: str, model):
     if g.overflow.any():
         raise AssertionError(f"{name}: {int(g.overflow.sum())} rows overflowed")
     if not np.array_equal(g.extras["executed"].sum(1), g.W):
         raise AssertionError(f"{name}: executed work does not sum to W")
     if (g.makespan < -(-g.W // g.p)).any():
         raise AssertionError(f"{name}: a makespan below ceil(W/p)")
+
+
+def check_dag(g: sw.GridResult, name: str, model):
+    dagf = model.cfg.dag
+    T1, D = dagf.total_work, dagf.critical_path()
+    if g.overflow.any() or (g.extras["n_completed"] != dagf.n).any():
+        raise AssertionError(f"{name}: rows overflowed or left tasks undone")
+    if (g.extras["executed"].sum(1) != T1).any() or \
+            (g.extras["tasks_run"].sum(1) != dagf.n).any():
+        raise AssertionError(f"{name}: executed work != T1 or tasks != n")
+    if (g.makespan < max(-(-T1 // g.p), D)).any():
+        raise AssertionError(f"{name}: a makespan below max(ceil(T1/p), D)")
+
+
+def check_adaptive(g: sw.GridResult, name: str, model):
+    x = g.extras
+    if g.overflow.any():
+        raise AssertionError(f"{name}: {int(g.overflow.sum())} rows overflowed")
+    if not np.array_equal(x["executed"].sum(1),
+                          g.W + x["total_merge_work"]):
+        raise AssertionError(f"{name}: executed != W + merge work")
+    if not np.array_equal(x["n_completed"], x["n_created"]) or \
+            (x["n_created"] > model.cfg.pool_cap).any():
+        raise AssertionError(f"{name}: created != completed, or > pool_cap")
+    if (g.makespan < -(-g.W // g.p)).any():
+        raise AssertionError(f"{name}: a makespan below ceil(W/p)")
+
+
+def check_common(g: sw.GridResult, name: str):
     if not np.array_equal(g.n_requests, g.n_success + g.n_fail):
         raise AssertionError(f"{name}: n_requests != n_success + n_fail")
     if g.makespan.shape != (len(g),) or g.extras["executed"].shape != \
@@ -241,86 +442,159 @@ def check_invariants(g: sw.GridResult, name: str):
         raise AssertionError(f"{name}: wrong shapes or types")
 
 
-def check_sampled_rows_against_oracle(g: sw.GridResult, topo, rows, name):
+#: each path: the body it must launch and its sweeps; a sweep names its
+#: topology, its ``sweep`` arguments, its invariants, the rows held against
+#: the numpy twin and the chunk whose plain version is timed
+MAIN_PATHS = {
+    "divisible": dict(body="ws_sim_divisible", sweeps=(
+        dict(name="one_cluster_p256",
+             topo=lambda: T.one_cluster(256, 1),
+             kw=dict(W_list=[MAIN_W], lam_list=[2, 62, 262, 482],
+                     reps=MAIN_REPS, chunk_size=CHUNK),
+             check=check_divisible,
+             oracle_rows=(3 * MAIN_REPS + 5, 4 * MAIN_REPS - 1),
+             plain_chunk=3),
+        dict(name="two_clusters_p64_local_first",
+             topo=lambda: T.two_clusters(64, 100).with_strategy(
+                 T.LOCAL_FIRST),
+             kw=dict(W_list=[MAIN_W], lam_list=[(1, 100)], reps=MAIN_REPS,
+                     chunk_size=CHUNK),
+             check=check_divisible,
+             oracle_rows=(0, MAIN_REPS - 1),
+             plain_chunk=0),
+    )),
+    "dag": dict(body="ws_sim_dag", sweeps=(
+        dict(name="dag_merge_sort_p32",
+             topo=lambda: T.one_cluster(32, 1),
+             kw=dict(task_model="dag", dag=MAIN_DAG, max_events=1 << 20,
+                     lam_list=[2, 10, 62], reps=MAIN_REPS, chunk_size=CHUNK),
+             check=check_dag,
+             oracle_rows=(2 * MAIN_REPS + 5, 3 * MAIN_REPS - 1),
+             plain_chunk=2),
+    )),
+    "adaptive": dict(body="ws_sim_adaptive", sweeps=(
+        dict(name="adaptive_p256",
+             topo=lambda: T.one_cluster(256, 1),
+             kw=dict(task_model="adaptive", W_list=[MAIN_W], pool_cap=1 << 13,
+                     lam_list=[2, 62, 262, 482], reps=MAIN_REPS,
+                     chunk_size=CHUNK),
+             check=check_adaptive,
+             oracle_rows=(2 * MAIN_REPS + 5, 4 * MAIN_REPS - 1),
+             plain_chunk=3),
+    )),
+}
+
+
+def sweep_model(s) -> "sw.eng.TaskModel":
+    """The model ``SimulationService.sweep`` resolves for a sweep."""
+    kw = dict(s["kw"])
+    for k in ("reps", "chunk_size"):
+        kw.pop(k)
+    lam = [l for e in kw.pop("lam_list") for l in sw.lam_pair(e)]
+    return sw.resolve_model(s["topo"](), lam_list=lam, backend="cuda", **kw)
+
+
+def grid_against_twin(g: sw.GridResult, model, rows, name: str):
+    """Sampled rows of a sweep against the serial numpy twin, every field
+    the twin returns (a grid column or an ``extras`` column)."""
     for k in rows:
-        o = orc.simulate_oracle(
-            topo, int(g.W[k]), seed=int(g.seed[k]),
-            lam_local=int(g.extras["lam_local"][k]), lam_remote=int(g.lam[k]),
-            theta_static=int(g.theta_static[k]),
-            theta_comm=int(g.theta_comm[k]), mwt=False,
-            remote_prob=topo.remote_prob, max_events=1 << 30)
-        got = (int(g.makespan[k]), int(g.n_requests[k]), int(g.n_success[k]),
-               int(g.total_idle[k]), int(g.extras["n_events"][k]))
-        want = (o.makespan, o.n_requests, o.n_success, int(o.total_idle),
-                o.n_events)
-        if got != want or not np.array_equal(o.executed,
-                                             g.extras["executed"][k]):
-            raise AssertionError(f"{name} row {k}: sweep {got} != oracle "
-                                 f"{want}")
+        row = dict(W=g.W[k], seed=g.seed[k], lam_local=g.extras["lam_local"][k],
+                   lam_remote=g.lam[k], theta_static=g.theta_static[k],
+                   theta_comm=g.theta_comm[k])
+        want = twin(model, row, model.topology.remote_prob,
+                    int(model.max_events))
+        if not twin_may_answer(model, want):
+            raise AssertionError(f"{name} row {k}: a cap could bind")
+        for f, v in want.items():
+            got = g.extras[f][k] if f in g.extras else getattr(g, f)[k]
+            if not np.array_equal(np.asarray(v), got):
+                raise AssertionError(f"{name} row {k}: sweep {f}={got} != "
+                                     f"oracle {v}")
 
 
-def phase_main_path(store_root: Path) -> dict:
+def drive_path(store_root: Path, path: str) -> dict:
+    spec = MAIN_PATHS[path]
+    body = spec["body"]
     cuda_be = bk.get_backend("cuda")
     svc = SimulationService(root=store_root)       # device=None: the card
     # ---- the run that is counted: every count at 0 just before ------------
-    ws.ws_sim_cuda.launches = 0
+    ws.reset_counts()
     runs_before = cuda_be.n_run_rows
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with obs.trace_to(None) as tracer:             # spans: where the wall goes
-        grids = [svc.sweep(s["topo"](), backend="cuda", **s["kw"])
-                 for s in MAIN_SWEEPS]
-        torch.cuda.synchronize()
+    models = [sweep_model(s) for s in spec["sweeps"]]
+    grids, sweeps = [], []
+    for s, m in zip(spec["sweeps"], models):
+        t1 = time.perf_counter()
+        with obs.trace_to(None) as tracer:         # spans: where the wall goes
+            g = svc.sweep(s["topo"](), backend="cuda", **s["kw"])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        events = int(g.extras["n_events"].astype(np.int64).sum())
+        # backend.run_rows = scenario upload + launch + wait + copy to the
+        # host; store.put = npz compression + two atomic writes; store.get =
+        # the misses
+        sweeps.append(dict(
+            name=s["name"], rows=len(g), events=events, wall_seconds=wall,
+            events_per_second=events / wall,
+            max_row_events=int(g.extras["n_events"].max()),
+            span_ms={n: round(sum(ms), 3)
+                     for n, ms in tracer.durations_ms().items()},
+            mean_makespan=float(g.makespan.mean())))
+        if isinstance(m, ad.AdaptiveModel):
+            # rows whose pool filled: no room for a further split (splits
+            # are then refused, which is not an overflow)
+            sweeps[-1]["rows_pool_full"] = int(
+                (g.extras["n_created"] + 2 > m.cfg.pool_cap).sum())
+        grids.append(g)
     wall = time.perf_counter() - t0
-    launches = ws.ws_sim_cuda.launches             # read just after
-    # backend.run_rows = scenario upload + launch + wait + copy to the host;
-    # store.put = npz compression + two atomic writes; store.get = the misses
-    span_ms = {name: round(sum(ms), 3)
-               for name, ms in tracer.durations_ms().items()}
-    n_chunks = sum(math.ceil(len(g) / 256) for g in grids)
-    if launches < 1 or launches != n_chunks:
-        raise AssertionError(f"main path made {launches} kernel launches, "
-                             f"expected one per chunk = {n_chunks}")
+    launches = dict(ws.ws_sim_cuda.launches_by_body)   # read just after
+    total = ws.ws_sim_cuda.launches
+    n_chunks = sum(math.ceil(len(g) / s["kw"]["chunk_size"])
+                   for s, g in zip(spec["sweeps"], grids))
+    if launches[body] < 1 or launches[body] != n_chunks or total != n_chunks:
+        raise AssertionError(f"{path} path made {launches} kernel launches, "
+                             f"expected one of {body} per chunk = {n_chunks}")
     if cuda_be.n_run_rows - runs_before != n_chunks:
-        raise AssertionError("the cuda backend's n_run_rows did not rise by "
-                             "one per chunk")
-    for s, g in zip(MAIN_SWEEPS, grids):
-        check_invariants(g, s["name"])
-    rows = sum(len(g) for g in grids)
-    events = int(sum(g.extras["n_events"].astype(np.int64).sum()
-                     for g in grids))
+        raise AssertionError(f"{path}: the cuda backend's n_run_rows did not "
+                             "rise by one per chunk")
+    for s, g, m in zip(spec["sweeps"], grids, models):
+        s["check"](g, s["name"], m)
+        check_common(g, s["name"])
     # ---- the same question again: answered from the store -----------------
     puts = svc.store.puts
     again = [svc.sweep(s["topo"](), backend="cuda", **s["kw"])
-             for s in MAIN_SWEEPS]
-    if ws.ws_sim_cuda.launches != launches or svc.store.puts != puts:
-        raise AssertionError("the repeated sweep launched a kernel or wrote "
-                             "the store")
+             for s in spec["sweeps"]]
+    if ws.ws_sim_cuda.launches != total or svc.store.puts != puts:
+        raise AssertionError(f"{path}: the repeated sweep launched a kernel "
+                             "or wrote the store")
     fresh = SimulationService(root=store_root)     # empty memory tier: disk
     disk = [fresh.sweep(s["topo"](), backend="cuda", **s["kw"])
-            for s in MAIN_SWEEPS]
-    if ws.ws_sim_cuda.launches != launches or \
-            fresh.store.hits_disk != n_chunks:
-        raise AssertionError("a fresh service did not answer from disk")
+            for s in spec["sweeps"]]
+    if ws.ws_sim_cuda.launches != total or fresh.store.hits_disk != n_chunks:
+        raise AssertionError(f"{path}: a fresh service did not answer from "
+                             "disk")
     for g, a, d in zip(grids, again, disk):
         for f in ("makespan", "n_requests", "total_idle", "seed"):
             if not (np.array_equal(getattr(g, f), getattr(a, f))
                     and np.array_equal(getattr(g, f), getattr(d, f))):
-                raise AssertionError(f"stored answer differs in {f}")
-    # ---- sampled rows against the serial numpy oracle ---------------------
+                raise AssertionError(f"{path}: stored answer differs in {f}")
+        for k in g.extras:
+            if not (np.array_equal(g.extras[k], a.extras[k])
+                    and np.array_equal(g.extras[k], d.extras[k])):
+                raise AssertionError(f"{path}: stored answer differs in {k}")
+    # ---- sampled rows against the serial numpy twin -----------------------
     t1 = time.perf_counter()
-    check_sampled_rows_against_oracle(
-        grids[0], MAIN_SWEEPS[0]["topo"](), (3 * MAIN_REPS + 5, len(grids[0]) - 1),
-        MAIN_SWEEPS[0]["name"])
-    check_sampled_rows_against_oracle(
-        grids[1], MAIN_SWEEPS[1]["topo"](), (0, MAIN_REPS - 1),
-        MAIN_SWEEPS[1]["name"])
-    out = dict(rows=rows, chunks=n_chunks, launches=launches,
-               total_events=events, wall_seconds=wall,
-               events_per_second=events / wall, span_ms=span_ms,
-               mean_makespan={s["name"]: float(g.makespan.mean())
-                              for s, g in zip(MAIN_SWEEPS, grids)},
-               repeat_from_store=True, oracle_rows=4,
+    n_oracle = 0
+    for s, g, m in zip(spec["sweeps"], grids, models):
+        grid_against_twin(g, m, s["oracle_rows"], s["name"])
+        n_oracle += len(s["oracle_rows"])
+    out = dict(path=path, body=body, rows=sum(len(g) for g in grids),
+               chunks=n_chunks, launches=launches[body],
+               launches_by_body=launches, wall_seconds=wall,
+               total_events=sum(s["events"] for s in sweeps),
+               events_per_second=sum(s["events"] for s in sweeps) / wall,
+               sweeps=sweeps, repeat_from_store=True, oracle_rows=n_oracle,
                oracle_seconds=round(time.perf_counter() - t1, 3),
                card=card_line())
     say("main_path", **out)
@@ -328,14 +602,15 @@ def phase_main_path(store_root: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the kernel's time, its plain version's, and its bound.
+# Phase 5: each body's time, its plain version's, and its bound.
 # ---------------------------------------------------------------------------
 
 # int32 operations the *function* needs per event, whatever the implementation:
-# counted from the handlers of ``repro_torch.core.divisible`` / ``engine`` with
-# the next event kept in a tournament tree over the p event times (an update
-# costs one compare and one select per level) and the remaining work kept as a
-# running sum, so that no event needs a pass over the p processors.
+# counted from the handlers of ``repro_torch.core.divisible`` / ``dag`` /
+# ``adaptive`` / ``engine`` with the next event kept in a tournament tree over
+# the p event times (an update costs one compare and one select per level) and
+# the remaining work (divisible) kept as a running sum, so that no event needs
+# a pass over the p processors.
 OPS_DISPATCH = 4        # load state[i], three-way branch, budget test, n_events
 OPS_DIST = 5            # cluster compare, lam_remote * hops, select, i == j
 OPS_VICTIM = {          # select_victim, tables of cluster members / prefix sums
@@ -350,6 +625,25 @@ OPS_REQUEST = 18        # w_v (3), threshold (2), channel (1), amt and ok (6),
 OPS_ANSWER_OK = 9       # amt > 0, end time, active_count and startup (4),
 #                         executed (1), idle time (2)
 OPS_ANSWER_FAIL = 1     # amt > 0, then the steal of OPS_VICTIM + OPS_DIST + 1
+# the DAG and adaptive handlers
+OPS_TASK_IDLE = 4       # load cur_task, test, finished test, deque-empty test
+OPS_ENTER_IDLE = 2      # active_count, idle_since
+OPS_DAG_COMPLETE = 6    # n_completed, load dur, executed, tasks_run, CSR bounds
+OPS_EDGE = 7            # per child: load child, load pred, decrement, store,
+#                         ready test, push store, tail
+OPS_DAG_POP = 6         # position, load buf, load dur, end time, two stores
+OPS_DAG_REQUEST = 14    # qlen (3), threshold, channel, ok, head (2), load buf,
+#                         busy_until, answer (3), counts (2)
+OPS_TASK_ANSWER_OK = 10  # task >= 0, load length, end, state/ev_time/stolen/
+#                         cur_task, active_count and startup, idle time
+OPS_AD_COMPLETE = 9     # n_completed, load mpar, test, load tpred, decrement,
+#                         store, ready test, push (2)
+OPS_AD_POP = 8          # position, load buf, load tdur, end, stores, executed
+OPS_AD_REQUEST = 22     # queue test (3), running-work test with is_merge (4),
+#                         w_v, threshold, amt, room, split test (8), answer (4),
+#                         counts (3)
+OPS_SPLIT = 16          # merge duration (3), ten pool and victim stores,
+#                         counters (3)
 
 
 def kernel_bound_ms(model, scn, res) -> tuple:
@@ -359,44 +653,82 @@ def kernel_bound_ms(model, scn, res) -> tuple:
 
     The operations are those of the function, not of this kernel: per event
     the handler's scalar arithmetic (the ``OPS_*`` counts above, times how
-    often this run's data took each handler) and an O(log p) update of the
-    next-event structure per changed event time; per row one pass over the p
-    processors for the terminal idle time.
+    often this run's data took each handler, plus per child edge of a DAG
+    completion and per adaptive split) and an O(log p) update of the
+    next-event structure per changed event time; per row one pass over the
+    p processors for the terminal idle time. Bytes: each input read once
+    (scenario, topology, a DAG's CSR arrays), each result leaf written once.
     """
     G, p = int(scn.W.shape[0]), model.p
-    trace_rows = int(res.trace.shape[1])
-    bytes_in = sum(x.numel() * x.element_size() for x in scn) \
-        + 4 * p + 4 * p * p                       # cluster ids and hops, once
-    # nine int32 scalars a row, executed[p], the trace rows
-    bytes_out = 4 * G * 9 + 4 * G * p + 16 * G * trace_rows
+    size = lambda xs: sum(x.numel() * x.element_size() for x in xs)
+    bytes_in = size(scn) + 4 * p + 4 * p * p      # cluster ids and hops, once
+    if isinstance(model, dg.DagModel):
+        bytes_in += size(model.static_arrays("cpu"))
+    bytes_out = size(res)
     total = lambda x: int(x.to(torch.int64).sum())
     events, n_req = total(res.n_events), total(res.n_requests)
     n_ok, n_fail = total(res.n_success), total(res.n_fail)
     # an event is an idle, a request or an answer; answers follow requests
     idle_events = max(events - 2 * n_req, 0)
+    # steals started by an idle event (the others follow a failed answer)
+    idle_steals = max(n_req - n_fail, 0)
     levels = math.ceil(math.log2(p))
     strategy = model.topology.strategy
     steal = OPS_VICTIM[strategy] + OPS_DIST + 1   # + the request's arrival time
     if strategy == T.INV_DISTANCE:
         steal += levels                           # binary search of the sums
-    # event times that change: the thief's on every event, the victim's on a
-    # successful request
-    tree = 2 * levels * (events + n_ok)
-    ops = (events * OPS_DISPATCH + tree
-           + idle_events * (OPS_IDLE + steal)
-           + n_req * (OPS_REQUEST + OPS_DIST)
-           + n_ok * OPS_ANSWER_OK + n_fail * (OPS_ANSWER_FAIL + steal)
-           + G * 2 * p)                           # finish: idle_now and its sum
+    detail = dict(events=events, idle_events=idle_events, requests=n_req)
+    finish = G * 2 * p                            # idle_now and its sum
+    if isinstance(model, dv.DivisibleModel):
+        # event times that change: the thief's on every event, the victim's
+        # on a successful request
+        tree = 2 * levels * (events + n_ok)
+        ops = (events * OPS_DISPATCH + tree
+               + idle_events * (OPS_IDLE + steal)
+               + n_req * (OPS_REQUEST + OPS_DIST)
+               + n_ok * OPS_ANSWER_OK + n_fail * (OPS_ANSWER_FAIL + steal)
+               + finish)
+    elif isinstance(model, dg.DagModel):
+        dagf = model.cfg.dag
+        done = res.n_completed.to(torch.int64)
+        completions = int(done.sum())
+        # a completed row visited every edge once; a cut row, in proportion
+        n_edges = int(dagf.child_idx.shape[0])
+        edges = int((done * n_edges // max(dagf.n, 1)).sum())
+        pops = max(idle_events - idle_steals - G, 0)
+        tree = 2 * levels * events                # the thief's time only
+        ops = (events * OPS_DISPATCH + tree
+               + idle_events * OPS_TASK_IDLE
+               + completions * OPS_DAG_COMPLETE + edges * OPS_EDGE
+               + pops * OPS_DAG_POP
+               + idle_steals * (OPS_ENTER_IDLE + steal)
+               + n_req * (OPS_DAG_REQUEST + OPS_DIST)
+               + n_ok * OPS_TASK_ANSWER_OK
+               + n_fail * (OPS_ANSWER_FAIL + steal) + finish)
+        detail.update(completions=completions, edges=edges, pops=pops)
+    else:
+        completions = total(res.n_completed)
+        splits = total(res.n_splits)
+        pops = max(idle_events - idle_steals - G, 0)
+        tree = 2 * levels * (events + splits)     # + the victim's on a split
+        ops = (events * OPS_DISPATCH + tree
+               + idle_events * OPS_TASK_IDLE
+               + completions * OPS_AD_COMPLETE + pops * OPS_AD_POP
+               + idle_steals * (OPS_ENTER_IDLE + steal)
+               + n_req * (OPS_AD_REQUEST + OPS_DIST) + splits * OPS_SPLIT
+               + n_ok * OPS_TASK_ANSWER_OK
+               + n_fail * (OPS_ANSWER_FAIL + steal) + finish)
+        detail.update(completions=completions, splits=splits, pops=pops)
     bytes_ms = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / INT32_OPS_PER_S * 1e3
     by = "operations" if ops_ms >= bytes_ms else "bytes"
-    return max(bytes_ms, ops_ms), by, dict(
-        bytes=bytes_in + bytes_out, int32_ops=ops, events=events,
-        idle_events=idle_events, requests=n_req, ops_per_event=ops / events,
-        bytes_ms=bytes_ms, ops_ms=ops_ms)
+    detail.update(bytes=bytes_in + bytes_out, int32_ops=ops,
+                  ops_per_event=ops / max(events, 1), bytes_ms=bytes_ms,
+                  ops_ms=ops_ms)
+    return max(bytes_ms, ops_ms), by, detail
 
 
-def time_kernel_ms(model, scn, reps: int = 5) -> float:
+def time_kernel_ms(model, scn, reps: int) -> float:
     ws.ws_sim_cuda(model, scn)                     # warm
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -409,63 +741,61 @@ def time_kernel_ms(model, scn, reps: int = 5) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def phase_timing(main: dict, worst_err: int) -> dict:
-    """The kernel alone on every chunk the main path launches, then — at each
-    of the two shapes the main path gives it — the kernel beside its plain
-    version: the last chunk of the p = 256 sweep (256 rows, W = 10^6,
-    lam = 482: the chunk with the fewest events, so that the plain version,
-    which takes one step of every row per event, ends in time) and the chunk
-    of the p = 64 two-cluster sweep. The first is the shape the ``kernels``
-    line reports, with its bound."""
-    per_chunk = []
-    at_shape = {}
-    for s in MAIN_SWEEPS:
+def time_body(path: str, main: dict, reps: int) -> dict:
+    """One body: the kernel alone on every chunk its main path launches,
+    then — on the chunk of each sweep whose plain version is timed (the
+    chunk with the fewest steps, so that the plain version, which takes one
+    step of every row per event, ends in time) — the kernel beside its
+    plain version. The first sweep's timed chunk is the shape the
+    ``kernels`` line reports, with its bound."""
+    spec = MAIN_PATHS[path]
+    body = spec["body"]
+    per_chunk, shapes = [], []
+    for s in spec["sweeps"]:
         topo, kw = s["topo"](), s["kw"]
-        model = sw.resolve_model(
-            topo, W_list=kw["W_list"], backend="cuda",
-            lam_list=[l for e in kw["lam_list"] for l in sw.lam_pair(e)])
-        rows = sw.grid_rows(kw["W_list"], kw["lam_list"], kw["reps"])
-        for lo in range(0, len(rows), kw["chunk_size"]):
+        model = sweep_model(s)
+        rows = sw.grid_rows(kw.get("W_list", (0,)), kw["lam_list"], kw["reps"])
+        for ci, lo in enumerate(range(0, len(rows), kw["chunk_size"])):
             c = rows.slice(lo, lo + kw["chunk_size"])
             scn = sw.scenario_from_rows(c, remote_prob=topo.remote_prob,
                                         device=DEV)
-            ms = time_kernel_ms(model, scn)
+            ms = time_kernel_ms(model, scn, reps)
             res = ws.ws_sim_cuda(model, scn)
             ev = int(res.n_events.to(torch.int64).sum())
             per_chunk.append(dict(
                 sweep=s["name"], lam=int(c.lam_remote[0]), rows=len(c),
-                p=topo.p, events=ev, ms=ms, events_per_second=ev / ms * 1e3))
-            at_shape[s["name"]] = (model, scn, per_chunk[-1])  # last chunk
-    err = worst_err
-    plain = {}
-    for name, (model, scn, chunk) in at_shape.items():
+                p=topo.p, events=ev, max_row_events=int(res.n_events.max()),
+                ms=ms, events_per_second=ev / ms * 1e3))
+            if ci == s["plain_chunk"]:
+                shapes.append((s, model, scn, per_chunk[-1]))
+    for s, model, scn, chunk in shapes:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = ws_sim_ref(model, scn)
         torch.cuda.synchronize()
-        plain[name] = (time.perf_counter() - t0) * 1e3
+        chunk["plain_ms"] = (time.perf_counter() - t0) * 1e3
         got = ws.ws_sim_cuda(model, scn)
         torch.cuda.synchronize()
-        err = max(err, max_abs_diff(got, want))
+        err = max_abs_diff(got, want)
+        WORST[body] = max(WORST[body], err)
         if err or not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"kernel != plain version at the main-path "
-                                 f"shape of {name}")
-        chunk["plain_ms"] = plain[name]
-    model, scn, chunk = at_shape[MAIN_SWEEPS[0]["name"]]
-    plain_ms = plain[MAIN_SWEEPS[0]["name"]]
+                                 f"shape of {s['name']}")
+    s, model, scn, chunk = shapes[0]
     bound_ms, bound_by, detail = kernel_bound_ms(
         model, scn, ws.ws_sim_cuda(model, scn))
     entry = {
-        "name": ws.KERNEL_NAME, "route": "cuda", "source": ws.KERNEL_SOURCE,
-        "replaces": "src/repro/kernels/ws_sim.py:119",
-        "launches": main["launches"], "max_abs_err": err,
-        "ms": chunk["ms"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "name": body, "route": "cuda", "source": ws.KERNEL_SOURCE,
+        "replaces": REPLACES, "body": MODEL_SOURCE[body],
+        "launches": main["launches"], "max_abs_err": WORST[body],
+        "ms": chunk["ms"], "plain_ms": chunk["plain_ms"], "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
-        "shape": {"rows": chunk["rows"], "p": chunk["p"], "W": MAIN_W,
-                  "lam": chunk["lam"]},
+        "shape": {"sweep": s["name"], "rows": chunk["rows"], "p": chunk["p"],
+                  "lam": chunk["lam"], "events": chunk["events"],
+                  "max_row_events": chunk["max_row_events"]},
         "bound_detail": detail, "per_chunk": per_chunk,
     }
-    say("timing", kernel=ws.KERNEL_NAME, ms=chunk["ms"], plain_ms=plain_ms,
+    say("timing", kernel=body, ms=chunk["ms"], plain_ms=chunk["plain_ms"],
         bound_ms=bound_ms, bound_by=bound_by, per_chunk=per_chunk,
         card=card_line())
     return entry
@@ -488,15 +818,18 @@ def main():
     say("build", seconds=seconds, directory=str(_build.build_dir()),
         ptxas=[l for log in _build.build_logs.values()
                for l in log.splitlines() if "registers" in l or "spill" in l])
-    # 2, 3. each kernel against its plain version and the oracle
-    worst = phase_kernels_and_oracle()
-    # 4. the main path
+    # 2, 3. each body against its plain version and the oracle
+    phase_kernels_and_oracle()
+    # 4. the main paths, each counted on its own
     with tempfile.TemporaryDirectory(prefix="ws_store_") as tmp:
-        main_out = phase_main_path(Path(tmp))
+        main_out = {path: drive_path(Path(tmp) / path, path)
+                    for path in MAIN_PATHS}
     # 5. times at a main-path shape
-    entry = phase_timing(main_out, worst)
+    entries = [time_body(path, main_out[path],
+                         reps=5 if path == "divisible" else 3)
+               for path in MAIN_PATHS]
     say("done", seconds=round(time.perf_counter() - t_start, 1))
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

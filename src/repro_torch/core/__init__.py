@@ -1,7 +1,8 @@
 """Core: the paper's Work-Stealing simulator as composable PyTorch modules.
 
-Engines (paper §3): unified event+processor engine (``engine``) with the
-divisible-load task engine (``divisible``), topology engine (``topology``),
+Engines (paper §3): unified event+processor engine (``engine``) with three
+task engines (``divisible``, ``dag`` + its generators ``dag_gen``,
+``adaptive``), topology engine (``topology``),
 simulator engine (``sweep``) over pluggable execution backends (``backend``),
 the serial numpy oracle (``oracle``) and array-level constructors
 (``interop``).
@@ -16,6 +17,15 @@ from repro_torch.core.divisible import (  # noqa: F401
     DivisibleModel, EngineConfig, Scenario, SimResult, make_scenario,
     simulate, simulate_batch, default_max_events,
 )
+from repro_torch.core.dag import (  # noqa: F401
+    DagEngineConfig, DagModel, DagSimResult, simulate_dag, simulate_dag_batch,
+)
+from repro_torch.core.adaptive import (  # noqa: F401
+    AdaptiveEngineConfig, AdaptiveModel, AdaptiveSimResult, simulate_adaptive,
+    simulate_adaptive_batch,
+)
+from repro_torch.core import dag_gen  # noqa: F401
+from repro_torch.core.dag_gen import TaskDag  # noqa: F401
 from repro_torch.core.sweep import (  # noqa: F401
     run_grid, run_rows, quick_sim, GridResult, GridRows, make_model, as_model,
 )

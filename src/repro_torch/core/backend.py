@@ -37,6 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.core import adaptive as ad
+from repro_torch.core import dag as dg
 from repro_torch.core import divisible as dv
 from repro_torch.core import engine as eng
 from repro_torch.core import oracle as orc
@@ -192,6 +194,17 @@ class OracleBackend(ExecutionBackend):
     Deliberately slow; exists so any result of any other backend can be
     reproduced with no tensor library in the loop. Does not model trace
     logging — configs using it belong on the other backends.
+
+    The DAG and adaptive twins keep their deques and task pool in unbounded
+    lists, so they cannot see ``deque_cap`` or ``pool_cap``. Where a cap
+    could bind, this backend raises instead of returning a row that would
+    differ from the engine's (and would poison the store shared by every
+    backend): a DAG model whose ``deque_cap`` is below its task count (a
+    deque position can reach n - 1); an adaptive model whose ``deque_cap``
+    is below 1; an adaptive row that created more than ``pool_cap`` tasks.
+    An adaptive deque with one slot or more never binds: a merge readied by
+    a completion is popped in the same idle event, so every push finds the
+    deque empty at position 0.
     """
 
     name = "oracle"
@@ -200,15 +213,26 @@ class OracleBackend(ExecutionBackend):
         return BackendCapabilities(
             name=self.name, available=True, kind="reference",
             devices=("cpu",), max_p=256, max_events_pow2=False,
-            note="serial python loop; no trace modelling")
+            note="serial python loop; no capacity or trace modelling")
 
     def _run_rows(self, model, rows, remote_prob, ev_budget,
                   devices) -> "sw.GridResult":
         if model.log_trace:
             raise ValueError("oracle backend does not record traces; "
                              "use the 'torch' backend for log_trace models")
-        if not isinstance(model, dv.DivisibleModel):
+        if not isinstance(model, (dv.DivisibleModel, dg.DagModel,
+                                  ad.AdaptiveModel)):
             raise TypeError(f"oracle backend has no twin for {type(model)!r}")
+        if isinstance(model, dg.DagModel) and \
+                model.cfg.cap < model.cfg.dag.n:
+            raise ValueError(
+                f"oracle backend: deque_cap={model.cfg.cap} is below the "
+                f"DAG's {model.cfg.dag.n} tasks and the numpy twin cannot see "
+                "it; use the 'torch' or 'cuda' backend")
+        if isinstance(model, ad.AdaptiveModel) and model.cfg.deque_cap < 1:
+            raise ValueError(
+                f"oracle backend: deque_cap={model.cfg.deque_cap} halts at "
+                "the first push and the numpy twin cannot see it")
         n = len(rows)
         budgets = np.broadcast_to(
             np.asarray(eng.INF32 if ev_budget is None else ev_budget,
@@ -217,26 +241,70 @@ class OracleBackend(ExecutionBackend):
                               min(int(model.max_events), int(budgets[k])),
                               float(remote_prob))
                 for k in range(n)]
-        res = dv.SimResult(*(np.stack(leaves) for leaves in zip(*outs)))
+        res = type(outs[0])(*(np.stack(leaves) for leaves in zip(*outs)))
         return sw.grid_from_result(model.p, rows, res)
 
     def _run_row(self, model, rows, k: int, max_events: int, rp: float):
-        o = orc.simulate_oracle(
-            model.topology, int(rows.W[k]), seed=int(rows.seed[k]),
-            lam_local=int(rows.lam_local[k]),
-            lam_remote=int(rows.lam_remote[k]),
+        kw = dict(seed=int(rows.seed[k]),
+                  lam_local=int(rows.lam_local[k]),
+                  lam_remote=int(rows.lam_remote[k]),
+                  mwt=model.mwt, remote_prob=rp, max_events=max_events)
+        i32 = np.int32
+        trace = np.zeros((1, 4), np.int32)     # log_trace=False engine shape
+        if isinstance(model, dv.DivisibleModel):
+            o = orc.simulate_oracle(
+                model.topology, int(rows.W[k]),
+                theta_static=int(rows.theta_static[k]),
+                theta_comm=int(rows.theta_comm[k]), **kw)
+            return dv.SimResult(
+                makespan=i32(o.makespan), n_events=i32(o.n_events),
+                n_requests=i32(o.n_requests), n_success=i32(o.n_success),
+                n_fail=i32(o.n_fail), total_idle=i32(o.total_idle),
+                startup_end=i32(o.startup_end),
+                executed=np.asarray(o.executed, np.int32),
+                overflow=np.bool_(o.overflow), trace=trace,
+                n_trace=i32(0))
+        if isinstance(model, dg.DagModel):
+            o = orc.simulate_dag_oracle(
+                model.topology, model.cfg.dag,
+                theta_static=int(rows.theta_static[k]),
+                owner_lifo=model.cfg.owner_lifo, **kw)
+            return dg.DagSimResult(
+                makespan=i32(o["makespan"]), n_events=i32(o["n_events"]),
+                n_requests=i32(o["n_requests"]),
+                n_success=i32(o["n_success"]), n_fail=i32(o["n_fail"]),
+                total_idle=i32(o["total_idle"]),
+                startup_end=i32(o["startup_end"]),
+                executed=np.asarray(o["executed"], np.int32),
+                tasks_run=np.asarray(o["tasks_run"], np.int32),
+                n_completed=i32(o["n_completed"]),
+                overflow=np.bool_(o["overflow"]), trace=trace,
+                n_trace=i32(0))
+        cfg = model.cfg
+        o = orc.simulate_adaptive_oracle(
+            model.topology, int(rows.W[k]),
             theta_static=int(rows.theta_static[k]),
             theta_comm=int(rows.theta_comm[k]),
-            mwt=model.mwt, remote_prob=rp, max_events=max_events)
-        i32 = np.int32
-        return dv.SimResult(
-            makespan=i32(o.makespan), n_events=i32(o.n_events),
-            n_requests=i32(o.n_requests), n_success=i32(o.n_success),
-            n_fail=i32(o.n_fail), total_idle=i32(o.total_idle),
-            startup_end=i32(o.startup_end),
-            executed=np.asarray(o.executed, np.int32),
-            overflow=np.bool_(o.overflow),
-            trace=np.zeros((1, 4), np.int32),   # log_trace=False engine shape
+            merge_alpha=cfg.merge_alpha, merge_beta_num=cfg.merge_beta_num,
+            merge_beta_den=cfg.merge_beta_den, **kw)
+        if o["n_created"] > cfg.pool_cap:
+            raise ValueError(
+                f"oracle backend: row {k} created {o['n_created']} tasks, "
+                f"more than pool_cap={cfg.pool_cap}; the numpy twin cannot "
+                "see the cap, so the engine's answer differs. Use the "
+                "'torch' or 'cuda' backend")
+        return ad.AdaptiveSimResult(
+            makespan=i32(o["makespan"]), n_events=i32(o["n_events"]),
+            n_requests=i32(o["n_requests"]),
+            n_success=i32(o["n_success"]), n_fail=i32(o["n_fail"]),
+            n_splits=i32(o["n_splits"]),
+            total_idle=i32(o["total_idle"]),
+            startup_end=i32(o["startup_end"]),
+            executed=np.asarray(o["executed"], np.int32),
+            total_merge_work=i32(o["total_merge_work"]),
+            n_created=i32(o["n_created"]),
+            n_completed=i32(o["n_completed"]),
+            overflow=np.bool_(o["overflow"]), trace=trace,
             n_trace=i32(0))
 
 
@@ -259,7 +327,8 @@ class TorchBackend(ExecutionBackend):
 
 class CudaBackend(ExecutionBackend):
     """The hand-written Hopper kernel: one warp per scenario, state in
-    shared memory for the whole event loop. One launch per row chunk."""
+    shared memory for the whole event loop, a body per task model. One
+    launch per row chunk."""
 
     name = "cuda"
 

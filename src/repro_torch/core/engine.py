@@ -35,6 +35,9 @@ This loop is the plain version of the CUDA kernel in
 A *task model* supplies what the paper calls the task engine. It is a
 hashable (frozen-dataclass) object implementing:
 
+``static_arrays(device) -> tuple``
+    the model's constant arrays (a DAG's durations and edges) as tensors on
+    ``device``; built once per batch into :attr:`StaticTables.arrays`;
 ``init(scn, core) -> ms``
     patch the freshly built :class:`CoreState`, return the model state;
 ``on_idle / on_request / on_answer (tabs, scn, core, ms, ev, m)``
@@ -235,6 +238,9 @@ class TaskModel:
     def max_trace(self) -> int:
         return getattr(self.cfg, "max_trace", 0)
 
+    def static_arrays(self, device) -> tuple:
+        return ()
+
 
 # ---------------------------------------------------------------------------
 # Masked indexed access: x[g, idx[g]] reads and writes, one element per row.
@@ -274,6 +280,25 @@ def put(x: torch.Tensor, onehot: torch.Tensor, val, m: torch.Tensor) -> None:
     assign(x, val, onehot & m.unsqueeze(1))
 
 
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[g, idx[g]]`` with ``idx`` clamped into ``[0, x.shape[1])``: the
+    reference's gathers clamp an index that is out of range, and a row
+    outside a handler's mask may hold any index."""
+    return at(x, idx.clamp(0, x.shape[1] - 1))
+
+
+def store(x: torch.Tensor, idx: torch.Tensor, val, m: torch.Tensor) -> None:
+    """``x[g, idx[g]] = val[g]`` for the rows where ``m``; in place, for a
+    ``[G, n]`` tensor too wide for the one-hot of :func:`put`. ``idx`` is
+    clamped; the rows outside ``m`` write back what they read."""
+    i = idx.clamp(0, x.shape[1] - 1).to(I64).unsqueeze(1)
+    cur = x.gather(1, i)
+    if not isinstance(val, torch.Tensor):
+        val = torch.full_like(cur, val)
+    x.scatter_(1, i, torch.where(m.unsqueeze(1), val.to(x.dtype).view(-1, 1),
+                                 cur))
+
+
 def bump(x: torch.Tensor, val, m: torch.Tensor) -> None:
     """``x[g] += val[g]`` for the rows where ``m``; in place, wraps as x's
     dtype."""
@@ -300,6 +325,7 @@ class StaticTables(NamedTuple):
     hops: torch.Tensor     # int32[p, p]
     lane: torch.Tensor     # int32[p] = arange(p)
     inv_cum: Optional[torch.Tensor]  # float32[G, p, p] INV_DISTANCE prefix sums
+    arrays: tuple = ()     # the model's static_arrays(device)
 
 
 def dist(tabs: StaticTables, scn: Scenario, i, j) -> torch.Tensor:
@@ -524,7 +550,8 @@ def static_tables(model: TaskModel, scn: Scenario) -> StaticTables:
     inv_cum = (inv_distance_table(cid, hops, scn)
                if topo.strategy == topo_mod.INV_DISTANCE else None)
     return StaticTables(cid, hops,
-                        torch.arange(model.p, dtype=I32, device=dev), inv_cum)
+                        torch.arange(model.p, dtype=I32, device=dev), inv_cum,
+                        model.static_arrays(dev))
 
 
 def run_loop(model: TaskModel, scn: Scenario):

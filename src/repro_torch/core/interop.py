@@ -3,7 +3,8 @@ Python scalars.
 
 Anything that holds the same data — another implementation of this simulator,
 a file, a test — can hand its leaves over as ``np.asarray(...)`` and get the
-port's ``Topology`` / ``Scenario`` / ``EngineConfig`` / ``GridRows`` back, so
+port's ``Topology`` / ``Scenario`` / ``EngineConfig`` / ``TaskDag`` /
+``DagEngineConfig`` / ``AdaptiveEngineConfig`` / ``GridRows`` back, so
 that both sides compute on exactly the same inputs. Nothing here imports more
 than numpy, torch and the port itself.
 """
@@ -13,7 +14,10 @@ from typing import Mapping
 
 import numpy as np
 
+from repro_torch.core import adaptive as ad
+from repro_torch.core import dag as dg
 from repro_torch.core import engine as eng
+from repro_torch.core.dag_gen import TaskDag
 from repro_torch.core.topology import Topology
 
 
@@ -57,6 +61,44 @@ def engine_config_from_fields(topology: Topology, mwt=False,
                             max_events=int(max_events),
                             log_trace=bool(log_trace),
                             max_trace=int(max_trace))
+
+
+def task_dag_from_arrays(dur, child_ptr, child_idx, pred_count,
+                         name="dag") -> TaskDag:
+    """A :class:`TaskDag` from its four CSR arrays (int32) and its name; the
+    name enters the store key, so carry it across unchanged."""
+    i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)
+    dag = TaskDag(i32(dur), i32(child_ptr), i32(child_idx), i32(pred_count),
+                  name=str(name))
+    n = dag.n
+    if dag.child_ptr.shape != (n + 1,) or dag.pred_count.shape != (n,) \
+            or dag.child_idx.shape != (int(dag.child_ptr[-1]),):
+        raise ValueError("task_dag_from_arrays: inconsistent CSR arrays")
+    return dag
+
+
+def dag_engine_config_from_fields(topology: Topology, dag: TaskDag,
+                                  mwt=False, owner_lifo=True, deque_cap=None,
+                                  max_events=1 << 20, log_trace=False,
+                                  max_trace=0) -> dg.DagEngineConfig:
+    return dg.DagEngineConfig(
+        topology=topology, dag=dag, mwt=bool(mwt),
+        owner_lifo=bool(owner_lifo),
+        deque_cap=None if deque_cap is None else int(deque_cap),
+        max_events=int(max_events), log_trace=bool(log_trace),
+        max_trace=int(max_trace))
+
+
+def adaptive_engine_config_from_fields(
+        topology: Topology, mwt=False, merge_alpha=1, merge_beta_num=0,
+        merge_beta_den=16, pool_cap=4096, deque_cap=256, max_events=1 << 20,
+        log_trace=False, max_trace=0) -> ad.AdaptiveEngineConfig:
+    return ad.AdaptiveEngineConfig(
+        topology=topology, mwt=bool(mwt), merge_alpha=int(merge_alpha),
+        merge_beta_num=int(merge_beta_num),
+        merge_beta_den=int(merge_beta_den), pool_cap=int(pool_cap),
+        deque_cap=int(deque_cap), max_events=int(max_events),
+        log_trace=bool(log_trace), max_trace=int(max_trace))
 
 
 def rows_from_arrays(W, lam_local, lam_remote, theta_static, theta_comm,

@@ -3,7 +3,8 @@
 The paper's simulator engine runs "several scenarios and simulation in the
 same time". Here that is: build one batched Scenario per processor count
 (shapes are static in p) and run the unified event core over the whole
-(W, λ, θ, rep) cross product through an execution backend
+(W, λ, θ, rep) cross product, for any task model (divisible, DAG, adaptive),
+through an execution backend
 (``repro_torch.core.backend``): the hand-written CUDA kernel, the plain
 batched PyTorch loop, or the serial numpy oracle — all bit-identical.
 
@@ -19,6 +20,8 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 
+from repro_torch.core import adaptive as ad
+from repro_torch.core import dag as dg
 from repro_torch.core import divisible
 from repro_torch.core import engine as eng
 from repro_torch.core.divisible import EngineConfig, Scenario, SimResult
@@ -32,7 +35,10 @@ _CORE_FIELDS = ("makespan", "n_requests", "n_success", "n_fail",
 def make_model(task_model: Union[str, eng.TaskModel] = "divisible", *,
                topology: Topology, mwt: bool = False,
                max_events: int = 1 << 20, log_trace: bool = False,
-               max_trace: int = 0, **model_kw) -> eng.TaskModel:
+               max_trace: int = 0, dag=None, owner_lifo: bool = True,
+               deque_cap: Optional[int] = None, merge_alpha: int = 1,
+               merge_beta_num: int = 0, merge_beta_den: int = 16,
+               pool_cap: int = 4096) -> eng.TaskModel:
     """Task-model factory: name -> configured TaskModel.
 
     ``task_model`` may also be an existing TaskModel/config (passed through /
@@ -46,17 +52,23 @@ def make_model(task_model: Union[str, eng.TaskModel] = "divisible", *,
                              "topology=")
         return model
     if task_model == "divisible":
-        if model_kw:
-            raise TypeError("the divisible task model takes no model "
-                            f"kwargs, got {sorted(model_kw)}")
         return divisible.DivisibleModel(EngineConfig(
             topology=topology, mwt=mwt, max_events=max_events,
             log_trace=log_trace, max_trace=max_trace))
-    if task_model in ("dag", "adaptive"):
-        raise NotImplementedError(
-            f"task model {task_model!r} is not ported yet: it arrives with "
-            "the DAG/adaptive slice (models and kernel bodies); only "
-            "'divisible' runs today")
+    if task_model == "dag":
+        if dag is None:
+            raise ValueError("task_model='dag' requires dag=TaskDag(...)")
+        return dg.DagModel(dg.DagEngineConfig(
+            topology=topology, dag=dag, mwt=mwt, owner_lifo=owner_lifo,
+            deque_cap=deque_cap, max_events=max_events,
+            log_trace=log_trace, max_trace=max_trace))
+    if task_model == "adaptive":
+        return ad.AdaptiveModel(ad.AdaptiveEngineConfig(
+            topology=topology, mwt=mwt, merge_alpha=merge_alpha,
+            merge_beta_num=merge_beta_num, merge_beta_den=merge_beta_den,
+            pool_cap=pool_cap,
+            deque_cap=256 if deque_cap is None else deque_cap,
+            max_events=max_events, log_trace=log_trace, max_trace=max_trace))
     raise ValueError(f"unknown task model {task_model!r}")
 
 
@@ -64,6 +76,10 @@ def as_model(m) -> eng.TaskModel:
     """Accept a TaskModel or any engine config and return a TaskModel."""
     if isinstance(m, EngineConfig):
         return divisible.DivisibleModel(m)
+    if isinstance(m, dg.DagEngineConfig):
+        return dg.DagModel(m)
+    if isinstance(m, ad.AdaptiveEngineConfig):
+        return ad.AdaptiveModel(m)
     if isinstance(m, eng.TaskModel):
         return m
     raise TypeError(f"not a task model or engine config: {type(m)!r}")
@@ -73,8 +89,9 @@ def as_model(m) -> eng.TaskModel:
 class GridResult:
     """Flat record-of-arrays over every (W, lam, theta, rep) cell for one p.
 
-    ``extras`` holds model-specific per-cell columns (``n_events``, per-proc
-    ``executed``) and the intra-cluster latency.
+    ``extras`` holds model-specific per-cell columns (e.g. ``n_splits`` for
+    adaptive sweeps, ``n_completed`` for DAG sweeps, per-proc ``executed``)
+    and the intra-cluster latency.
     """
     p: int
     W: np.ndarray
@@ -332,7 +349,9 @@ def resolve_model(
             raise ValueError("prebuilt task_model topology differs from topo")
         return model
     if max_events is None:
-        W_eff = [int(w) for w in W_list]
+        dagf = model_kw.get("dag")
+        W_eff = [dagf.total_work] if (task_model == "dag" and dagf is not None) \
+            else [int(w) for w in W_list]
         lam_eff = {l for entry in lam_list for l in lam_pair(entry)}
         max_events = max(
             divisible.default_max_events(int(w), topo.p, int(l))
@@ -387,8 +406,11 @@ def run_grid(
 ) -> GridResult:
     """Simulate the full (W × λ × θ × reps) grid on topology ``topo``.
 
-    ``task_model`` selects the task engine ("divisible" today, or a prebuilt
-    TaskModel); ``model_kw`` is forwarded to :func:`make_model`. A prebuilt
+    ``task_model`` selects the task engine ("divisible" | "dag" | "adaptive",
+    or a prebuilt TaskModel); ``model_kw`` is forwarded to
+    :func:`make_model` (e.g. ``dag=``, ``merge_alpha=``). For DAG sweeps the
+    workload is the static DAG, so ``W_list`` is typically left at ``(0,)``
+    and the grid sweeps latency/threshold/rep only. A prebuilt
     model carries its own static config, so ``mwt``/``max_events``/
     ``model_kw`` must be left at their defaults and its topology must equal
     ``topo``. ``device`` follows the device rule (module docstring).

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch header, so
 ``nvcc`` compiles it in seconds into ``lib<name>-<digest>.so`` under the build
-directory (``build/repro_torch_kernels/`` at the repository root). The digest covers the source text and the flags,
-so an edited source is rebuilt and an unchanged one is loaded as it is.
+directory (``build/repro_torch_kernels/`` at the repository root). The digest
+covers the source text, every header under ``csrc/`` and the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it is.
 Nothing is built when this module is imported: :func:`load` builds at first
 use, and :func:`build_all` starts one ``nvcc`` per source, all together.
 """
@@ -54,8 +55,13 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """Where the library of ``csrc/<name>.cu`` is built: the file name
+    carries a digest of the source, of every ``csrc/*.cuh`` header (a
+    source may include any of them) and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 

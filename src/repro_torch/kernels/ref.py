@@ -2,18 +2,17 @@
 contract): each kernel is held against the function of the same name here.
 
 * ``ws_sim_ref`` -> the batched event loop of ``repro_torch.core.engine``
-                    (bit-exact vs the serial numpy oracle in
-                    ``repro_torch.core.oracle``)
+                    under any of the three task models (bit-exact vs the
+                    serial numpy oracles in ``repro_torch.core.oracle``)
 """
 from __future__ import annotations
 
-from repro_torch.core import divisible as _dv
 from repro_torch.core import engine as _eng
+from repro_torch.core.sweep import as_model as _as_model
 
 
-def ws_sim_ref(model, scn: _dv.Scenario) -> _dv.SimResult:
-    """``model`` is a task model or an :class:`EngineConfig`; runs on the
-    device the scenario's tensors lie on."""
-    if isinstance(model, _dv.EngineConfig):
-        model = _dv.DivisibleModel(model)
-    return _eng.simulate_batch(model, scn)
+def ws_sim_ref(model, scn: _eng.Scenario):
+    """``model`` is a task model or any engine config (divisible, DAG,
+    adaptive); runs on the device the scenario's tensors lie on and returns
+    the model's result NamedTuple."""
+    return _eng.simulate_batch(_as_model(model), scn)

@@ -6,13 +6,25 @@ to the port, and compares every field of the two results with
 ``assert_array_equal``: the tolerance is none.
 """
 import dataclasses
+import time
+import types
+import zipfile
 
 import numpy as np
+import pytest
 import torch
 
+from repro.core import adaptive as jad
+from repro.core import dag as jdg
 from repro.core import divisible as jdv
+from repro.core import engine as jeng
+from repro.core import sweep as jsw
 from repro.core import topology as JT
+from repro.kernels.ws_sim import ws_sim_pallas
+from repro_torch.core import engine as peng
 from repro_torch.core import interop
+from repro_torch.core import sweep as psw
+from repro_torch.kernels.ws_sim import ws_sim_cuda
 
 
 # The tensors here are tiny ([<=16, <=16]); one thread is fastest and keeps the
@@ -31,6 +43,36 @@ def port_config(cfg):
     return interop.engine_config_from_fields(
         port_topology(cfg.topology), cfg.mwt, cfg.max_events, cfg.log_trace,
         cfg.max_trace)
+
+
+def port_dag(d):
+    """The port's TaskDag from the arrays and name of the JAX package's."""
+    return interop.task_dag_from_arrays(
+        np.asarray(d.dur), np.asarray(d.child_ptr), np.asarray(d.child_idx),
+        np.asarray(d.pred_count), d.name)
+
+
+def port_dag_config(cfg):
+    return interop.dag_engine_config_from_fields(
+        port_topology(cfg.topology), port_dag(cfg.dag), cfg.mwt,
+        cfg.owner_lifo, cfg.deque_cap, cfg.max_events, cfg.log_trace,
+        cfg.max_trace)
+
+
+def port_adaptive_config(cfg):
+    return interop.adaptive_engine_config_from_fields(
+        port_topology(cfg.topology), cfg.mwt, cfg.merge_alpha,
+        cfg.merge_beta_num, cfg.merge_beta_den, cfg.pool_cap, cfg.deque_cap,
+        cfg.max_events, cfg.log_trace, cfg.max_trace)
+
+
+def port_config_of(cfg):
+    """The port's engine config for any of the JAX package's three."""
+    if isinstance(cfg, jdg.DagEngineConfig):
+        return port_dag_config(cfg)
+    if isinstance(cfg, jad.AdaptiveEngineConfig):
+        return port_adaptive_config(cfg)
+    return port_config(cfg)
 
 
 def port_scenario(scn):
@@ -67,6 +109,34 @@ def assert_grids_equal(a, b, msg=""):
         x, y = np.asarray(a.extras[k]), np.asarray(b.extras[k])
         assert x.dtype == y.dtype, f"{msg} extras[{k}]"
         np.testing.assert_array_equal(x, y, err_msg=f"{msg} extras[{k}]")
+
+
+def hold_port_against_jax(cfg, scn, pallas=True):
+    """The JAX engine (and, if ``pallas``, its Pallas kernel in interpret
+    mode) against the port's plain loop and the port's kernel wrapper on CPU
+    tensors, which must take the plain loop and launch nothing. Returns the
+    port's result."""
+    expect = jeng.simulate_batch(jsw.as_model(cfg), scn)
+    pcfg, pscn = port_config_of(cfg), port_scenario(scn)
+    got = peng.simulate_batch(psw.as_model(pcfg), pscn)
+    assert_results_equal(expect, got, "engine")
+    if pallas:
+        assert_results_equal(ws_sim_pallas(cfg, scn, interpret=True), got,
+                             "pallas")
+    before = ws_sim_cuda.launches
+    assert_results_equal(got, ws_sim_cuda(pcfg, pscn), "wrapper on CPU")
+    assert ws_sim_cuda.launches == before
+    return got
+
+
+@pytest.fixture
+def frozen_zip_clock(monkeypatch):
+    """An npz is a zip, and a zip member carries its time of writing (2 s
+    resolution). Pin the clock zipfile reads so that two writes of the same
+    arrays are the same bytes whenever they happen."""
+    fixed = time.mktime((2020, 1, 1, 0, 0, 0, 0, 0, -1))
+    monkeypatch.setattr(zipfile, "time", types.SimpleNamespace(
+        time=lambda: fixed, localtime=time.localtime))
 
 
 def seeded_scenario(seed, n, W, topo, theta=(0, 0), remote_prob=0.25,

@@ -45,13 +45,15 @@ def test_no_import_of_jax_or_the_jax_package(path):
 def test_port_has_the_expected_modules():
     names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
              for p in PORT_FILES[:-1]}
-    for want in ("core/engine.py", "core/divisible.py", "core/oracle.py",
+    for want in ("core/engine.py", "core/divisible.py", "core/dag.py",
+                 "core/dag_gen.py", "core/adaptive.py", "core/oracle.py",
                  "core/interop.py", "core/sweep.py", "core/backend.py",
                  "core/topology.py", "kernels/ws_sim.py", "kernels/ref.py",
                  "kernels/_build.py", "service/api.py", "service/store.py",
                  "service/resilience.py", "obs/trace.py", "obs/metrics.py"):
         assert want in names, want
     assert (ROOT / "src/repro_torch/kernels/csrc/ws_sim.cu").is_file()
+    assert (ROOT / "src/repro_torch/kernels/csrc/ws_sim_core.cuh").is_file()
 
 
 _CPU_SWEEP = """

@@ -3,8 +3,10 @@
 On the CPU its wrapper takes the kernel's plain version (and only because
 the tensors lie on the CPU); that path is held here against the JAX package's
 Pallas kernel run in interpret mode, on the same numpy-made inputs, with no
-tolerance. The CUDA kernel itself has no interpret mode: the test that
-launches it is marked ``gpu`` and skips where there is no card."""
+tolerance. The CUDA kernel itself has no interpret mode: the tests that
+launch it are in ``tests/test_torch_gpu.py`` (marked ``gpu``, JAX-free so
+that they run on a GPU machine without JAX) and skip where there is no
+card."""
 import numpy as np
 import pytest
 import torch
@@ -100,25 +102,21 @@ def test_kernel_sources_ship_with_the_package():
     assert "--use_fast_math" not in _build.NVCC_FLAGS
 
 
-@pytest.mark.gpu
-def test_cuda_kernel_vs_plain_on_the_card():
-    """Launch the CUDA kernel and hold every leaf against the plain loop on
-    the same CUDA tensors (run on a GPU machine with
-    ``python -m pytest -m gpu tests/test_torch_kernels.py``)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: a CUDA kernel has no interpret mode")
-    for strategy in STRATEGIES:
-        topo = PT.multi_cluster(4, 4, 7, 2, "ring").with_strategy(strategy,
-                                                                  0.3)
-        cfg = pdv.EngineConfig(topology=topo, mwt=bool(strategy % 2),
-                               max_events=1 << 16, log_trace=True,
-                               max_trace=128)
-        scn = pdv.batch_scenarios(3000, np.arange(16) + 3, lam_local=2,
-                                  lam_remote=7, theta_static=2, theta_comm=1,
-                                  remote_prob=0.3, device="cuda")
-        before = ws_sim_cuda.launches
-        got = ws_sim_cuda(cfg, scn)
-        torch.cuda.synchronize()
-        assert ws_sim_cuda.launches == before + 1
-        assert_results_equal(ref.ws_sim_ref(cfg, scn), got,
-                             f"strategy={strategy}")
+def test_build_digest_covers_the_headers(tmp_path, monkeypatch):
+    """An edited header must give another library name (and so a rebuild),
+    as an edited source does; an unchanged tree gives the same name."""
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    assert (tmp_path / "ws_sim_core.cuh").is_file()
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._target("ws_sim")
+    assert _build._target("ws_sim") == first
+    hdr = tmp_path / "ws_sim_core.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    second = _build._target("ws_sim")
+    assert second != first and second.parent == first.parent
+    (tmp_path / "extra.cuh").write_text("#pragma once\n")
+    assert _build._target("ws_sim") not in (first, second)
+    src = tmp_path / "ws_sim.cu"
+    src.write_text(src.read_text() + "\n")
+    assert _build._target("ws_sim") not in (first, second)

@@ -1,10 +1,6 @@
 """The slice as a whole: ``SimulationService.sweep`` in both packages on the
 same question gives the same chunk keys and the same npz bytes, and a store
 filled by either package is a cache hit for the other."""
-import time
-import types
-import zipfile
-
 import numpy as np
 import pytest
 
@@ -16,7 +12,9 @@ from repro_torch import obs as pobs
 from repro_torch.core import backend as pbk
 from repro_torch.service import SimulationService as PortService
 from repro_torch.service import store as pstore
-from test_torch_common import assert_grids_equal, port_topology
+from test_torch_common import (assert_grids_equal,
+                               frozen_zip_clock,  # noqa: F401 (a fixture)
+                               port_topology)
 
 QUESTIONS = {
     "two_clusters_local_first": dict(
@@ -32,16 +30,6 @@ QUESTIONS = {
             JT.INV_DISTANCE),
         kw=dict(W_list=[3000], lam_list=[(2, 7)], reps=10, chunk_size=4)),
 }
-
-
-@pytest.fixture
-def frozen_zip_clock(monkeypatch):
-    """An npz is a zip, and a zip member carries its time of writing (2 s
-    resolution). Pin the clock zipfile reads so that two writes of the same
-    arrays are the same bytes whenever they happen."""
-    fixed = time.mktime((2020, 1, 1, 0, 0, 0, 0, 0, -1))
-    monkeypatch.setattr(zipfile, "time", types.SimpleNamespace(
-        time=lambda: fixed, localtime=time.localtime))
 
 
 def _files(root):

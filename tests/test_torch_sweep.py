@@ -71,11 +71,16 @@ def test_resolve_model_same_canonical_json(mwt, pow2):
 
 
 def test_unported_task_models_say_so():
-    for name in ("dag", "adaptive"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            psw.make_model(name, topology=PT.one_cluster(4, 1))
+    """Every task model of the reference is ported now: the factory builds
+    each by name, says what a DAG model lacks, and refuses unknown names."""
+    topo = PT.one_cluster(4, 1)
+    with pytest.raises(ValueError, match="dag="):
+        psw.make_model("dag", topology=topo)
+    assert type(psw.make_model("adaptive", topology=topo)).__name__ == \
+        "AdaptiveModel"
+    assert psw.make_model("adaptive", topology=topo).cfg.deque_cap == 256
     with pytest.raises(ValueError):
-        psw.make_model("nonsense", topology=PT.one_cluster(4, 1))
+        psw.make_model("nonsense", topology=topo)
 
 
 @pytest.mark.parametrize("backend", ["torch", "oracle"])
