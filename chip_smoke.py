@@ -9,16 +9,27 @@ of tasks, adaptive tasks — against its plain PyTorch version and the numpy
 oracles on the card, drives the port's main paths — store-backed sweeps
 through ``SimulationService.sweep`` on the ``cuda`` backend: divisible load at
 the paper's largest platform, the repository's merge-sort DAG, and adaptive
-tasks at the paper's W and p — and checks the answers.
+tasks at the paper's W and p — and checks the answers. Then the
+language-model serving path of ``qwen3-1.7b`` at full width (random weights
+from a seed): its three kernels (RMSNorm, flash attention, flash decode)
+against their plain versions, ``serve.decode_batch`` and
+``steps.build_prefill_step`` with their launch counts, and the float32
+parity of forward and sequential prefill.
 
 Phases, one JSON line each: ``build``, ``kernels`` (bit-exact against the plain
 loop), ``oracle`` (bit-exact against the serial numpy simulators),
 ``main_path`` (one line per path: sweeps, invariants, repeat served from the
-store, sampled oracle rows) and ``timing`` (one line per body: the kernel, its
-plain version and its bound at a main-path shape). Then a ``{"kernels":
-[...]}`` line, the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``. Any failed phase raises: the exit code is then not 0 and
-no result line is printed. Needs one CUDA device, no network.
+store, sampled oracle rows), ``timing`` (one line per body: the kernel, its
+plain version and its bound at a main-path shape), ``lm_kernels`` (one line
+per language-model kernel: every case's max error beside its tolerance),
+``lm_main_path`` (one line per path: tokens per second, launch counts),
+``lm_parity``, ``lm_timing`` (one line per kernel and shape: the kernel, its
+plain version and one PyTorch call as a yardstick, each as device time from
+a replayed CUDA graph, and its bound) and ``lm_profile`` (where a decode
+step's time goes, over a window of eight steps). Then a ``{"kernels": [...]}`` line, the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any
+failed phase raises: the exit code is then not 0 and no result line is
+printed. Needs one CUDA device, no network.
 """
 from __future__ import annotations
 
@@ -52,12 +63,26 @@ from repro_torch.core import divisible as dv  # noqa: E402
 from repro_torch.core import oracle as orc  # noqa: E402
 from repro_torch.core import sweep as sw  # noqa: E402
 from repro_torch.core import topology as T  # noqa: E402
+from repro_torch.configs import get_config as get_lm_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import decode_attention as fd  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ws_sim as ws  # noqa: E402
 from repro_torch.kernels.ref import ws_sim_ref  # noqa: E402
+from repro_torch.launch.serve import Request, decode_batch  # noqa: E402
+from repro_torch.launch.steps import build_prefill_step  # noqa: E402
+from repro_torch.models import build_model as build_lm_model  # noqa: E402
 from repro_torch.service import SimulationService  # noqa: E402
 
 DEV = "cuda"
+# float32 products in full float32 (these are PyTorch's defaults for a matrix
+# product; set here so that no environment turns TF32 on for the float32
+# parity check of the language-model path)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
 
 # Peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM; 67 TFLOP/s of
 # float32 outside the tensor cores, i.e. 33.5e12 lane-operations a second with
@@ -801,6 +826,482 @@ def time_body(path: str, main: dict, reps: int) -> dict:
     return entry
 
 
+# ---------------------------------------------------------------------------
+# Language-model serving path: qwen3-1.7b at full width through the kernels
+# rms_norm, flash_attention and flash_decode.
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-1.7b"
+LM_SEED = 0
+# serve.py's defaults: 24 requests, prompt 16, 8 new tokens
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 24, 16, 8
+# production prefill (build_prefill_step): 4 prompts of 2048 tokens
+PREFILL_B, PREFILL_S = 4, 2048
+# the parity check of tests/test_models_smoke.py (decode vs forward)
+PARITY_B, PARITY_S = 2, 32
+# Tolerances of the JAX package's kernel tests (tests/test_kernels.py), as
+# assert_allclose's atol = rtol: attention 2e-5 in float32 and 2e-2 in
+# bfloat16; RMSNorm 1e-6 in float32 and 2e-2 in bfloat16.
+LM_TOL = {("attention", torch.float32): 2e-5,
+          ("attention", torch.bfloat16): 2e-2,
+          ("rms_norm", torch.float32): 1e-6,
+          ("rms_norm", torch.bfloat16): 2e-2}
+LM_KERNELS = ("rms_norm", "flash_attention", "flash_decode")
+LM_SOURCES = {"rms_norm": rn.KERNEL_SOURCE,
+              "flash_attention": fa.KERNEL_SOURCE,
+              "flash_decode": fd.KERNEL_SOURCE}
+LM_REPLACES = {"rms_norm": "src/repro/kernels/rmsnorm.py:36",
+               "flash_attention": "src/repro/kernels/flash_attention.py:98",
+               "flash_decode": "src/repro/kernels/decode_attention.py:85"}
+# Peaks of one H100 SXM (NVIDIA's data sheet, dense): the operations of a
+# function bound it at the peak for its operands' type — bf16 on the tensor
+# cores, float32 outside them (TF32 would change the numbers).
+FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+#: the worst |kernel - plain| per kernel over every comparison of this run
+LM_WORST = dict.fromkeys(LM_KERNELS, 0.0)
+
+
+def lm_compare(kernel: str, got, want, tol: float, what: str) -> dict:
+    """``got`` against ``want`` as ``assert_allclose(atol=tol, rtol=tol)``;
+    returns the case's line (max abs error, the worst share of the allowed
+    error) or raises."""
+    g, w = got.float(), want.float()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{kernel} {what}: {tuple(got.shape)} "
+                             f"{got.dtype} vs {tuple(want.shape)} "
+                             f"{want.dtype}")
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{kernel} {what}: non-finite output")
+    err = (g - w).abs()
+    share = float((err / (tol + tol * w.abs())).max())
+    max_err = float(err.max())
+    LM_WORST[kernel] = max(LM_WORST[kernel], max_err)
+    if share > 1.0:
+        raise AssertionError(f"{kernel} {what}: max abs error {max_err} "
+                             f"exceeds the tolerance {tol} (x{share:.3f})")
+    return dict(case=what, max_abs_err=max_err, tol=tol,
+                share_of_tol=share)
+
+
+def lm_randn(gen, shape, dtype, scale: float = 1.0):
+    return (torch.randn(shape, generator=gen, device=DEV) * scale).to(dtype)
+
+
+def lm_rms_cases(gen, dtype):
+    """(rows, D) of the serving path — decode: norm1/norm2/final (24, 2048),
+    q_norm (24 x 16, 128), k_norm (24 x 8, 128); prefill: (8192, 2048),
+    (8192 x 16, 128), (8192 x 8, 128) — and tests/test_kernels.py's
+    shapes (100 rows: a ragged block)."""
+    shapes = ((24, 2048), (384, 128), (192, 128), (8192, 2048),
+              (131072, 128), (65536, 128), (64, 256), (100, 512),
+              (128, 1024), (1, 128), (7, 100))
+    tol = LM_TOL[("rms_norm", dtype)]
+    out = []
+    for R, D in shapes:
+        x = lm_randn(gen, (R, D), dtype, 3.0)
+        s = lm_randn(gen, (D,), dtype)
+        got = ops.rms_norm(x, s, 1e-6)
+        torch.cuda.synchronize()
+        out.append(lm_compare("rms_norm", got, rn.rms_norm_ref(x, s, 1e-6),
+                              tol, f"{dtype} ({R}, {D})"))
+    return out
+
+
+def lm_attention_cases(gen, dtype):
+    """(B, Sq, Skv, H, KV, hd, causal, window, q_offset): the prefill shape,
+    tests/test_kernels.py's shapes (Sq = 100 and 192: ragged q and kv
+    tiles; windows; non-causal), a q_offset, a window at hd 128."""
+    cases = ((PREFILL_B, PREFILL_S, PREFILL_S, 16, 8, 128, True, 0, 0),
+             (2, 128, 128, 4, 2, 64, True, 0, 0),
+             (1, 256, 256, 4, 4, 32, True, 64, 0),
+             (2, 100, 100, 2, 1, 16, True, 0, 0),
+             (1, 64, 64, 8, 2, 128, False, 0, 0),
+             (1, 192, 192, 6, 3, 32, True, 32, 0),
+             (2, 50, 80, 4, 2, 128, True, 0, 30),
+             (2, 33, 33, 16, 8, 128, True, 7, 0))
+    tol = LM_TOL[("attention", dtype)]
+    out = []
+    for B, Sq, Skv, H, KV, hd, causal, win, qo in cases:
+        q = lm_randn(gen, (B, Sq, H, hd), dtype)
+        k = lm_randn(gen, (B, Skv, KV, hd), dtype)
+        v = lm_randn(gen, (B, Skv, KV, hd), dtype)
+        kw = dict(causal=causal, window=win, q_offset=qo)
+        got = ops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        out.append(lm_compare(
+            "flash_attention", got, fa.flash_attention_ref(q, k, v, **kw),
+            tol, f"{dtype} q{(B, Sq, H, hd)} kv{(Skv, KV)} causal={causal} "
+                 f"window={win} q_offset={qo}"))
+    return out
+
+
+def lm_decode_cases(gen, dtype):
+    """(B, Smax, kv_len, H, KV, hd, window): every kv_len of the serving
+    path (Smax = 24), a long cache, tests/test_kernels.py's shapes
+    (kv_len < Smax, a window), kv_len = 1; each with q of the cache's type
+    and with a float32 q (the prefill default: bf16 cache, f32 q)."""
+    cases = [(SERVE_REQUESTS, SERVE_PROMPT + SERVE_NEW, n, 16, 8, 128, 0)
+             for n in range(1, SERVE_PROMPT + SERVE_NEW + 1)]
+    cases += [(SERVE_REQUESTS, 2048, 2048, 16, 8, 128, 0),
+              (2, 256, 200, 4, 2, 64, 0), (1, 512, 512, 8, 8, 32, 0),
+              (2, 256, 100, 4, 1, 64, 64), (1, 384, 300, 4, 2, 128, 0),
+              (3, 40, 1, 4, 2, 16, 0), (3, 40, 39, 4, 2, 16, 5)]
+    out = []
+    for B, Smax, kvl, H, KV, hd, win in cases:
+        kc = lm_randn(gen, (B, Smax, KV, hd), dtype)
+        vc = lm_randn(gen, (B, Smax, KV, hd), dtype)
+        for qdt in dict.fromkeys((dtype, torch.float32)):
+            q = lm_randn(gen, (B, 1, H, hd), qdt)
+            got = ops.flash_decode(q, kc, vc, kvl, window=win)
+            torch.cuda.synchronize()
+            want = fd.decode_attention_ref(q, kc, vc, kvl, window=win)
+            out.append(lm_compare(
+                "flash_decode", got, want, LM_TOL[("attention", qdt)],
+                f"q {qdt} cache {dtype} (B={B}, Smax={Smax}, kv_len={kvl}, "
+                f"H={H}, KV={KV}, hd={hd}) window={win}"))
+    return out
+
+
+def phase_lm_kernels():
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(LM_SEED)
+    lines = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for kernel, cases in (("rms_norm", lm_rms_cases),
+                              ("flash_attention", lm_attention_cases),
+                              ("flash_decode", lm_decode_cases)):
+            lines.setdefault(kernel, []).extend(cases(gen, dtype))
+    for kernel, cases in lines.items():
+        worst = max(cases, key=lambda c: c["share_of_tol"])
+        say("lm_kernels", kernel=kernel, cases=len(cases),
+            max_abs_err=LM_WORST[kernel], worst_case=worst,
+            every_case=[(c["case"], c["max_abs_err"], c["tol"])
+                        for c in cases])
+    say("lm_kernels_done", seconds=round(time.perf_counter() - t0, 3))
+
+
+def tree_to(tree, dtype):
+    return {k: tree_to(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+def reset_all_counts() -> None:
+    """Set the launch count of every kernel of the port to 0."""
+    ops.reset_counts()
+    ws.reset_counts()
+
+
+def lm_counts_since_reset(**want) -> dict:
+    """Every kernel's launches since ``reset_all_counts()``: those of
+    ``want`` must be as given, every other kernel's 0."""
+    counts = {**ops.launch_counts(), **ws.ws_sim_cuda.launches_by_body}
+    expect = {k: want.get(k, 0) for k in counts}
+    if counts != expect:
+        raise AssertionError(f"launched {counts}, the config implies "
+                             f"{expect}")
+    return {k: counts[k] for k in LM_KERNELS}
+
+
+def phase_lm_main_path() -> dict:
+    """(a) serving: decode_batch at serve.py's defaults; (b) production
+    prefill: build_prefill_step on 4 x 2048 tokens; each counted on its own;
+    then the full-width float32 parity of forward and sequential prefill."""
+    cfg = get_lm_config(LM_ARCH)
+    model = build_lm_model(cfg)                       # device=None: the card
+    t0 = time.perf_counter()
+    params = model.init_params(
+        torch.Generator(device=DEV).manual_seed(LM_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(LM_SEED)
+    reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab_size,
+                                               SERVE_PROMPT).astype(np.int32),
+                    max_new=SERVE_NEW) for i in range(SERVE_REQUESTS)]
+    decode_batch(model, params, reqs)                       # warm (cuBLAS)
+    # ---- (a) the run that is counted: every count at 0 just before --------
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = decode_batch(model, params, reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    steps = SERVE_PROMPT + SERVE_NEW
+    L = cfg.n_layers
+    # read just after: per step and layer norm1, q_norm, k_norm, norm2 and
+    # one decode attention; per step the final norm
+    serve_counts = lm_counts_since_reset(rms_norm=steps * (4 * L + 1),
+                                         flash_decode=steps * L)
+    if tokens.shape != (SERVE_REQUESTS, SERVE_NEW) or tokens.dtype != \
+            np.int32 or tokens.min() < 0 or tokens.max() >= cfg.padded_vocab:
+        raise AssertionError(f"decode_batch returned {tokens.shape} "
+                             f"{tokens.dtype} in [{tokens.min()}, "
+                             f"{tokens.max()}]")
+    serve = dict(requests=SERVE_REQUESTS, prompt=SERVE_PROMPT,
+                 new_tokens=SERVE_NEW, decode_steps=steps,
+                 wall_seconds=serve_s,
+                 tokens_per_second=SERVE_REQUESTS * SERVE_NEW / serve_s,
+                 prompt_and_new_tokens_per_second=(
+                     SERVE_REQUESTS * steps / serve_s),
+                 ms_per_decode_step=serve_s / steps * 1e3,
+                 launches=serve_counts, sample=tokens[0].tolist())
+    say("lm_main_path", path="serve.decode_batch", arch=LM_ARCH,
+        params=model.param_count(), param_dtype=cfg.param_dtype,
+        init_seconds=init_s, card=card_line(), **serve)
+    # ---- (b) production prefill -------------------------------------------
+    step = build_prefill_step(model)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S)),
+        dtype=torch.int64, device=DEV)}
+    step(params, batch)                                     # warm
+    reset_all_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_counts = lm_counts_since_reset(rms_norm=4 * L + 1,
+                                           flash_attention=L)
+    if logits.shape != (PREFILL_B, 1, cfg.padded_vocab) or \
+            logits.dtype != torch.float32 or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                             f"{logits.dtype} or not finite")
+    prefill = dict(batch=PREFILL_B, seq=PREFILL_S, wall_seconds=prefill_s,
+                   tokens_per_second=PREFILL_B * PREFILL_S / prefill_s,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   launches=prefill_counts)
+    say("lm_main_path", path="steps.build_prefill_step", arch=LM_ARCH,
+        card=card_line(), **prefill)
+    # ---- float32 parity at full width (tests/test_models_smoke.py) --------
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    model32 = build_lm_model(cfg32)
+    params32 = tree_to(params, torch.float32)               # exact
+    del params
+    tk = torch.as_tensor(rng.integers(0, cfg.vocab_size, (PARITY_B, PARITY_S)),
+                         dtype=torch.int64, device=DEV)
+    fwd = model32.forward(params32, {"tokens": tk})[:, -1]
+    _cache, dec = model32.prefill(params32, {"tokens": tk}, max_seq=PARITY_S,
+                                  dtype=torch.float32)
+    diff = float((fwd - dec[:, 0]).abs().max())
+    tol = 1e-3 * float(fwd.abs().max()) + 1e-3
+    if not diff < tol or not bool(torch.isfinite(fwd).all()):
+        raise AssertionError(f"full-width float32 forward and sequential "
+                             f"prefill differ by {diff} (tolerance {tol})")
+    say("lm_parity", arch=LM_ARCH, param_dtype="float32", batch=PARITY_B,
+        seq=PARITY_S, max_abs_diff=diff, tol=tol,
+        max_abs_logit=float(fwd.abs().max()))
+    del params32
+    return dict(serve=serve, prefill=prefill)
+
+
+def eager_ms(fn, reps: int) -> float:
+    """CUDA events around ``reps`` calls launched from Python: for a small
+    kernel this is the rate at which the host launches calls, not the
+    kernel's time."""
+    fn()                                                    # warm
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one call: ``reps`` calls captured in one CUDA graph,
+    the graph replayed between two CUDA events, so that no host work
+    (Python, checks, ctypes) sits between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                           # warm
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / reps
+
+
+def lm_times(kernel, plain, library, reps: int, plain_reps: int) -> dict:
+    """The kernel, its plain version and the library call, each as device
+    time (``graph_ms``); the kernel also as launched from Python."""
+    return dict(ms=graph_ms(kernel, reps),
+                ms_launched_from_python=eager_ms(kernel, reps),
+                plain_ms=graph_ms(plain, plain_reps),
+                library_ms=graph_ms(library, reps))
+
+
+def lm_bound(bytes_moved: int, flops: int, dtype) -> tuple:
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FLOPS_PER_S[dtype] * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return max(bytes_ms, ops_ms), by, dict(bytes=bytes_moved, flops=flops,
+                                           bytes_ms=bytes_ms, ops_ms=ops_ms)
+
+
+def lm_time_rms(gen, R: int, D: int, reps: int) -> dict:
+    dt = torch.bfloat16
+    x, s = lm_randn(gen, (R, D), dt, 3.0), lm_randn(gen, (D,), dt)
+    # read x and scale, write out; square, add, two multiplies per element
+    bound, by, detail = lm_bound((2 * R * D + D) * 2, 4 * R * D, dt)
+    return dict(shape=dict(rows=R, D=D, dtype="bfloat16"),
+                **lm_times(lambda: ops.rms_norm(x, s, 1e-6),
+                           lambda: rn.rms_norm_ref(x, s, 1e-6),
+                           lambda: torch.nn.functional.rms_norm(
+                               x, (D,), s, 1e-6), reps, reps),
+                bound_ms=bound, bound_by=by, bound_detail=detail)
+
+
+def lm_time_attention(gen, B: int, S: int, reps: int) -> dict:
+    dt, H, KV, hd = torch.bfloat16, 16, 8, 128
+    q = lm_randn(gen, (B, S, H, hd), dt)
+    k, v = lm_randn(gen, (B, S, KV, hd), dt), lm_randn(gen, (B, S, KV, hd), dt)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pairs = S * (S + 1) // 2                       # causal (q, k) pairs
+    bound, by, detail = lm_bound(2 * (2 * q.numel() + 2 * k.numel()),
+                                 B * H * pairs * 4 * hd, dt)
+    return dict(shape=dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype="bfloat16",
+                           causal=True),
+                **lm_times(
+                    lambda: ops.flash_attention(q, k, v),
+                    lambda: fa.flash_attention_ref(q, k, v),
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True),
+                    reps, 2),
+                bound_ms=bound, bound_by=by, bound_detail=detail)
+
+
+def lm_time_decode(gen, B: int, Smax: int, kv_len: int, reps: int) -> dict:
+    dt, H, KV, hd = torch.bfloat16, 16, 8, 128
+    q = lm_randn(gen, (B, 1, H, hd), dt)
+    kc, vc = (lm_randn(gen, (B, Smax, KV, hd), dt) for _ in range(2))
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (c[:, :kv_len].transpose(1, 2).contiguous() for c in (kc, vc))
+    # q in, the kv_len valid rows of both caches, out
+    bound, by, detail = lm_bound(2 * (2 * q.numel() + 2 * B * kv_len * KV * hd),
+                                 B * H * kv_len * 4 * hd, dt)
+    return dict(shape=dict(B=B, Smax=Smax, kv_len=kv_len, H=H, KV=KV, hd=hd,
+                           dtype="bfloat16"),
+                **lm_times(
+                    lambda: ops.flash_decode(q, kc, vc, kv_len),
+                    lambda: fd.decode_attention_ref(q, kc, vc, kv_len),
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, enable_gqa=True), reps, reps),
+                bound_ms=bound, bound_by=by, bound_detail=detail)
+
+
+PROFILE_STEPS = 8      # decode steps in the profiled window
+
+
+def lm_profile_decode_step() -> dict:
+    """Where a decode step's time goes: torch.profiler over one window of
+    PROFILE_STEPS serving-path decode steps (full width, bf16, the batch of
+    phase lm_main_path), device time by kernel against that same window's
+    wall time. The profiler adds host time of its own, so the window's
+    unprofiled twin (the next PROFILE_STEPS steps) is timed beside it."""
+    cfg = get_lm_config(LM_ARCH)
+    model = build_lm_model(cfg)
+    params = model.init_params(
+        torch.Generator(device=DEV).manual_seed(LM_SEED))
+    B, S = SERVE_REQUESTS, SERVE_PROMPT + SERVE_NEW
+    cache = model.init_cache(B, S)
+    tok = torch.zeros((B, 1), dtype=torch.int64, device=DEV)
+    warm = 3
+    for pos in range(warm):
+        model.decode_step(params, cache, tok, pos)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for pos in range(warm, warm + PROFILE_STEPS):
+            logits, _ = model.decode_step(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("bf16 decode step: non-finite logits")
+    # device-side events only (kernels, copies): an operator's own row
+    # would count its kernels' time a second time
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    # the next PROFILE_STEPS steps without the profiler's cost
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pos in range(warm + PROFILE_STEPS, warm + 2 * PROFILE_STEPS):
+        model.decode_step(params, cache, tok, pos)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    n = PROFILE_STEPS
+    out = dict(steps=n, wall_ms_per_step_profiled=wall_ms / n,
+               wall_ms_per_step=plain_wall_ms / n,
+               device_ms_per_step=device_ms / n if rows else "not measured",
+               # one window: its traced device time over its own wall time
+               device_idle_share=(1 - device_ms / wall_ms) if rows
+               else "not measured",
+               kernel_launches_per_step=sum(r[2] for r in rows) / n,
+               top=[dict(name=n_[:80], ms_per_step=ms / n, count=c)
+                    for n_, ms, c in rows[:12]])
+    del params
+    return out
+
+
+def phase_lm_timing(main: dict) -> list:
+    gen = torch.Generator(device=DEV).manual_seed(LM_SEED + 1)
+    serve_kv = SERVE_PROMPT + SERVE_NEW
+    shapes = {
+        "rms_norm": [lm_time_rms(gen, PREFILL_B * PREFILL_S, 2048, 50),
+                     lm_time_rms(gen, PREFILL_B * PREFILL_S * 16, 128, 50),
+                     lm_time_rms(gen, SERVE_REQUESTS, 2048, 200)],
+        "flash_attention": [lm_time_attention(gen, PREFILL_B, PREFILL_S, 10)],
+        "flash_decode": [lm_time_decode(gen, SERVE_REQUESTS, serve_kv,
+                                        serve_kv, 200),
+                         lm_time_decode(gen, SERVE_REQUESTS, 2048, 2048, 50)],
+    }
+    for kernel, rows in shapes.items():
+        for r in rows:
+            say("lm_timing", kernel=kernel, card=card_line(), **r)
+    profile = lm_profile_decode_step()
+    say("lm_profile", what="decode steps, serving path", card=card_line(),
+        **profile)
+    launches = {k: main["serve"]["launches"][k] + main["prefill"]["launches"][k]
+                for k in LM_KERNELS}
+    entries = []
+    for kernel, rows in shapes.items():
+        head = rows[0]          # the main path's shape (prefill; decode: a)
+        entries.append({
+            "name": kernel, "route": "cuda", "source": LM_SOURCES[kernel],
+            "replaces": LM_REPLACES[kernel], "launches": launches[kernel],
+            "launches_by_path": {
+                "serve.decode_batch": main["serve"]["launches"][kernel],
+                "steps.build_prefill_step":
+                    main["prefill"]["launches"][kernel]},
+            "max_abs_err": LM_WORST[kernel], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shape": head["shape"], "other_shapes": rows[1:]})
+    return entries
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -816,8 +1317,9 @@ def main():
     seconds = _build.build_all()
     ws._lib()
     say("build", seconds=seconds, directory=str(_build.build_dir()),
-        ptxas=[l for log in _build.build_logs.values()
-               for l in log.splitlines() if "registers" in l or "spill" in l])
+        ptxas={name: [l.strip() for l in log.splitlines()
+                      if "registers" in l or "spill" in l]
+               for name, log in _build.build_logs.items()})
     # 2, 3. each body against its plain version and the oracle
     phase_kernels_and_oracle()
     # 4. the main paths, each counted on its own
@@ -828,6 +1330,11 @@ def main():
     entries = [time_body(path, main_out[path],
                          reps=5 if path == "divisible" else 3)
                for path in MAIN_PATHS]
+    # 6-8. the language-model serving path: its kernels against their plain
+    # versions, its two main paths counted, the kernels' times
+    phase_lm_kernels()
+    lm_main = phase_lm_main_path()
+    entries += phase_lm_timing(lm_main)
     say("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card_line(), flush=True)

@@ -54,13 +54,14 @@ hashable (frozen-dataclass) object implementing:
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import topology as topo_mod
 from repro_torch.core.topology import Topology
+from repro_torch.device import DeviceLike, resolve_device  # noqa: F401
 
 INF32 = np.int32(2**31 - 1)
 
@@ -85,20 +86,6 @@ EV_ANS_OK = 4        # aux = stolen amount
 
 I32 = torch.int32
 I64 = torch.int64
-
-DeviceLike = Union[None, str, torch.device]
-
-
-def resolve_device(device: DeviceLike) -> torch.device:
-    """The device rule of every entry point: ``None`` means the card, and
-    raises without one; the CPU is used only when asked for by name."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: this entry point runs on the GPU unless "
-                "device='cpu' is passed explicitly")
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
 
 
 class Scenario(NamedTuple):

@@ -1,0 +1,110 @@
+"""Flash attention: the wrapper of the hand-written Hopper kernel
+``csrc/flash_attention.cu`` and its plain version.
+
+It replaces ``flash_attention`` of the JAX package's
+``kernels/flash_attention.py`` (the algorithm of
+``models/attention.py::chunked_attention``): causal or sliding-window
+grouped-query attention, q ``(B, Sq, H, hd)``, k and v ``(B, Skv, KV, hd)``,
+query head ``h`` reading KV head ``h // (H // KV)``, masks ``kpos < Skv``,
+``kpos <= qpos`` (causal) and ``kpos > qpos - window`` (window > 0), with
+``qpos = q_offset + row``. The design, and what bounds the kernel on this
+card, are written at the head of the CUDA source.
+
+:func:`flash_attention` launches the kernel for tensors on a CUDA device and
+raises if it cannot; only for tensors that lie on the CPU does it run the
+plain version :func:`flash_attention_ref`. ``flash_attention.launches``
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import torch
+
+from repro_torch.kernels import _lm
+
+KERNEL_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0) -> torch.Tensor:
+    """The plain version: the whole (Sq, Skv) score matrix in float32, q
+    scaled in float32 first as the kernel does, masked with -1e30, a
+    softmax, the product with v; cast to q's dtype. As in the Pallas kernel,
+    a window masks whether or not the attention is causal."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    kf = k.float().repeat_interleave(G, dim=2)
+    vf = v.float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, kf)
+    qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    keep = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kpos <= qpos
+    if window > 0:
+        keep &= kpos > qpos - window
+    s = torch.where(keep, s, _lm.NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def _check(q, k, v, window: int, q_offset: int) -> None:
+    for t, what in ((q, "q"), (k, "k"), (v, "v")):
+        _lm.check_dtype(t, f"flash_attention {what}")
+        if t.ndim != 4:
+            raise ValueError(f"flash_attention {what}: expected 4 dims, got "
+                             f"{tuple(t.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"flash_attention: q, k, v are {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    B, _, H, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd \
+            or H % k.shape[2]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
+    if window < 0 or q_offset < 0:
+        raise ValueError(f"flash_attention: window {window} and q_offset "
+                         f"{q_offset} must be >= 0")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q (B, Sq, H, hd); k/v (B, Skv, KV, hd) -> (B, Sq, H, hd); q is
+    scaled by hd ** -0.5."""
+    _check(q, k, v, window, q_offset)
+    dev = _lm.check_same_device("flash_attention", q, k, v)
+    if dev.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if hd not in _lm.HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel: head_dim {hd} is not one "
+                         f"of {_lm.HEAD_DIMS}")
+    for t, what in ((q, "q"), (k, "k"), (v, "v")):
+        _lm.check_kernel_operand(t, f"flash_attention {what}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if Skv == 0:
+        raise ValueError("flash_attention: no key to attend to (Skv = 0)")
+    scale = hd ** -0.5
+    lib = _lm.bind("flash_attention", _ARGTYPES)
+    with torch.cuda.device(dev):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Skv, H, KV, hd, int(q_offset), int(bool(causal)), int(window),
+            float(scale), _lm.DTYPE_CODES[q.dtype], _lm.stream_of(dev))
+    _lm.raise_on_error(lib, "flash_attention", err,
+                       f"q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}")
+    flash_attention.launches += 1
+    return out
+
+
+#: kernel launches made by this process through :func:`flash_attention`
+flash_attention.launches = 0

@@ -1,0 +1,68 @@
+"""Fused RMSNorm: the wrapper of the hand-written Hopper kernel
+``csrc/rmsnorm.cu`` and its plain version.
+
+It replaces ``rms_norm`` of the JAX package's ``kernels/rmsnorm.py`` (the
+function of ``models/layers.py::rms_norm``): ``x * rsqrt(mean(x²) + eps) *
+scale`` over the last axis, statistics in float32, cast back to ``x``'s type.
+The design, and what bounds the kernel on this card, are written at the head
+of the CUDA source.
+
+:func:`rms_norm` launches the kernel for tensors on a CUDA device and raises
+if it cannot; only for tensors that lie on the CPU does it run the plain
+version :func:`rms_norm_ref`. ``rms_norm.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _lm
+
+KERNEL_SOURCE = "src/repro_torch/kernels/csrc/rmsnorm.cu"
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+             ctypes.c_void_p]
+
+
+def rms_norm_ref(x: torch.Tensor, scale: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """The plain version: the same arithmetic in PyTorch operations."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """x (..., D); scale (D,) of x's dtype (float32 or bfloat16)."""
+    _lm.check_dtype(x, "rms_norm x")
+    if scale.dtype != x.dtype:
+        raise TypeError(f"rms_norm: scale is {scale.dtype}, x is {x.dtype}")
+    D = x.shape[-1] if x.ndim else 0
+    if x.ndim < 1 or tuple(scale.shape) != (D,):
+        raise ValueError(f"rms_norm: x {tuple(x.shape)} and scale "
+                         f"{tuple(scale.shape)} do not fit")
+    dev = _lm.check_same_device("rms_norm", x, scale)
+    if dev.type == "cpu":
+        return rms_norm_ref(x, scale, eps)
+    _lm.check_kernel_operand(x, "rms_norm x")
+    _lm.check_kernel_operand(scale, "rms_norm scale")
+    out = torch.empty_like(x)
+    rows = x.numel() // D if D else 0
+    if rows == 0:
+        return out
+    lib = _lm.bind("rmsnorm", _ARGTYPES)
+    with torch.cuda.device(dev):
+        err = lib.rmsnorm_launch(x.data_ptr(), scale.data_ptr(),
+                                 out.data_ptr(), rows, D, float(eps),
+                                 _lm.DTYPE_CODES[x.dtype], _lm.stream_of(dev))
+    _lm.raise_on_error(lib, "rmsnorm", err, f"rows={rows}, D={D}, {x.dtype}")
+    rms_norm.launches += 1
+    return out
+
+
+#: kernel launches made by this process through :func:`rms_norm`
+rms_norm.launches = 0

@@ -1,0 +1,146 @@
+"""Layer blocks: init + apply for the (mixer, ffn) slot kinds of this slice.
+
+A *slot* is one layer of the repeating pattern. Parameters of a slot are
+stacked over the ``repeats`` axis, as in the JAX package; the model indexes
+layer ``r`` out of the stack (a view, no copy). Every block is
+residual-pre-norm.
+
+This slice ports mixer ``attn`` with ffn ``dense`` (and ``none``). The other
+mixers (``xattn``, ``mamba``, ``mlstm``, ``slstm``), ffn ``moe`` and
+context-parallel decode (``cp_axes``) raise ``NotImplementedError``: they
+come with later slices of the language-model substrate (ROADMAP Queue A 13).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (apply_rope, dense, device_of,
+                                       init_dense, init_scale, rms_norm)
+from repro_torch.models.mlp import mlp_apply, mlp_init
+
+
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: it comes with a later slice of the "
+        f"language-model substrate (ROADMAP Queue A 13)")
+
+
+def check_slot(mixer: str, ffn: str) -> None:
+    if mixer != "attn":
+        raise not_ported(f"mixer {mixer!r}")
+    if ffn not in ("dense", "none"):
+        raise not_ported(f"ffn {ffn!r}")
+
+
+def _attn_init(gen: Optional[torch.Generator], cfg: ArchConfig, dtype) -> Dict:
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = {
+        "wq": init_dense(gen, D, H * hd, dtype),
+        "wk": init_dense(gen, D, KV * hd, dtype),
+        "wv": init_dense(gen, D, KV * hd, dtype),
+        "wo": init_dense(gen, H * hd, D, dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = init_scale(hd, dtype, device_of(gen))
+        p["k_norm"] = init_scale(hd, dtype, device_of(gen))
+    return p
+
+
+def slot_init(gen: Optional[torch.Generator], cfg: ArchConfig, mixer: str, ffn: str,
+              dtype) -> Dict:
+    """One layer's parameters, drawn from ``gen`` on its device (``None``:
+    on the meta device, shapes only)."""
+    check_slot(mixer, ffn)
+    p: Dict = {"norm1": init_scale(cfg.d_model, dtype, device_of(gen)),
+               "attn": _attn_init(gen, cfg, dtype)}
+    if ffn != "none":
+        p["norm2"] = init_scale(cfg.d_model, dtype, device_of(gen))
+        p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, cfg.act)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# apply
+# ---------------------------------------------------------------------------
+
+def _qkv(p: Dict, cfg: ArchConfig, x, positions):
+    """Projections, qk-norm and RoPE of one attention layer: q (B,S,H,hd),
+    k and v (B,S,KV,hd)."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = dense(x, p["wq"]).reshape(B, S, H, hd)
+    k = dense(x, p["wk"]).reshape(B, S, KV, hd)
+    v = dense(x, p["wv"]).reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attention_apply(p: Dict, cfg: ArchConfig, x, positions, *,
+                     causal: bool):
+    """x (B,S,D) -> (B,S,D)."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, positions)
+    o = attn_mod.chunked_attention(q, k, v, causal=causal,
+                                   window=cfg.sliding_window)
+    return dense(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"])
+
+
+def slot_apply(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x, positions,
+               *, causal: bool = True) -> torch.Tensor:
+    """One layer over a whole sequence. Returns x (the MoE auxiliary loss of
+    the JAX package's ``slot_apply`` comes with the MoE slice)."""
+    check_slot(mixer, ffn)
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    x = x + _attention_apply(p["attn"], cfg, h, positions, causal=causal)
+    if ffn != "none":
+        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+        x = x + mlp_apply(p["ffn"], h2, cfg.act)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# decode-step apply (single token, stateful caches)
+# ---------------------------------------------------------------------------
+
+def slot_cache_init(cfg: ArchConfig, mixer: str, batch: int, max_seq: int,
+                    dtype, device=None) -> Dict:
+    if mixer != "attn":
+        raise not_ported(f"mixer {mixer!r}")
+    shape = (batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def slot_decode(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x,
+                cache: Dict, pos: int, cp_axes=None) -> Tuple[torch.Tensor,
+                                                              Dict]:
+    """x (B,1,D); pos the 0-based index of this token (a Python int).
+
+    Writes the token's k and v into ``cache`` in place (cast to the cache's
+    dtype), attends over the cache's first ``pos + 1`` positions and
+    returns (x, cache).
+    """
+    check_slot(mixer, ffn)
+    if cp_axes:
+        raise not_ported("context-parallel decode (cp_axes)")
+    B = x.shape[0]
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    pp = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(p["attn"], cfg, h, pp)
+    cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+    o = attn_mod.decode_attention(q, cache["k"], cache["v"], pos + 1,
+                                  window=cfg.sliding_window)
+    x = x + dense(o.reshape(B, 1, cfg.n_heads * cfg.hd), p["attn"]["wo"])
+    if ffn != "none":
+        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+        x = x + mlp_apply(p["ffn"], h2, cfg.act)
+    return x, cache

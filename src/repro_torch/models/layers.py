@@ -1,0 +1,106 @@
+"""Basic layers: norms, projections, embeddings, rotary embeddings.
+
+All layers are functions over explicit parameter dicts of tensors, as in the
+JAX package. Parameters are stored in ``param_dtype`` (bf16 by default);
+layer math upcasts to float32 where it matters (norms, softmax, rotary).
+Dense weights are ``(d_in, d_out)`` and apply as ``x @ w``, so the JAX
+package's weights carry across as they are.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis, through the ``rms_norm`` kernel."""
+    return ops.rms_norm(x, scale, eps)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with float32 accumulation, cast back to x's dtype. cuBLAS
+    accumulates bf16 products in float32; on the CPU the product of the
+    float32 copies gives the same (every bf16 product is exact in float32)."""
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        return (x.float() @ w.float()).to(x.dtype)
+    return x @ w
+
+
+def logits_f32(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """x @ head in float32 from operands of any float type (the JAX
+    package's ``preferred_element_type=float32``): a bf16 product would round
+    the logits and make greedy ties that the reference does not have. On
+    the card a bf16 product is written straight to float32 (cuBLAS, float32
+    accumulation), with no float32 copy of the head; elsewhere the float32
+    copies are multiplied (every bf16 product is exact in float32)."""
+    if x.dtype == head.dtype == torch.bfloat16 and x.is_cuda:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), head,
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], head.shape[-1])
+    return x.float() @ head.float()
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S). Computed in
+    float32 and cast back."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)              # (hd/2,)
+    angles = positions[..., :, None].float() * freqs           # (..., S, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]                   # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Initializers: random weights from an explicit generator, on its device.
+# ``gen=None`` gives tensors on the meta device: shapes, no allocation.
+# ---------------------------------------------------------------------------
+
+def device_of(gen: Optional[torch.Generator]) -> torch.device:
+    return torch.device(gen.device) if gen is not None \
+        else torch.device("meta")
+
+
+def init_dense(gen: Optional[torch.Generator], d_in: int, d_out: int,
+               dtype) -> torch.Tensor:
+    if gen is None:
+        return torch.empty((d_in, d_out), dtype=dtype, device="meta")
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w / math.sqrt(d_in)).to(dtype)
+
+
+def init_embed(gen: Optional[torch.Generator], vocab: int, d: int,
+               dtype) -> torch.Tensor:
+    if gen is None:
+        return torch.empty((vocab, d), dtype=dtype, device="meta")
+    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w * 0.02).to(dtype)
+
+
+def init_scale(d: int, dtype, device=None) -> torch.Tensor:
+    return torch.ones((d,), dtype=dtype, device=device)

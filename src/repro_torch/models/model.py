@@ -1,0 +1,207 @@
+"""Unified model for the decoder-only configurations of this slice:
+parameters, forward, cache init, single-token decode, sequential prefill.
+
+As in the JAX package, one class covers the ``pattern × repeats`` layer
+stack; the parameters are a nested dict of tensors whose leaves are stacked
+over ``repeats`` (the same tree as the JAX package's, so weights carry
+across leaf for leaf, see ``models/interop.py``). The layers run in a Python
+loop over the stack; every RMSNorm, attention and decode-attention goes
+through the port's kernels.
+
+A config with an encoder (the JAX package's ``_encode``,
+``_write_cross_cache``), a vision prefix, learned positions or parallel
+blocks is refused with ``NotImplementedError`` until its slice.
+
+Batch dict keys: ``tokens`` (B, S) integer token ids.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import blocks as blk
+from repro_torch.models.layers import (device_of, embed, init_dense,
+                                       init_embed, init_scale, logits_f32,
+                                       rms_norm)
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[
+        cfg.param_dtype]
+
+
+def _layer(tree: Dict, r: int) -> Dict:
+    """Layer ``r`` of a tree stacked over repeats (views, no copy)."""
+    return {k: _layer(v, r) if isinstance(v, dict) else v[r]
+            for k, v in tree.items()}
+
+
+class Model:
+    """``device``: where parameters, caches and activations live; ``None``
+    means the card, and raises without one (pass ``device="cpu"`` to run on
+    the CPU)."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        for flag, what in ((cfg.is_encoder_decoder, "the encoder "
+                            "(_encode, _write_cross_cache)"),
+                           (cfg.vision_prefix_len, "vision prefixes"),
+                           (cfg.learned_pos, "learned positions"),
+                           (cfg.parallel_block, "parallel blocks")):
+            if flag:
+                raise blk.not_ported(f"{cfg.name}: {what}")
+        for mixer, ffn in cfg.pattern:
+            blk.check_slot(mixer, ffn)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    # ------------------------------------------------------------------
+    # parameters
+    # ------------------------------------------------------------------
+    def init_params(self, generator: torch.Generator) -> Dict:
+        """Random weights drawn from ``generator``, which must be a
+        generator of this model's device. They differ from the JAX
+        package's for the same seed; carry its weights across with
+        ``models.interop.params_from_jax`` to compare the two."""
+        if device_of(generator).type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, model on "
+                             f"{self.device}")
+        return self._init(generator)
+
+    def _init(self, gen) -> Dict:
+        cfg = self.cfg
+        dt = _dtype(cfg)
+        params: Dict = {
+            "tok_embed": init_embed(gen, cfg.padded_vocab, cfg.d_model, dt),
+            "final_norm": init_scale(cfg.d_model, dt, device_of(gen)),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = init_dense(gen, cfg.d_model,
+                                           cfg.padded_vocab, dt)
+        layers = {}
+        for j, (mixer, ffn) in enumerate(cfg.pattern):
+            slots = [blk.slot_init(gen, cfg, mixer, ffn, dt)
+                     for _ in range(cfg.repeats)]
+            layers[f"slot{j}"] = _stack(slots)
+        params["layers"] = layers
+        return params
+
+    def param_shapes(self) -> Dict:
+        """The parameter tree as (shape, dtype) leaves, allocating nothing."""
+        return _tree_map(lambda t: (tuple(t.shape), t.dtype),
+                         self._init(None))
+
+    def param_count(self) -> int:
+        return int(sum(math.prod(s) for s, _ in
+                       _leaves(self.param_shapes())))
+
+    # ------------------------------------------------------------------
+    # forward
+    # ------------------------------------------------------------------
+    def hidden_states(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """The final-normed hidden states (B, S, D) of ``forward``."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = embed(tokens, params["tok_embed"])
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+        for r in range(cfg.repeats):
+            slot_params = _layer(params["layers"], r)
+            for j, (mixer, ffn) in enumerate(cfg.pattern):
+                x = blk.slot_apply(slot_params[f"slot{j}"], cfg, mixer, ffn,
+                                   x, positions, causal=cfg.causal)
+        return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+    def head(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
+        """Logits (..., Vpad) in float32 from hidden states."""
+        w = (params["tok_embed"].T if self.cfg.tie_embeddings
+             else params["lm_head"])
+        return logits_f32(x, w)
+
+    def forward(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """Returns logits (B, S, Vpad) in float32 (the MoE auxiliary loss of
+        the JAX package's ``forward`` comes with the MoE slice)."""
+        return self.head(params, self.hidden_states(params, batch))
+
+    # ------------------------------------------------------------------
+    # serving: cache init + single-token decode
+    # ------------------------------------------------------------------
+    def init_cache(self, batch_size: int, max_seq: int,
+                   dtype=torch.bfloat16) -> Dict:
+        cfg = self.cfg
+        cache: Dict = {"layers": {}}
+        for j, (mixer, _ffn) in enumerate(cfg.pattern):
+            one = blk.slot_cache_init(cfg, mixer, batch_size, max_seq, dtype,
+                                      self.device)
+            cache["layers"][f"slot{j}"] = {
+                k: torch.zeros((cfg.repeats,) + tuple(v.shape), dtype=v.dtype,
+                               device=v.device) for k, v in one.items()}
+        return cache
+
+    def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor,
+                    pos: int) -> Tuple[torch.Tensor, Dict]:
+        """tokens (B, 1); pos: the position of this token (a Python int).
+        Writes this token's keys and values into ``cache`` in place (the
+        JAX package returns a new cache; updating in place saves a copy of
+        the cache per step). Returns (logits (B, 1, Vpad) float32, cache).
+        """
+        cfg = self.cfg
+        x = embed(tokens, params["tok_embed"])
+        for r in range(cfg.repeats):
+            slot_params = _layer(params["layers"], r)
+            slot_cache = _layer(cache["layers"], r)
+            for j, (mixer, ffn) in enumerate(cfg.pattern):
+                x, _ = blk.slot_decode(slot_params[f"slot{j}"], cfg, mixer,
+                                       ffn, x, slot_cache[f"slot{j}"], pos)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self.head(params, x), cache
+
+    def prefill(self, params: Dict, batch: Dict, max_seq: int,
+                dtype=torch.bfloat16) -> Tuple[Dict, torch.Tensor]:
+        """Sequential prefill via decode steps (the reference path of the
+        serving loop; production prefill runs ``forward``). Returns (cache,
+        logits (B, 1, Vpad) of the last prompt token)."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        if max_seq < S:
+            raise ValueError(f"prefill cache too small: {max_seq} < {S}")
+        cache = self.init_cache(B, max_seq, dtype)
+        logits = torch.zeros((B, 1, self.cfg.padded_vocab),
+                             dtype=torch.float32, device=self.device)
+        for i in range(S):
+            logits, cache = self.decode_step(params, cache,
+                                             tokens[:, i:i + 1], i)
+        return cache, logits
+
+
+def build_model(cfg: ArchConfig, device=None) -> Model:
+    return Model(cfg, device)
+
+
+# ---------------------------------------------------------------------------
+# trees of tensors
+# ---------------------------------------------------------------------------
+
+def _stack(trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

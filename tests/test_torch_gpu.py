@@ -1,5 +1,8 @@
-"""The CUDA kernel on the card: every body of ``ws_sim.cu`` against its plain
-version on the same CUDA tensors, every leaf ``torch.equal``.
+"""The CUDA kernels on the card: every body of ``ws_sim.cu`` against its plain
+version on the same CUDA tensors, every leaf ``torch.equal``; the three
+language-model kernels (``rmsnorm.cu``, ``flash_attention.cu``,
+``decode_attention.cu``) against their plain versions within the JAX
+package's kernel tolerances; the reduced model on the card against the CPU.
 
 A CUDA kernel has no interpret mode, so these tests carry the ``gpu`` marker
 and skip where there is no CUDA device. This file imports the port alone (no
@@ -100,3 +103,119 @@ def test_adaptive_body_on_the_card():
                 cfg, _scenario(3000, theta_static=2, theta_comm=1),
                 "ws_sim_adaptive", f"strategy={strategy} pool={pool}")
             assert (got.n_created <= pool).all() and not got.overflow.any()
+
+
+# ---------------------------------------------------------------------------
+# The language-model kernels: each against its plain version on the card, at
+# tests/test_kernels.py's tolerances (attention 2e-5 float32 / 2e-2 bf16,
+# RMSNorm 1e-6 float32 / 2e-2 bf16).
+# ---------------------------------------------------------------------------
+
+_LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _lm_randn(gen, shape, dtype, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def _hold(got, want, tol):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_kernel_on_the_card(dtype):
+    _need_card()
+    from repro_torch.kernels import rmsnorm
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tol = 1e-6 if dtype == torch.float32 else 2e-2
+    for R, D in ((24, 2048), (384, 128), (100, 512), (7, 100), (1, 128)):
+        x = _lm_randn(gen, (R, D), dtype, 3.0)
+        s = _lm_randn(gen, (D,), dtype)
+        n = rmsnorm.rms_norm.launches
+        got = rmsnorm.rms_norm(x, s)
+        torch.cuda.synchronize()
+        assert rmsnorm.rms_norm.launches == n + 1
+        _hold(got, rmsnorm.rms_norm_ref(x, s), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_on_the_card(dtype):
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for B, Sq, Skv, H, KV, hd, causal, win, qo in (
+            (2, 128, 128, 4, 2, 64, True, 0, 0), (2, 100, 100, 2, 1, 16,
+                                                  True, 0, 0),
+            (1, 64, 64, 8, 2, 128, False, 0, 0), (1, 192, 192, 6, 3, 32,
+                                                  True, 32, 0),
+            (2, 50, 80, 4, 2, 128, True, 0, 30)):
+        q = _lm_randn(gen, (B, Sq, H, hd), dtype)
+        k = _lm_randn(gen, (B, Skv, KV, hd), dtype)
+        v = _lm_randn(gen, (B, Skv, KV, hd), dtype)
+        kw = dict(causal=causal, window=win, q_offset=qo)
+        n = fa.flash_attention.launches
+        got = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == n + 1
+        _hold(got, fa.flash_attention_ref(q, k, v, **kw),
+              _LM_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_on_the_card(dtype):
+    """Every kv_len of a short cache, a window, and a float32 q against a
+    cache of ``dtype`` (the serving path's bf16 cache beside f32 q)."""
+    _need_card()
+    from repro_torch.kernels import decode_attention as fd
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for B, Smax, H, KV, hd, win in ((3, 24, 16, 8, 128, 0),
+                                    (2, 40, 4, 2, 16, 5)):
+        kc = _lm_randn(gen, (B, Smax, KV, hd), dtype)
+        vc = _lm_randn(gen, (B, Smax, KV, hd), dtype)
+        for qdt in (dtype, torch.float32):
+            q = _lm_randn(gen, (B, 1, H, hd), qdt)
+            for kv_len in range(1, Smax + 1):
+                n = fd.flash_decode.launches
+                got = fd.flash_decode(q, kc, vc, kv_len, window=win)
+                torch.cuda.synchronize()
+                assert fd.flash_decode.launches == n + 1
+                want = fd.decode_attention_ref(q, kc, vc, kv_len, window=win)
+                _hold(got, want, _LM_TOL[qdt])
+
+
+@pytest.mark.gpu
+def test_reduced_model_on_the_card_matches_the_cpu():
+    """The reduced qwen3-1.7b in float32: forward logits on the card (through
+    the kernels) against the CPU (plain versions), and greedy tokens."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request, decode_batch
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              param_dtype="float32")
+    mc, mg = build_model(cfg, device="cpu"), build_model(cfg)
+    pc = mc.init_params(torch.Generator(device="cpu").manual_seed(3))
+
+    def to_card(t):
+        return {k: to_card(v) if isinstance(v, dict) else v.cuda()
+                for k, v in t.items()}
+    pg = to_card(pc)
+    tok = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 32)))
+    a = mc.forward(pc, {"tokens": tok})
+    b = mg.forward(pg, {"tokens": tok.cuda()}).cpu()
+    tol = 1e-4 * float(a.abs().max())
+    assert float((a - b).abs().max()) < tol
+    rng = np.random.default_rng(1)
+    reqs = [Request(i, rng.integers(1, cfg.vocab_size, 16).astype(np.int32),
+                    8) for i in range(6)]
+    np.testing.assert_array_equal(
+        decode_batch(mc, pc, reqs, device="cpu"),
+        decode_batch(mg, pg, reqs))

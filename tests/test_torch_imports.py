@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -50,10 +51,18 @@ def test_port_has_the_expected_modules():
                  "core/interop.py", "core/sweep.py", "core/backend.py",
                  "core/topology.py", "kernels/ws_sim.py", "kernels/ref.py",
                  "kernels/_build.py", "service/api.py", "service/store.py",
-                 "service/resilience.py", "obs/trace.py", "obs/metrics.py"):
+                 "service/resilience.py", "obs/trace.py", "obs/metrics.py",
+                 "configs/base.py", "configs/qwen3_1p7b.py",
+                 "models/layers.py", "models/mlp.py", "models/attention.py",
+                 "models/blocks.py", "models/model.py", "models/interop.py",
+                 "launch/steps.py", "launch/serve.py", "kernels/ops.py",
+                 "kernels/rmsnorm.py", "kernels/flash_attention.py",
+                 "kernels/decode_attention.py"):
         assert want in names, want
-    assert (ROOT / "src/repro_torch/kernels/csrc/ws_sim.cu").is_file()
-    assert (ROOT / "src/repro_torch/kernels/csrc/ws_sim_core.cuh").is_file()
+    for src in ("ws_sim.cu", "ws_sim_core.cuh", "rmsnorm.cu",
+                "flash_attention.cu", "decode_attention.cu",
+                "lm_common.cuh"):
+        assert (ROOT / "src/repro_torch/kernels/csrc" / src).is_file(), src
 
 
 _CPU_SWEEP = """
@@ -73,12 +82,41 @@ print("LEAKED", bad)
 """
 
 
-def test_cpu_sweep_in_a_subprocess_loads_neither_jax_nor_repro():
+_CPU_SERVE = """
+import sys
+import numpy as np, torch
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import Request, decode_batch
+from repro_torch.launch.steps import build_prefill_step
+from repro_torch.models import build_model
+cfg = get_config("qwen3-1.7b").reduced()
+m = build_model(cfg, device="cpu")
+p = m.init_params(torch.Generator().manual_seed(0))
+reqs = [Request(i, np.arange(1, 9, dtype=np.int32) + i, 3) for i in range(2)]
+out = decode_batch(m, p, reqs, device="cpu")
+lg = build_prefill_step(m, device="cpu")(p, {"tokens": torch.ones(2, 8,
+                                         dtype=torch.int64)})
+assert out.shape == (2, 3) and lg.shape == (2, 1, cfg.padded_vocab)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LEAKED", bad)
+"""
+
+
+def _run_port_alone(script: str) -> None:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", _CPU_SWEEP], env=env,
+    out = subprocess.run([sys.executable, "-c", script], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LEAKED []" in out.stdout, out.stdout
+
+
+def test_cpu_sweep_in_a_subprocess_loads_neither_jax_nor_repro():
+    _run_port_alone(_CPU_SWEEP)
+
+
+def test_cpu_serve_in_a_subprocess_loads_neither_jax_nor_repro():
+    _run_port_alone(_CPU_SERVE)
 
 
 def _skip_if_cuda():
@@ -151,3 +189,51 @@ def test_no_backend_demotion_in_the_port():
     assert not hasattr(_build, "BUILD_DIR_ENV")
     root = Path(_build.__file__).resolve().parents[3]
     assert _build.build_dir() == root / "build" / "repro_torch_kernels"
+
+
+def test_no_silent_cpu_run_of_the_language_model_path():
+    _skip_if_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request, decode_batch
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models import Model, build_model
+    cfg = get_config("qwen3-1.7b").reduced()
+    for make in (Model, build_model):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(cfg)
+    m = build_model(cfg, device="cpu")
+    p = m.init_params(torch.Generator().manual_seed(0))
+    reqs = [Request(0, np.arange(1, 5, dtype=np.int32), 2)]
+    for call in (lambda: decode_batch(m, p, reqs),
+                 lambda: build_prefill_step(m),
+                 lambda: build_decode_step(m)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+#: the kernel wrappers of the language-model path and what they share
+LM_WRAPPER_FILES = ("kernels/ops.py", "kernels/_lm.py", "kernels/rmsnorm.py",
+                    "kernels/flash_attention.py",
+                    "kernels/decode_attention.py")
+
+
+@pytest.mark.parametrize("rel", LM_WRAPPER_FILES)
+def test_lm_kernel_wrappers_have_no_fallback(rel):
+    """A wrapper launches its kernel on a CUDA tensor or raises: its module
+    holds no ``try`` that could turn a failed build or launch into a run of
+    the plain version, and a device that is neither the CPU nor CUDA is
+    refused, not computed on."""
+    tree = ast.parse((ROOT / "src" / "repro_torch" / rel).read_text())
+    assert not [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_lm_kernel_wrappers_refuse_other_devices():
+    from repro_torch.kernels import ops
+    x = torch.zeros((2, 8), device="meta")
+    with pytest.raises(RuntimeError, match="CUDA devices"):
+        ops.rms_norm(x, torch.ones(8, device="meta"))
+    q = torch.zeros((1, 4, 2, 16), device="meta")
+    with pytest.raises(RuntimeError, match="CUDA devices"):
+        ops.flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="CUDA devices"):
+        ops.flash_decode(q[:, :1], q, q, 2)

@@ -95,9 +95,14 @@ def test_wrapper_checks_leaves():
 
 
 def test_kernel_sources_ship_with_the_package():
-    assert _build.sources() == ("ws_sim",)
-    text = (_build.CSRC / "ws_sim.cu").read_text()
-    assert "ws_sim_divisible_launch" in text and "torch/extension.h" not in text
+    assert _build.sources() == ("decode_attention", "flash_attention",
+                                "rmsnorm", "ws_sim")
+    for name, launcher in (("ws_sim", "ws_sim_divisible_launch"),
+                           ("rmsnorm", "rmsnorm_launch"),
+                           ("flash_attention", "flash_attention_launch"),
+                           ("decode_attention", "decode_attention_launch")):
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert launcher in text and "torch/extension.h" not in text
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "--use_fast_math" not in _build.NVCC_FLAGS
 

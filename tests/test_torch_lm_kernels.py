@@ -1,0 +1,198 @@
+"""The port's language-model kernels against the JAX package, on the CPU.
+
+On a CPU tensor each wrapper of ``repro_torch.kernels.ops`` runs its plain
+version (the CUDA kernels themselves run in ``tests/test_torch_gpu.py`` and
+``chip_smoke.py`` on the card). Each is held against two things: the JAX
+package's Pallas kernel in interpret mode, as ``tests/test_kernels.py`` runs
+it, and the matching function of ``repro.kernels.ref``. Shapes, block sizes
+and tolerances are those of ``tests/test_kernels.py`` (attention 2e-5 in
+float32 and 2e-2 in bfloat16, RMSNorm 1e-6 in float32 and 2e-2 in bfloat16,
+as ``assert_allclose``'s atol = rtol), plus the cases the serving path adds.
+
+Inputs are made with numpy from a seed; a bfloat16 input is cast from the
+same float32 array in both frameworks, and the test checks that both hold
+identical bits.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import flash_decode as pallas_decode
+from repro.kernels.flash_attention import flash_attention as pallas_attention
+from repro.kernels.rmsnorm import rms_norm as pallas_rms_norm
+from repro.models import attention as jattn
+from repro_torch.kernels import ops
+
+torch.set_num_threads(1)
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+RMS_TOL = {"float32": 1e-6, "bfloat16": 2e-2}
+AGAINST = ("pallas_interpret", "jax_ref")
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values in JAX and in torch: cast from one float32 array in
+    both frameworks, with identical bits."""
+    jdt, tdt = DTYPES[dtype]
+    j = jnp.asarray(a, jnp.float32).astype(jdt)
+    t = torch.from_numpy(np.array(a, np.float32)).to(tdt)
+    if dtype == "bfloat16":
+        bits = torch.from_numpy(np.asarray(j).view(np.int16).copy())
+        assert torch.equal(t.view(torch.int16), bits)
+    return j, t
+
+
+def _close(got: torch.Tensor, want, tol: float):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+# tests/test_kernels.py::test_flash_attention_vs_ref
+FA_CASES = [
+    (2, 128, 4, 2, 64, "float32", True, 0),
+    (1, 256, 4, 4, 32, "float32", True, 64),
+    (2, 100, 2, 1, 16, "float32", True, 0),     # non-divisible seq (padding)
+    (1, 64, 8, 2, 128, "float32", False, 0),
+    (2, 128, 4, 2, 64, "bfloat16", True, 0),
+    (1, 192, 6, 3, 32, "bfloat16", True, 32),
+]
+
+
+@pytest.mark.parametrize("against", AGAINST)
+@pytest.mark.parametrize("B,Sq,H,KV,hd,dtype,causal,win", FA_CASES)
+def test_flash_attention_vs_jax(B, Sq, H, KV, hd, dtype, causal, win,
+                                against):
+    rng = np.random.default_rng(Sq + H)
+    q, tq = _pair(rng.standard_normal((B, Sq, H, hd)), dtype)
+    k, tk = _pair(rng.standard_normal((B, Sq, KV, hd)), dtype)
+    v, tv = _pair(rng.standard_normal((B, Sq, KV, hd)), dtype)
+    n = ops.flash_attention.launches
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=win)
+    assert ops.flash_attention.launches == n      # the CPU runs no kernel
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    if against == "pallas_interpret":
+        want = pallas_attention(q, k, v, causal=causal, window=win,
+                                block_q=64, block_kv=64, interpret=True)
+    else:
+        want = jref.flash_attention_ref(q, k, v, causal=causal, window=win)
+    _close(got, want, ATTN_TOL[dtype])
+
+
+# tests/test_kernels.py::test_flash_decode_vs_ref
+DEC_CASES = [
+    (2, 256, 200, 4, 2, 64, 0, "float32"),
+    (1, 512, 512, 8, 8, 32, 0, "float32"),
+    (2, 256, 100, 4, 1, 64, 64, "float32"),     # sliding window
+    (1, 384, 300, 4, 2, 128, 0, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("against", AGAINST)
+@pytest.mark.parametrize("B,Smax,kv_len,H,KV,hd,win,dtype", DEC_CASES)
+def test_flash_decode_vs_jax(B, Smax, kv_len, H, KV, hd, win, dtype,
+                             against):
+    rng = np.random.default_rng(Smax + kv_len)
+    q, tq = _pair(rng.standard_normal((B, 1, H, hd)), dtype)
+    kc, tkc = _pair(rng.standard_normal((B, Smax, KV, hd)), dtype)
+    vc, tvc = _pair(rng.standard_normal((B, Smax, KV, hd)), dtype)
+    n = ops.flash_decode.launches
+    got = ops.flash_decode(tq, tkc, tvc, kv_len, window=win)
+    assert ops.flash_decode.launches == n
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    if against == "pallas_interpret":
+        want = pallas_decode(q, kc, vc, kv_len, window=win, block_kv=128,
+                             interpret=True)
+    else:
+        want = jref.decode_attention_ref(q, kc, vc, kv_len, window=win)
+    _close(got, want, ATTN_TOL[dtype])
+
+
+# tests/test_kernels.py::test_rmsnorm_vs_ref
+RMS_CASES = [
+    (64, 256, "float32"), (100, 512, "float32"),   # padding path
+    (128, 1024, "bfloat16"), (1, 128, "float32"),
+]
+
+
+@pytest.mark.parametrize("against", AGAINST)
+@pytest.mark.parametrize("R,D,dtype", RMS_CASES)
+def test_rms_norm_vs_jax(R, D, dtype, against):
+    rng = np.random.default_rng(R + D)
+    x, tx = _pair(rng.standard_normal((R, D)) * 3, dtype)
+    s, ts = _pair(rng.standard_normal((D,)), dtype)
+    n = ops.rms_norm.launches
+    got = ops.rms_norm(tx, ts)
+    assert ops.rms_norm.launches == n
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    if against == "pallas_interpret":
+        want = pallas_rms_norm(x, s, block_rows=32, interpret=True)
+    else:
+        want = jref.rms_norm_ref(x, s)
+    _close(got, want, RMS_TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# What the serving path adds: a q_offset, a window at head_dim 128, a float32
+# query against a bfloat16 cache, a cache with one valid row.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,win,q_offset", [(50, 80, 0, 30),
+                                                 (33, 33, 7, 0)])
+def test_flash_attention_offset_and_window_vs_pallas(Sq, Skv, win, q_offset,
+                                                     dtype):
+    B, H, KV, hd = 2, 4, 2, 128
+    rng = np.random.default_rng(Sq + Skv + win)
+    q, tq = _pair(rng.standard_normal((B, Sq, H, hd)), dtype)
+    k, tk = _pair(rng.standard_normal((B, Skv, KV, hd)), dtype)
+    v, tv = _pair(rng.standard_normal((B, Skv, KV, hd)), dtype)
+    got = ops.flash_attention(tq, tk, tv, window=win, q_offset=q_offset)
+    want = pallas_attention(q, k, v, window=win, q_offset=q_offset,
+                            block_q=64, block_kv=64, interpret=True)
+    _close(got, want, ATTN_TOL[dtype])
+    # and the full-materialization version of the JAX package's models
+    _close(got, jattn.ref_attention(q, k, v, window=win, q_offset=q_offset),
+           ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("kv_len,win", [(1, 0), (17, 0), (24, 5)])
+def test_flash_decode_float32_query_against_bf16_cache(kv_len, win):
+    """The prefill default keeps a bf16 cache beside float32 activations:
+    q is not cast to the cache's type, the result is float32."""
+    B, Smax, H, KV, hd = 3, 24, 16, 8, 128
+    rng = np.random.default_rng(kv_len)
+    q, tq = _pair(rng.standard_normal((B, 1, H, hd)), "float32")
+    kc, tkc = _pair(rng.standard_normal((B, Smax, KV, hd)), "bfloat16")
+    vc, tvc = _pair(rng.standard_normal((B, Smax, KV, hd)), "bfloat16")
+    got = ops.flash_decode(tq, tkc, tvc, kv_len, window=win)
+    assert got.dtype == torch.float32
+    _close(got, jattn.decode_attention(q, kc, vc, kv_len, window=win),
+           ATTN_TOL["float32"])
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    x = torch.zeros((4, 8))
+    with pytest.raises(TypeError):
+        ops.rms_norm(x.half(), torch.ones(8).half())
+    with pytest.raises(TypeError):
+        ops.rms_norm(x, torch.ones(8, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        ops.rms_norm(x, torch.ones(4))
+    q, k = torch.zeros((1, 4, 4, 16)), torch.zeros((1, 4, 3, 16))
+    with pytest.raises(ValueError):                   # H % KV != 0
+        ops.flash_attention(q, k, k)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, q, q_offset=-1)
+    qd, kc = torch.zeros((1, 1, 4, 16)), torch.zeros((1, 8, 2, 16))
+    for bad in (0, 9, 2.0):
+        with pytest.raises(ValueError):
+            ops.flash_decode(qd, kc, kc, bad)
+    with pytest.raises(TypeError):
+        ops.flash_decode(qd, kc, kc.bfloat16(), 4)

@@ -1,0 +1,355 @@
+"""The port's language-model serving path against the JAX package, on the CPU,
+at ``get_config("qwen3-1.7b").reduced()`` (2 layers, d_model 64, 4 query and
+2 KV heads of 16, vocab 512).
+
+The JAX package's parameters, made from ``PRNGKey(0)``, are carried into the
+port by ``models.interop.params_from_jax``, so both run the same weights;
+inputs are made with numpy from a seed. Module by module (layers, MLP,
+attention, blocks) and for the slice as a whole (``forward``,
+``build_prefill_step``, ``prefill``, ``decode_batch``). Tolerances, each with
+its reason:
+
+* float32 parameters: logits within ``1e-4 * max|logit|`` — the two
+  frameworks sum in other orders (float32 rounding, ~1e-6 here);
+* a float32 KV cache within atol = rtol = 1e-5 (the same rounding);
+* a bf16 KV cache within one bf16 ulp (rtol 2^-7): float32 values that
+  differ in their last bits may round to neighbouring bf16 values;
+* the greedy decode with the bf16 cache of ``decode_batch``: those one-ulp
+  differences move the step logits by up to ``1e-3 * max|logit|``; every
+  row of every step must stay within half its own top-2 logit gap, so that
+  a different token would be a fault, not a tie;
+* bf16 parameters: ``2e-2 * max|logit|``, the bf16 tolerance of the kernel
+  tests (bf16 rounds at other places in the two frameworks).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget
+from repro.launch import serve as jserve
+from repro.launch.steps import build_prefill_step as j_prefill_step
+from repro.models import attention as jattn
+from repro.models import blocks as jblk
+from repro.models import build_model as jbuild
+from repro.models import layers as jlayers
+from repro.models import mlp as jmlp
+from repro_torch.configs import get_config as pget
+from repro_torch.launch import serve as pserve
+from repro_torch.launch.steps import build_decode_step, build_prefill_step
+from repro_torch.models import attention as pattn
+from repro_torch.models import blocks as pblk
+from repro_torch.models import build_model as pbuild
+from repro_torch.models import layers as players
+from repro_torch.models import mlp as pmlp
+from repro_torch.models.interop import params_from_jax
+
+torch.set_num_threads(1)
+
+ARCH = "qwen3-1.7b"
+B, S = 2, 32
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 24, 16, 8
+
+
+def _configs(param_dtype):
+    jc = dataclasses.replace(jget(ARCH).reduced(), param_dtype=param_dtype)
+    pc = dataclasses.replace(pget(ARCH).reduced(), param_dtype=param_dtype)
+    return jc, pc
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def built(request):
+    jc, pc = _configs(request.param)
+    jm, pm = jbuild(jc), pbuild(pc, device="cpu")
+    jp = jm.init_params(jax.random.PRNGKey(0))
+    pp = params_from_jax(jax.tree.map(np.asarray, jp), pm)
+    return request.param, jc, jm, jp, pm, pp
+
+
+@pytest.fixture(scope="module")
+def f32():
+    jc, pc = _configs("float32")
+    jm, pm = jbuild(jc), pbuild(pc, device="cpu")
+    jp = jm.init_params(jax.random.PRNGKey(0))
+    pp = params_from_jax(jax.tree.map(np.asarray, jp), pm)
+    return jc, jm, jp, pm, pp
+
+
+def _tokens(cfg, shape, seed=0):
+    t = np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
+    return t.astype(np.int32)
+
+
+def _t(a, dtype=None):
+    """numpy -> torch (bf16 leaves by their bits, like params_from_jax)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    t = torch.from_numpy(np.array(a))
+    return t if dtype is None else t.to(dtype)
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t, np.float32)
+
+
+def _logit_tol(param_dtype, ref) -> float:
+    scale = float(np.abs(_np(ref)).max())
+    return (1e-4 if param_dtype == "float32" else 2e-2) * scale
+
+
+# ---------------------------------------------------------------------------
+# configs and parameters
+# ---------------------------------------------------------------------------
+
+def test_config_is_a_copy_of_the_jax_packages():
+    for j, p in ((jget(ARCH), pget(ARCH)),
+                 (jget(ARCH).reduced(), pget(ARCH).reduced())):
+        assert dataclasses.asdict(j) == dataclasses.asdict(p)
+        assert (j.hd, j.padded_vocab, j.n_layers) == \
+            (p.hd, p.padded_vocab, p.n_layers)
+    with pytest.raises(KeyError, match="later slice|slice"):
+        pget("mixtral-8x7b")
+
+
+def test_param_tree_and_count_match_the_jax_package(built):
+    _dt, jc, jm, jp, pm, pp = built
+    jshapes = jax.tree.map(lambda x: (tuple(x.shape), str(x.dtype)), jp)
+    pshapes = jax.tree.map(lambda s: (s[0], str(s[1]).split(".")[-1]),
+                           pm.param_shapes(), is_leaf=lambda x:
+                           isinstance(x, tuple))
+    assert jshapes == pshapes
+    assert pm.param_count() == jm.param_count()
+    full = pbuild(pget(ARCH), device="cpu")
+    assert full.param_count() == jbuild(jget(ARCH)).param_count() \
+        == 2_031_739_904
+
+
+def test_params_from_jax_refuses_a_tree_that_does_not_fit(f32):
+    _jc, _jm, jp, pm, _pp = f32
+    tree = jax.tree.map(np.asarray, jp)
+    missing = dict(tree, layers={"slot0": {
+        k: v for k, v in tree["layers"]["slot0"].items() if k != "norm2"}})
+    with pytest.raises(ValueError, match="missing.*norm2"):
+        params_from_jax(missing, pm)
+    with pytest.raises(ValueError, match="not expected.*extra"):
+        params_from_jax(dict(tree, extra=np.zeros(3, np.float32)), pm)
+    with pytest.raises(ValueError, match="tok_embed"):
+        params_from_jax(dict(tree, tok_embed=tree["tok_embed"][:-1]), pm)
+    with pytest.raises(TypeError):
+        params_from_jax(dict(tree, final_norm=tree["final_norm"]
+                             .astype(np.float64)), pm)
+
+
+def test_params_from_jax_carries_bf16_bits_exactly():
+    jc, pc = _configs("bfloat16")
+    jp = jbuild(jc).init_params(jax.random.PRNGKey(1))
+    pp = params_from_jax(jax.tree.map(np.asarray, jp),
+                         pbuild(pc, device="cpu"))
+    a = np.asarray(jp["layers"]["slot0"]["attn"]["wq"]).view(np.int16)
+    b = pp["layers"]["slot0"]["attn"]["wq"].view(torch.int16).numpy()
+    assert pp["layers"]["slot0"]["attn"]["wq"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# module by module
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layers_vs_jax(dtype):
+    """RoPE, dense, RMSNorm: a few float32 ulps apart in float32 (atol = rtol
+    = 1e-5); at most one bf16 ulp apart in bf16 (rtol 2^-7), since both
+    compute in float32 and round once."""
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == "float32" \
+        else dict(atol=1e-6, rtol=2.0 ** -7)
+    rng = np.random.default_rng(5)
+    x = jnp.asarray(rng.standard_normal((2, 8, 4, 16)), jnp.float32).astype(jdt)
+    pos = jnp.asarray(np.broadcast_to(np.arange(8) * 37, (2, 8)), jnp.int32)
+    np.testing.assert_allclose(
+        _np(players.apply_rope(_t(x), _t(pos), 1e6)),
+        _np(jlayers.apply_rope(x, pos, 1e6)), **tol)
+    w = jnp.asarray(rng.standard_normal((16, 24)) / 4, jnp.float32).astype(jdt)
+    np.testing.assert_allclose(_np(players.dense(_t(x), _t(w))),
+                               _np(jlayers.dense(x, w)), **tol)
+    s = jnp.asarray(rng.standard_normal(16), jnp.float32).astype(jdt)
+    np.testing.assert_allclose(_np(players.rms_norm(_t(x), _t(s))),
+                               _np(jlayers.rms_norm(x, s)), **tol)
+    table = jnp.asarray(rng.standard_normal((50, 16)), jnp.float32).astype(jdt)
+    ids = rng.integers(0, 50, (3, 5)).astype(np.int32)
+    np.testing.assert_array_equal(_np(players.embed(_t(ids, torch.int64),
+                                                    _t(table))),
+                                  _np(jlayers.embed(jnp.asarray(ids), table)))
+    np.testing.assert_allclose(_np(players.rope_frequencies(16, 1e6)),
+                               _np(jlayers.rope_frequencies(16, 1e6)),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("act", ["swiglu", "gelu"])
+def test_mlp_vs_jax(act):
+    p = jmlp.mlp_init(jax.random.PRNGKey(2), 32, 64, jnp.float32, act)
+    x = jnp.asarray(np.random.default_rng(2).standard_normal((2, 5, 32)),
+                    jnp.float32)
+    got = pmlp.mlp_apply({k: _t(v) for k, v in p.items()}, _t(x), act)
+    want = jmlp.mlp_apply(p, x, act)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+
+
+def test_attention_vs_jax():
+    """chunked_attention (through ops.flash_attention) against the JAX
+    package's chunked_attention and ref_attention; decode_attention (through
+    ops.flash_decode) against its decode_attention, float32 q beside a bf16
+    cache."""
+    rng = np.random.default_rng(3)
+    q = jnp.asarray(rng.standard_normal((2, 40, 4, 16)), jnp.float32)
+    k = jnp.asarray(rng.standard_normal((2, 40, 2, 16)), jnp.float32)
+    v = jnp.asarray(rng.standard_normal((2, 40, 2, 16)), jnp.float32)
+    for win in (0, 9):
+        got = _np(pattn.chunked_attention(_t(q), _t(k), _t(v), window=win))
+        np.testing.assert_allclose(got, _np(jattn.chunked_attention(
+            q, k, v, window=win, block_kv=16)), atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(got, _np(jattn.ref_attention(
+            q, k, v, window=win)), atol=2e-5, rtol=2e-5)
+    kc, vc = k.astype(jnp.bfloat16), v.astype(jnp.bfloat16)
+    q1 = q[:, :1]
+    for kv_len in (1, 23, 40):
+        np.testing.assert_allclose(
+            _np(pattn.decode_attention(_t(q1), _t(kc), _t(vc), kv_len)),
+            _np(jattn.decode_attention(q1, kc, vc, kv_len)), atol=2e-5,
+            rtol=2e-5)
+
+
+def test_blocks_vs_jax(f32):
+    """One layer: slot_apply over a sequence and slot_decode of one token
+    into a cache, against the JAX package's."""
+    jc, _jm, jp, _pm, pp = f32
+    jlayer = jax.tree.map(lambda a: a[1], jp["layers"]["slot0"])
+    player = jax.tree.map(lambda a: a[1], pp["layers"]["slot0"])
+    rng = np.random.default_rng(4)
+    x = jnp.asarray(rng.standard_normal((B, 12, jc.d_model)), jnp.float32)
+    pos = jnp.asarray(np.broadcast_to(np.arange(12), (B, 12)), jnp.int32)
+    want, _aux = jblk.slot_apply(jlayer, jc, "attn", "dense", x, pos)
+    got = pblk.slot_apply(player, jc, "attn", "dense", _t(x), _t(pos))
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+    jcache = jblk.slot_cache_init(jc, "attn", B, 16, jnp.float32)
+    pcache = pblk.slot_cache_init(jc, "attn", B, 16, torch.float32)
+    for i in range(3):
+        xi = x[:, i:i + 1]
+        want, jcache, _ = jblk.slot_decode(jlayer, jc, "attn", "dense", xi,
+                                           jcache, i)
+        got, pcache = pblk.slot_decode(player, jc, "attn", "dense", _t(xi),
+                                       pcache, i)
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+        for key in ("k", "v"):
+            np.testing.assert_allclose(_np(pcache[key]), _np(jcache[key]),
+                                       atol=1e-5, rtol=1e-5)
+    for mixer, ffn in (("mamba", "dense"), ("attn", "moe"), ("xattn",
+                                                             "dense")):
+        with pytest.raises(NotImplementedError, match="Queue A 13"):
+            pblk.slot_init(torch.Generator(), jc, mixer, ffn, torch.float32)
+    with pytest.raises(NotImplementedError, match="cp_axes"):
+        pblk.slot_decode(player, jc, "attn", "dense", _t(x[:, :1]), pcache,
+                         3, cp_axes=(("model",), ()))
+
+
+# ---------------------------------------------------------------------------
+# the slice as a whole
+# ---------------------------------------------------------------------------
+
+def test_forward_vs_jax(built):
+    dt, jc, jm, jp, pm, pp = built
+    tok = _tokens(jc, (B, S))
+    want = jax.jit(lambda p, b: jm.forward(p, b)[0])(
+        jp, {"tokens": jnp.asarray(tok)})
+    got = pm.forward(pp, {"tokens": _t(tok, torch.int64)})
+    assert got.dtype == torch.float32 and got.shape == (B, S, jc.padded_vocab)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0,
+                               atol=_logit_tol(dt, want))
+
+
+def test_prefill_step_vs_jax(built):
+    dt, jc, jm, jp, pm, pp = built
+    tok = _tokens(jc, (B, S), seed=1)
+    want = jax.jit(j_prefill_step(jm))(jp, {"tokens": jnp.asarray(tok)})
+    got = build_prefill_step(pm, device="cpu")(
+        pp, {"tokens": _t(tok, torch.int64)})
+    assert got.shape == (B, 1, jc.padded_vocab)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0,
+                               atol=_logit_tol(dt, want))
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+def test_prefill_logits_and_caches_vs_jax(f32, cache_dtype):
+    jc, jm, jp, pm, pp = f32
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[cache_dtype]
+    tok = _tokens(jc, (B, S), seed=2)
+    jcache, jlog = jm.prefill(jp, {"tokens": jnp.asarray(tok)},
+                              max_seq=S + 4, dtype=jdt)
+    pcache, plog = pm.prefill(pp, {"tokens": _t(tok, torch.int64)},
+                              max_seq=S + 4, dtype=tdt)
+    np.testing.assert_allclose(_np(plog), _np(jlog), rtol=0,
+                               atol=_logit_tol("float32", jlog))
+    for key in ("k", "v"):
+        got = pcache["layers"]["slot0"][key]
+        want = jcache["layers"]["slot0"][key]
+        assert got.dtype == tdt and tuple(got.shape) == want.shape
+        if cache_dtype == "float32":
+            np.testing.assert_allclose(_np(got), _np(want), atol=1e-5,
+                                       rtol=1e-5)
+        else:
+            np.testing.assert_allclose(_np(got), _np(want), atol=0,
+                                       rtol=2.0 ** -7)
+    # the decode path agrees with forward (tests/test_models_smoke.py)
+    if cache_dtype == "float32":
+        fwd = pm.forward(pp, {"tokens": _t(tok, torch.int64)})[:, -1]
+        diff = float((fwd - plog[:, 0]).abs().max())
+        assert diff < 1e-3 * float(fwd.abs().max()) + 1e-3
+
+
+def _replay(jm, jp, pm, pp, prompts, tokens):
+    """The greedy decode of ``decode_batch`` step by step in both packages,
+    fed the same tokens: yields (jax logits, port logits) per step, (B, V)."""
+    n_new = tokens.shape[1]
+    jcache, jlog = jm.prefill(jp, {"tokens": jnp.asarray(prompts)},
+                              max_seq=prompts.shape[1] + n_new)
+    pcache, plog = pm.prefill(pp, {"tokens": _t(prompts, torch.int64)},
+                              max_seq=prompts.shape[1] + n_new)
+    jstep = jax.jit(jm.decode_step)
+    pstep = build_decode_step(pm, device="cpu")
+    for i in range(n_new):
+        yield np.asarray(jlog)[:, -1], _np(plog)[:, -1]
+        pos = prompts.shape[1] + i
+        jlog, jcache = jstep(jp, jcache, jnp.asarray(tokens[:, i:i + 1]), pos)
+        plog, pcache = pstep(pp, pcache, _t(tokens[:, i:i + 1], torch.int64),
+                             pos)
+
+
+def test_decode_batch_tokens_equal_the_jax_packages(f32):
+    """serve.decode_batch at serve.py's defaults (24 requests, prompt 16, 8
+    new tokens, float32 weights, the default bf16 cache): the same tokens;
+    every row of every step within half its own top-2 gap."""
+    jc, jm, jp, pm, pp = f32
+    rng = np.random.default_rng(6)
+    prompts = rng.integers(1, jc.vocab_size,
+                           (SERVE_REQUESTS, SERVE_PROMPT)).astype(np.int32)
+    want = jserve.decode_batch(
+        jm, jp, [jserve.Request(i, p, SERVE_NEW)
+                 for i, p in enumerate(prompts)], jc.padded_vocab)
+    got = pserve.decode_batch(
+        pm, pp, [pserve.Request(i, p, SERVE_NEW)
+                 for i, p in enumerate(prompts)], device="cpu")
+    assert got.dtype == np.int32 and got.shape == (SERVE_REQUESTS, SERVE_NEW)
+    np.testing.assert_array_equal(got, want)
+    for step, (jl, pl) in enumerate(_replay(jm, jp, pm, pp, prompts, got)):
+        err = np.abs(jl - pl).max(axis=-1)
+        top2 = np.sort(jl, axis=-1)[:, -2:]
+        gap = top2[:, 1] - top2[:, 0]
+        assert (err <= 1e-3 * np.abs(jl).max()).all(), step
+        assert (err < gap / 2).all(), (step, err, gap)
+        np.testing.assert_array_equal(pl.argmax(-1), got[:, step])
