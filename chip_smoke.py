@@ -11,12 +11,15 @@ through ``SimulationService.sweep`` on the ``cuda`` backend: divisible load at
 the paper's largest platform, the repository's merge-sort DAG, and adaptive
 tasks at the paper's W and p — and checks the answers. Then the
 language-model serving path of ``qwen3-1.7b`` at full width (random weights
-from a seed): its three kernels (RMSNorm, flash attention, flash decode)
-against their plain versions, ``serve.decode_batch`` and
-``steps.build_prefill_step`` with their launch counts, and the float32
-parity of forward and sequential prefill.
+from a seed): its kernels (RMSNorm, flash attention — bf16 on the tensor
+cores, float32 on the CUDA cores — and flash decode) against their plain
+versions, ``serve.decode_batch`` and ``steps.build_prefill_step`` with their
+launch counts (per kernel variant too), and the float32 parity of forward
+and sequential prefill.
 
-Phases, one JSON line each: ``build``, ``kernels`` (bit-exact against the plain
+Phases, one JSON line each: ``build`` (seconds, ptxas's registers and spills,
+and the count of ``HGMMA`` instructions in each library's SASS), ``kernels``
+(bit-exact against the plain
 loop), ``oracle`` (bit-exact against the serial numpy simulators),
 ``main_path`` (one line per path: sweeps, invariants, repeat served from the
 store, sampled oracle rows), ``timing`` (one line per body: the kernel, its
@@ -25,7 +28,9 @@ per language-model kernel: every case's max error beside its tolerance),
 ``lm_main_path`` (one line per path: tokens per second, launch counts),
 ``lm_parity``, ``lm_timing`` (one line per kernel and shape: the kernel, its
 plain version and one PyTorch call as a yardstick, each as device time from
-a replayed CUDA graph, and its bound) and ``lm_profile`` (where a decode
+a replayed CUDA graph, its bound, the rate it reached and its share of the
+bound, the variant that ran and its time before its redesign) and
+``lm_profile`` (where a decode
 step's time goes, over a window of eight steps). Then a ``{"kernels": [...]}`` line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any
 failed phase raises: the exit code is then not 0 and no result line is
@@ -853,6 +858,8 @@ LM_SOURCES = {"rms_norm": rn.KERNEL_SOURCE,
 LM_REPLACES = {"rms_norm": "src/repro/kernels/rmsnorm.py:36",
                "flash_attention": "src/repro/kernels/flash_attention.py:98",
                "flash_decode": "src/repro/kernels/decode_attention.py:85"}
+#: the attention kernel each dtype is routed to (kernels/flash_attention.py)
+ATTN_VARIANT = {torch.bfloat16: "tc_bf16", torch.float32: "simt_f32"}
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): the operations of a
 # function bound it at the peak for its operands' type — bf16 on the tensor
 # cores, float32 outside them (TF32 would change the numbers).
@@ -860,6 +867,17 @@ FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 #: the worst |kernel - plain| per kernel over every comparison of this run
 LM_WORST = dict.fromkeys(LM_KERNELS, 0.0)
+
+#: each kernel's device time at the same shapes before the redesign of the
+#: attention and RMSNorm kernels (this script's phase lm_timing then, kept in
+#: PERF.md's kernel table; NVIDIA H100 80GB HBM3, 700.00 W), keyed by kernel
+#: and shape
+EARLIER_MS = {("rms_norm", (8192, 2048)): 0.09501952171325684,
+              ("rms_norm", (131072, 128)): 0.03481791973114014,
+              ("rms_norm", (24, 2048)): 0.007502400279045105,
+              ("flash_attention", (4, 2048)): 5.592787170410157,
+              ("flash_decode", (24, 24)): 0.0036075198650360107,
+              ("flash_decode", (24, 2048)): 0.1580076789855957}
 
 
 def lm_compare(kernel: str, got, want, tol: float, what: str) -> dict:
@@ -891,11 +909,14 @@ def lm_randn(gen, shape, dtype, scale: float = 1.0):
 def lm_rms_cases(gen, dtype):
     """(rows, D) of the serving path — decode: norm1/norm2/final (24, 2048),
     q_norm (24 x 16, 128), k_norm (24 x 8, 128); prefill: (8192, 2048),
-    (8192 x 16, 128), (8192 x 8, 128) — and tests/test_kernels.py's
-    shapes (100 rows: a ragged block)."""
+    (8192 x 16, 128), (8192 x 8, 128) — tests/test_kernels.py's shapes
+    (100 rows: a ragged block), a width of the generic kernel (100); and
+    every width of the register kernel at one row, 24 rows and more row
+    groups than the card holds at once (its grid-stride loop)."""
     shapes = ((24, 2048), (384, 128), (192, 128), (8192, 2048),
               (131072, 128), (65536, 128), (64, 256), (100, 512),
               (128, 1024), (1, 128), (7, 100))
+    shapes += tuple((R, D) for D in rn.REG_WIDTHS for R in (1, 24, 17000))
     tol = LM_TOL[("rms_norm", dtype)]
     out = []
     for R, D in shapes:
@@ -911,7 +932,10 @@ def lm_rms_cases(gen, dtype):
 def lm_attention_cases(gen, dtype):
     """(B, Sq, Skv, H, KV, hd, causal, window, q_offset): the prefill shape,
     tests/test_kernels.py's shapes (Sq = 100 and 192: ragged q and kv
-    tiles; windows; non-causal), a q_offset, a window at hd 128."""
+    tiles; windows; non-causal), a q_offset, a window at hd 128; then
+    ragged Sq / Skv of 33, 100 and 2047 (partial tiles of the tensor-core
+    kernel's 128 rows), q_offsets with Skv > Sq, windows, non-causal, G =
+    H / KV of 1, 2 and 4, at every head dim."""
     cases = ((PREFILL_B, PREFILL_S, PREFILL_S, 16, 8, 128, True, 0, 0),
              (2, 128, 128, 4, 2, 64, True, 0, 0),
              (1, 256, 256, 4, 4, 32, True, 64, 0),
@@ -919,7 +943,19 @@ def lm_attention_cases(gen, dtype):
              (1, 64, 64, 8, 2, 128, False, 0, 0),
              (1, 192, 192, 6, 3, 32, True, 32, 0),
              (2, 50, 80, 4, 2, 128, True, 0, 30),
-             (2, 33, 33, 16, 8, 128, True, 7, 0))
+             (2, 33, 33, 16, 8, 128, True, 7, 0),
+             (1, 33, 33, 4, 4, 128, True, 0, 0),
+             (2, 100, 100, 4, 2, 64, True, 0, 0),
+             (1, 2047, 2047, 4, 1, 128, True, 0, 0),
+             (1, 2047, 2047, 2, 2, 32, False, 0, 0),
+             (2, 100, 333, 8, 2, 16, True, 0, 233),
+             (1, 256, 700, 4, 2, 128, True, 0, 444),
+             (1, 300, 300, 4, 1, 64, True, 100, 0),
+             (2, 513, 513, 2, 1, 32, True, 7, 0),
+             (1, 200, 600, 4, 2, 16, True, 150, 400),
+             (1, 100, 257, 8, 4, 64, False, 0, 0),
+             (1, 128, 128, 4, 2, 128, False, 50, 0),
+             (2, 1, 40, 4, 2, 128, True, 0, 39))
     tol = LM_TOL[("attention", dtype)]
     out = []
     for B, Sq, Skv, H, KV, hd, causal, win, qo in cases:
@@ -927,8 +963,14 @@ def lm_attention_cases(gen, dtype):
         k = lm_randn(gen, (B, Skv, KV, hd), dtype)
         v = lm_randn(gen, (B, Skv, KV, hd), dtype)
         kw = dict(causal=causal, window=win, q_offset=qo)
+        before = dict(ops.flash_attention.launches_by_variant)
         got = ops.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
+        ran = {k_: n - before[k_] for k_, n in
+               ops.flash_attention.launches_by_variant.items()}
+        if ran != {**dict.fromkeys(ran, 0), ATTN_VARIANT[dtype]: 1}:
+            raise AssertionError(f"flash_attention {dtype}: ran {ran}, the "
+                                 f"route is {ATTN_VARIANT[dtype]}")
         out.append(lm_compare(
             "flash_attention", got, fa.flash_attention_ref(q, k, v, **kw),
             tol, f"{dtype} q{(B, Sq, H, hd)} kv{(Skv, KV)} causal={causal} "
@@ -992,15 +1034,23 @@ def reset_all_counts() -> None:
     ws.reset_counts()
 
 
-def lm_counts_since_reset(**want) -> dict:
+def lm_counts_since_reset(variants: dict, **want) -> tuple:
     """Every kernel's launches since ``reset_all_counts()``: those of
-    ``want`` must be as given, every other kernel's 0."""
+    ``want`` must be as given, every other kernel's 0; and the launches of
+    each wrapper's variants, which must be ``variants`` where it names the
+    wrapper (every variant it leaves out at 0). Returns the counts of the
+    three kernels and their variants."""
     counts = {**ops.launch_counts(), **ws.ws_sim_cuda.launches_by_body}
     expect = {k: want.get(k, 0) for k in counts}
     if counts != expect:
         raise AssertionError(f"launched {counts}, the config implies "
                              f"{expect}")
-    return {k: counts[k] for k in LM_KERNELS}
+    by_variant = ops.variant_counts()
+    for fn, got in by_variant.items():
+        if fn in variants and got != {**dict.fromkeys(got, 0),
+                                      **variants[fn]}:
+            raise AssertionError(f"{fn} ran {got}, expected {variants[fn]}")
+    return {k: counts[k] for k in LM_KERNELS}, by_variant
 
 
 def phase_lm_main_path() -> dict:
@@ -1030,8 +1080,10 @@ def phase_lm_main_path() -> dict:
     L = cfg.n_layers
     # read just after: per step and layer norm1, q_norm, k_norm, norm2 and
     # one decode attention; per step the final norm
-    serve_counts = lm_counts_since_reset(rms_norm=steps * (4 * L + 1),
-                                         flash_decode=steps * L)
+    # every width of the serving path (2048, 128) has a register kernel
+    serve_counts, serve_variants = lm_counts_since_reset(
+        {"rms_norm": {"row_in_registers": steps * (4 * L + 1)}},
+        rms_norm=steps * (4 * L + 1), flash_decode=steps * L)
     if tokens.shape != (SERVE_REQUESTS, SERVE_NEW) or tokens.dtype != \
             np.int32 or tokens.min() < 0 or tokens.max() >= cfg.padded_vocab:
         raise AssertionError(f"decode_batch returned {tokens.shape} "
@@ -1044,7 +1096,8 @@ def phase_lm_main_path() -> dict:
                  prompt_and_new_tokens_per_second=(
                      SERVE_REQUESTS * steps / serve_s),
                  ms_per_decode_step=serve_s / steps * 1e3,
-                 launches=serve_counts, sample=tokens[0].tolist())
+                 launches=serve_counts, launches_by_variant=serve_variants,
+                 sample=tokens[0].tolist())
     say("lm_main_path", path="serve.decode_batch", arch=LM_ARCH,
         params=model.param_count(), param_dtype=cfg.param_dtype,
         init_seconds=init_s, card=card_line(), **serve)
@@ -1061,8 +1114,11 @@ def phase_lm_main_path() -> dict:
     logits = step(params, batch)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    prefill_counts = lm_counts_since_reset(rms_norm=4 * L + 1,
-                                           flash_attention=L)
+    # bf16 prefill: every attention launch on the tensor cores
+    prefill_counts, prefill_variants = lm_counts_since_reset(
+        {"rms_norm": {"row_in_registers": 4 * L + 1},
+         "flash_attention": {"tc_bf16": L}},
+        rms_norm=4 * L + 1, flash_attention=L)
     if logits.shape != (PREFILL_B, 1, cfg.padded_vocab) or \
             logits.dtype != torch.float32 or \
             not bool(torch.isfinite(logits).all()):
@@ -1071,7 +1127,8 @@ def phase_lm_main_path() -> dict:
     prefill = dict(batch=PREFILL_B, seq=PREFILL_S, wall_seconds=prefill_s,
                    tokens_per_second=PREFILL_B * PREFILL_S / prefill_s,
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   launches=prefill_counts)
+                   launches=prefill_counts,
+                   launches_by_variant=prefill_variants)
     say("lm_main_path", path="steps.build_prefill_step", arch=LM_ARCH,
         card=card_line(), **prefill)
     # ---- float32 parity at full width (tests/test_models_smoke.py) --------
@@ -1139,11 +1196,27 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def host_us(fn, reps: int) -> float:
+    """Host microseconds of one call (checks, allocation, ctypes, for the
+    tensor-core attention its three tensor-map encodes, the launch), over
+    ``reps`` calls issued without a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def lm_times(kernel, plain, library, reps: int, plain_reps: int) -> dict:
     """The kernel, its plain version and the library call, each as device
-    time (``graph_ms``); the kernel also as launched from Python."""
+    time (``graph_ms``); the kernel also as launched from Python, and its
+    host cost a call."""
     return dict(ms=graph_ms(kernel, reps),
                 ms_launched_from_python=eager_ms(kernel, reps),
+                host_us_per_call=host_us(kernel, min(reps, 20)),
                 plain_ms=graph_ms(plain, plain_reps),
                 library_ms=graph_ms(library, reps))
 
@@ -1156,17 +1229,33 @@ def lm_bound(bytes_moved: int, flops: int, dtype) -> tuple:
                                            bytes_ms=bytes_ms, ops_ms=ops_ms)
 
 
+def lm_rates(row: dict, kernel: str, key: tuple, variant: str) -> dict:
+    """What a timed row adds: the rate the kernel reached (TFLOP/s where
+    operations bound it, GB/s where bytes do), its share of the bound, the
+    variant that ran and its time at the same shape before the redesign."""
+    d, ms = row["bound_detail"], row["ms"]
+    rate = ({"tflop_per_s": d["flops"] / ms / 1e9}
+            if row["bound_by"] == "operations"
+            else {"gb_per_s": d["bytes"] / ms / 1e6})
+    return dict(**rate, share_of_bound=row["bound_ms"] / ms, variant=variant,
+                earlier_ms=EARLIER_MS.get((kernel, key)))
+
+
 def lm_time_rms(gen, R: int, D: int, reps: int) -> dict:
     dt = torch.bfloat16
     x, s = lm_randn(gen, (R, D), dt, 3.0), lm_randn(gen, (D,), dt)
     # read x and scale, write out; square, add, two multiplies per element
     bound, by, detail = lm_bound((2 * R * D + D) * 2, 4 * R * D, dt)
-    return dict(shape=dict(rows=R, D=D, dtype="bfloat16"),
-                **lm_times(lambda: ops.rms_norm(x, s, 1e-6),
-                           lambda: rn.rms_norm_ref(x, s, 1e-6),
-                           lambda: torch.nn.functional.rms_norm(
-                               x, (D,), s, 1e-6), reps, reps),
-                bound_ms=bound, bound_by=by, bound_detail=detail)
+    row = dict(shape=dict(rows=R, D=D, dtype="bfloat16"),
+               **lm_times(lambda: ops.rms_norm(x, s, 1e-6),
+                          lambda: rn.rms_norm_ref(x, s, 1e-6),
+                          lambda: torch.nn.functional.rms_norm(
+                              x, (D,), s, 1e-6), reps, reps),
+               bound_ms=bound, bound_by=by, bound_detail=detail)
+    tpr = rn.threads_per_row(R, D, dt)
+    variant = (f"row_in_registers, {tpr} threads a row" if tpr
+               else "generic")
+    return {**row, **lm_rates(row, "rms_norm", (R, D), variant)}
 
 
 def lm_time_attention(gen, B: int, S: int, reps: int) -> dict:
@@ -1177,15 +1266,17 @@ def lm_time_attention(gen, B: int, S: int, reps: int) -> dict:
     pairs = S * (S + 1) // 2                       # causal (q, k) pairs
     bound, by, detail = lm_bound(2 * (2 * q.numel() + 2 * k.numel()),
                                  B * H * pairs * 4 * hd, dt)
-    return dict(shape=dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype="bfloat16",
-                           causal=True),
-                **lm_times(
-                    lambda: ops.flash_attention(q, k, v),
-                    lambda: fa.flash_attention_ref(q, k, v),
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True),
-                    reps, 2),
-                bound_ms=bound, bound_by=by, bound_detail=detail)
+    row = dict(shape=dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype="bfloat16",
+                          causal=True),
+               **lm_times(
+                   lambda: ops.flash_attention(q, k, v),
+                   lambda: fa.flash_attention_ref(q, k, v),
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=True),
+                   reps, 2),
+               bound_ms=bound, bound_by=by, bound_detail=detail)
+    return {**row, **lm_rates(row, "flash_attention", (B, S),
+                              ATTN_VARIANT[dt])}
 
 
 def lm_time_decode(gen, B: int, Smax: int, kv_len: int, reps: int) -> dict:
@@ -1197,14 +1288,15 @@ def lm_time_decode(gen, B: int, Smax: int, kv_len: int, reps: int) -> dict:
     # q in, the kv_len valid rows of both caches, out
     bound, by, detail = lm_bound(2 * (2 * q.numel() + 2 * B * kv_len * KV * hd),
                                  B * H * kv_len * 4 * hd, dt)
-    return dict(shape=dict(B=B, Smax=Smax, kv_len=kv_len, H=H, KV=KV, hd=hd,
-                           dtype="bfloat16"),
-                **lm_times(
-                    lambda: ops.flash_decode(q, kc, vc, kv_len),
-                    lambda: fd.decode_attention_ref(q, kc, vc, kv_len),
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qt, kt, vt, enable_gqa=True), reps, reps),
-                bound_ms=bound, bound_by=by, bound_detail=detail)
+    row = dict(shape=dict(B=B, Smax=Smax, kv_len=kv_len, H=H, KV=KV, hd=hd,
+                          dtype="bfloat16"),
+               **lm_times(
+                   lambda: ops.flash_decode(q, kc, vc, kv_len),
+                   lambda: fd.decode_attention_ref(q, kc, vc, kv_len),
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       qt, kt, vt, enable_gqa=True), reps, reps),
+               bound_ms=bound, bound_by=by, bound_detail=detail)
+    return {**row, **lm_rates(row, "flash_decode", (B, Smax), "simt")}
 
 
 PROFILE_STEPS = 8      # decode steps in the profiled window
@@ -1295,11 +1387,35 @@ def phase_lm_timing(main: dict) -> list:
                 "serve.decode_batch": main["serve"]["launches"][kernel],
                 "steps.build_prefill_step":
                     main["prefill"]["launches"][kernel]},
+            "launches_by_variant": {
+                path: main[key]["launches_by_variant"].get(kernel)
+                for key, path in (("serve", "serve.decode_batch"),
+                                  ("prefill", "steps.build_prefill_step"))},
             "max_abs_err": LM_WORST[kernel], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shape": head["shape"], "other_shapes": rows[1:]})
+            "shape": head["shape"],
+            # numbers of this run only; the earlier times stay in lm_timing
+            "other_shapes": [{k: v for k, v in r.items() if k != "earlier_ms"}
+                             for r in rows[1:]]})
     return entries
+
+
+def hgmma_counts() -> dict:
+    """The count of HGMMA (wgmma) instructions in each built library's SASS,
+    by ``cuobjdump -sass``; the tensor-core attention must have some."""
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    counts = {}
+    for name in _build.sources():
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(_build._target(name))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts[name] = sass.count("HGMMA")
+    if not counts.get("flash_attention_tc"):
+        raise AssertionError(f"no HGMMA in the tensor-core attention: "
+                             f"{counts}")
+    return counts
 
 
 def card_line() -> str:
@@ -1319,7 +1435,8 @@ def main():
     say("build", seconds=seconds, directory=str(_build.build_dir()),
         ptxas={name: [l.strip() for l in log.splitlines()
                       if "registers" in l or "spill" in l]
-               for name, log in _build.build_logs.items()})
+               for name, log in _build.build_logs.items()},
+        hgmma=hgmma_counts())
     # 2, 3. each body against its plain version and the oracle
     phase_kernels_and_oracle()
     # 4. the main paths, each counted on its own

@@ -1,5 +1,8 @@
-// Flash attention for NVIDIA Hopper (sm_90a): causal or sliding-window,
-// grouped-query (GQA) attention with an online softmax, float32 statistics.
+// Flash attention for NVIDIA Hopper (sm_90a) on the CUDA cores, float32:
+// causal or sliding-window, grouped-query (GQA) attention with an online
+// softmax. The float32 route of the wrapper (the tests hold float32 to 2e-5,
+// which TF32 or bf16 products on the tensor cores cannot meet); bfloat16
+// takes the tensor-core kernel of flash_attention_tc.cu.
 //
 // Replaces the Pallas kernel `_kernel` / `flash_attention` of
 // src/repro/kernels/flash_attention.py (its `pallas_call` at line 98), which
@@ -8,7 +11,7 @@
 // repro_torch/kernels/flash_attention.py.
 //
 // Layout as in the reference: q [B, Sq, H, hd], k and v [B, Skv, KV, hd],
-// out [B, Sq, H, hd], all contiguous and of one dtype (float32 or bfloat16).
+// out [B, Sq, H, hd], all contiguous float32.
 // Query head h reads KV head h / (H / KV), so consecutive query heads share
 // a KV head (jnp.repeat), not h % KV. Masks: kpos < Skv; causal kpos <= qpos;
 // a window keeps kpos > qpos - window; qpos = q_offset + row. Masked scores
@@ -18,10 +21,10 @@
 // What bounds it: operations. At the serving path's prefill (B = 4, S = 2048,
 // 16 heads of 128) a head's q tile of 64 rows does 2 * 64 * 128 * 2 FLOPs for
 // every kv row it reads, far above the ~20 (float32) or ~295 (bf16 tensor
-// core) operations per byte at which the memory would bound it. This first
-// kernel does its products as float32 FMAs on the CUDA cores, so its ceiling
-// is the 67 TFLOP/s of float32, not the tensor cores' 989; `wgmma` and TMA
-// are later work.
+// core) operations per byte at which the memory would bound it. This kernel
+// does its products as float32 FMAs on the CUDA cores, so its ceiling is the
+// 67 TFLOP/s of float32, not the tensor cores' 989: the route for float32
+// operands, whose products must stay float32.
 //
 // Design for that: one block of 128 threads per (q tile of 64 rows, head,
 // batch); two threads per query row, each holding half of the row's scores
@@ -50,6 +53,11 @@ constexpr int BQ = 64;       // query rows per block
 constexpr int BK = 32;       // kv rows per tile
 constexpr int NT = 2 * BQ;   // threads: two per query row
 
+// 4 floats by one 16-byte load (rows and head dims are multiples of 4)
+__device__ __forceinline__ float4 load4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+
 template <int HD>
 constexpr int smem_floats() {
     return BQ * (HD + 1)      // Q, scaled
@@ -57,12 +65,13 @@ constexpr int smem_floats() {
            + BQ * (BK + 1);    // P
 }
 
-template <class T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT, 3)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Sq,
-                       int Skv, int H, int KV, int q_offset, int causal,
-                       int window, float scale) {
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       int Sq, int Skv, int H, int KV, int q_offset,
+                       int causal, int window, float scale) {
     static_assert(HD % 4 == 0 && HD <= 128, "head_dim");
     constexpr int HP = HD + 1;
     constexpr int HALF = HD / 2;
@@ -79,16 +88,18 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int tid = threadIdx.x, r = tid >> 1, half = tid & 1;
     const long long q_stride = (long long)H * HD;    // between positions
     const long long kv_stride = (long long)KV * HD;
-    const T* qb = q + ((long long)b * Sq * H + h) * HD;
-    const T* kb = k + ((long long)b * Skv * KV + kvh) * HD;
-    const T* vb = v + ((long long)b * Skv * KV + kvh) * HD;
+    const float* qb = q + ((long long)b * Sq * H + h) * HD;
+    const float* kb = k + ((long long)b * Skv * KV + kvh) * HD;
+    const float* vb = v + ((long long)b * Skv * KV + kvh) * HD;
 
     for (int idx = tid * 4; idx < BQ * HD; idx += NT * 4) {
         const int rr = idx / HD, d = idx % HD;
-        float val[4] = {0.f, 0.f, 0.f, 0.f};
-        if (q0 + rr < Sq) lm::load_vec<T, 4>(qb + (q0 + rr) * q_stride + d, val);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) Qs[rr * HP + d + e] = val[e] * scale;
+        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (q0 + rr < Sq) val = load4(qb + (q0 + rr) * q_stride + d);
+        Qs[rr * HP + d] = val.x * scale;
+        Qs[rr * HP + d + 1] = val.y * scale;
+        Qs[rr * HP + d + 2] = val.z * scale;
+        Qs[rr * HP + d + 3] = val.w * scale;
     }
 
     const int qpos = q_offset + q0 + r;
@@ -109,16 +120,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         __syncthreads();   // the previous tile's K, V and P are read
         for (int idx = tid * 4; idx < BK * HD; idx += NT * 4) {
             const int rr = idx / HD, d = idx % HD;
-            float kv4[4] = {0.f, 0.f, 0.f, 0.f}, vv4[4] = {0.f, 0.f, 0.f, 0.f};
+            float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
             if (j0 + rr < Skv) {
-                lm::load_vec<T, 4>(kb + (j0 + rr) * kv_stride + d, kv4);
-                lm::load_vec<T, 4>(vb + (j0 + rr) * kv_stride + d, vv4);
+                kv4 = load4(kb + (j0 + rr) * kv_stride + d);
+                vv4 = load4(vb + (j0 + rr) * kv_stride + d);
             }
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                Ks[rr * HP + d + e] = kv4[e];
-                Vs[rr * HP + d + e] = vv4[e];
-            }
+            float* kd = Ks + rr * HP + d;
+            float* vd = Vs + rr * HP + d;
+            kd[0] = kv4.x; kd[1] = kv4.y; kd[2] = kv4.z; kd[3] = kv4.w;
+            vd[0] = vv4.x; vd[1] = vv4.y; vd[2] = vv4.z; vd[3] = vv4.w;
         }
         __syncthreads();
 
@@ -167,43 +177,42 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     if (q0 + r < Sq) {
         const float den = fmaxf(l, 1e-30f);
-        T* orow = o + ((long long)b * Sq * H + h) * HD + (q0 + r) * q_stride;
+        float* orow =
+            o + ((long long)b * Sq * H + h) * HD + (q0 + r) * q_stride;
 #pragma unroll
-        for (int i = 0; i < HALF; ++i)
-            orow[2 * i + half] = lm::from_f32<T>(acc[i] / den);
+        for (int i = 0; i < HALF; ++i) orow[2 * i + half] = acc[i] / den;
     }
 }
 
-template <class T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
            int Skv, int H, int KV, int q_offset, int causal, int window,
            float scale, cudaStream_t stream) {
     const int bytes = smem_floats<HD>() * (int)sizeof(float);
     static cudaError_t attr = cudaFuncSetAttribute(
-        flash_attention_kernel<T, HD>,
+        flash_attention_kernel<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (attr != cudaSuccess) return (int)attr;
     const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-    flash_attention_kernel<T, HD><<<grid, NT, bytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H, KV,
+    flash_attention_kernel<HD><<<grid, NT, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, KV,
         q_offset, causal, window, scale);
     return (int)cudaGetLastError();
 }
 
-template <class T>
 int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
               int B, int Sq, int Skv, int H, int KV, int q_offset, int causal,
               int window, float scale, cudaStream_t s) {
     switch (hd) {
-        case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, KV, q_offset,
-                                      causal, window, scale, s);
-        case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, KV, q_offset,
-                                      causal, window, scale, s);
-        case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KV, q_offset,
-                                      causal, window, scale, s);
-        case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KV,
-                                        q_offset, causal, window, scale, s);
+        case 16: return launch<16>(q, k, v, o, B, Sq, Skv, H, KV, q_offset,
+                                   causal, window, scale, s);
+        case 32: return launch<32>(q, k, v, o, B, Sq, Skv, H, KV, q_offset,
+                                   causal, window, scale, s);
+        case 64: return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, q_offset,
+                                   causal, window, scale, s);
+        case 128: return launch<128>(q, k, v, o, B, Sq, Skv, H, KV,
+                                     q_offset, causal, window, scale, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -212,25 +221,17 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// hd must be 16, 32, 64 or 128 (else cudaErrorInvalidValue).
+// float32 q, k, v, out; hd must be 16, 32, 64 or 128 (else
+// cudaErrorInvalidValue).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int Sq, int Skv, int H, int KV,
                            int hd, int q_offset, int causal, int window,
-                           float scale, int dtype, void* stream) {
+                           float scale, void* stream) {
     if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H % KV != 0 ||
         H > 65535 || B > 65535)
         return (int)cudaErrorInvalidValue;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (dtype) {
-        case lm::F32:
-            return launch_hd<float>(hd, q, k, v, o, B, Sq, Skv, H, KV,
-                                    q_offset, causal, window, scale, s);
-        case lm::BF16:
-            return launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, Sq, Skv, H, KV,
-                                            q_offset, causal, window, scale,
-                                            s);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return launch_hd(hd, q, k, v, o, B, Sq, Skv, H, KV, q_offset, causal,
+                     window, scale, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error_string(int err) {

@@ -7,6 +7,8 @@
 // bfloat16 rounds to nearest even, as `astype` does in JAX.
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

@@ -10,35 +10,155 @@
 // What bounds it: bytes. A row of D values is read, reduced and written with
 // about 4 operations per element, far below the card's ~295 operations per
 // byte, so its least time is (read x + read scale + write out) / 3.35 TB/s.
+// A decode step's few rows (24 x 2048) are bound by latency instead: one
+// round trip to memory and a reduction.
 //
-// Design for that: one warp per row, eight rows per 256-thread block, so a
-// grid of rows/8 blocks streams the rows through every SM with no shared
-// memory and no block-wide barrier. Each lane reads a contiguous run of 8
-// elements at a time (one 16-byte load for bfloat16, two for float32), so a
-// warp reads 256 or 512 contiguous bytes per step; the sum of squares is a
-// float32 warp shuffle reduction. The second pass reads the row again (from
-// L1/L2, the row was just read) rather than holding D/32 values per lane in
-// registers. The reciprocal square root is 1.0f / sqrtf(...), both IEEE
-// (nvcc's default -prec-div/-prec-sqrt), not rsqrtf: the reference is held to
-// 1e-6 in float32.
+// Design for that, for the row widths D of REG_WIDTHS (the serving path's
+// 2048 and 128, and 256 ... 4096): the row lives in registers. TPR threads
+// share a row (a template parameter, 16 ... 256), each holding NV = D / (VEC
+// * TPR) 16-byte vectors of it (1 to 8; VEC = 8 bfloat16 or 4 float32):
+// thread j of the row holds vectors j, j + TPR, ..., so each load and store
+// instruction of a warp covers contiguous 16-byte pieces. x is read from
+// device memory once, all NV loads issued before the first use; the sum of
+// squares is a float32 shuffle reduction over the row's threads (through
+// shared memory when a row spans warps); the output is written with 16-byte
+// stores. Each thread loads its NV vectors of `scale` once and reuses them
+// across the rows of a grid-stride loop over groups of 256 / TPR rows, on a
+// grid of as many blocks as fit on the card at once. The launcher picks TPR
+// (threads_per_row below): one warp a row (two or four for the widest rows,
+// so that NV <= 8) when there are rows enough to fill the SMs, else as many
+// threads a row as make one to four loads each. D = 128 in bfloat16 is
+// 16 vectors: two rows a warp, no lane idle.
+//
+// Any other D (and every D that is not a multiple of 16 bytes) takes the
+// generic kernel: one warp a row, two passes over the row, scalar accesses
+// where D is not a multiple of 8 elements.
+//
+// The reciprocal square root is 1.0f / sqrtf(...), both IEEE (nvcc's default
+// -prec-div/-prec-sqrt), not rsqrtf: the reference is held to 1e-6 in
+// float32. The output is rounded once, to nearest even.
 //
 // Plain C interface (loaded with ctypes): the launcher takes the stream,
 // launches on it, does not synchronise, allocates nothing and returns the
 // CUDA error code of the launch, 0 on success.
 
+#include <type_traits>
+
 #include "lm_common.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;     // rows per block
+constexpr int BLOCK = 256;   // threads a block, both kernels
+
+// 16 bytes of T as float32 and back (round to nearest even).
+template <class T> struct Vec16;
+template <> struct Vec16<float> {
+    static constexpr int N = 4;
+    __device__ static void unpack(const uint4& u, float (&f)[4]) {
+        f[0] = __uint_as_float(u.x);
+        f[1] = __uint_as_float(u.y);
+        f[2] = __uint_as_float(u.z);
+        f[3] = __uint_as_float(u.w);
+    }
+    __device__ static uint4 pack(const float (&f)[4]) {
+        return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                          __float_as_uint(f[2]), __float_as_uint(f[3]));
+    }
+};
+template <> struct Vec16<__nv_bfloat16> {
+    static constexpr int N = 8;
+    __device__ static void unpack(const uint4& u, float (&f)[8]) {
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            f[2 * i] = __uint_as_float(w[i] << 16);          // low half first
+            f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+        }
+    }
+    __device__ static uint4 pack(const float (&f)[8]) {
+        uint32_t w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            __nv_bfloat162 b = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+            w[i] = *reinterpret_cast<uint32_t*>(&b);
+        }
+        return make_uint4(w[0], w[1], w[2], w[3]);
+    }
+};
+
+// The row in registers: TPR threads a row, NV 16-byte vectors a thread.
+template <class T, int D, int TPR>
+__global__ void __launch_bounds__(BLOCK)
+rmsnorm_regs_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                    T* __restrict__ out, long long rows, float eps) {
+    using V = Vec16<T>;
+    constexpr int NV = D / V::N / TPR;
+    constexpr int RPB = BLOCK / TPR;        // rows a block
+    constexpr int WPR = TPR / 32;           // warps a row, when TPR > 32
+    static_assert(NV >= 1 && NV * V::N * TPR == D, "D, TPR");
+    __shared__ float red[BLOCK / 32];
+    const int lt = threadIdx.x % TPR, rb = threadIdx.x / TPR;
+
+    uint4 sv[NV];
+    const uint4* s4 = reinterpret_cast<const uint4*>(scale);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) sv[i] = s4[i * TPR + lt];
+
+    const long long groups = (rows + RPB - 1) / RPB;
+    for (long long gi = blockIdx.x; gi < groups; gi += gridDim.x) {
+        const long long row = gi * RPB + rb;
+        const bool ok = row < rows;
+        const uint4* x4 = reinterpret_cast<const uint4*>(x + row * D);
+        uint4 xv[NV];
+#pragma unroll
+        for (int i = 0; i < NV; ++i)
+            xv[i] = ok ? x4[i * TPR + lt] : make_uint4(0u, 0u, 0u, 0u);
+        float ss = 0.f;
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+            float f[V::N];
+            V::unpack(xv[i], f);
+#pragma unroll
+            for (int e = 0; e < V::N; ++e) ss += f[e] * f[e];
+        }
+        if constexpr (TPR <= 32) {
+#pragma unroll
+            for (int off = TPR / 2; off > 0; off >>= 1)
+                ss += __shfl_xor_sync(0xffffffffu, ss, off);
+        } else {
+            ss = lm::warp_sum(ss);
+            if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = ss;
+            __syncthreads();
+            ss = 0.f;
+#pragma unroll
+            for (int w = 0; w < WPR; ++w) ss += red[rb * WPR + w];
+            __syncthreads();        // red is written again next group
+        }
+        const float inv = 1.0f / sqrtf(ss / (float)D + eps);
+        if (ok) {
+            uint4* o4 = reinterpret_cast<uint4*>(out + row * D);
+#pragma unroll
+            for (int i = 0; i < NV; ++i) {
+                float f[V::N], s[V::N];
+                V::unpack(xv[i], f);
+                V::unpack(sv[i], s);
+#pragma unroll
+                for (int e = 0; e < V::N; ++e) f[e] = (f[e] * inv) * s[e];
+                o4[i * TPR + lt] = V::pack(f);
+            }
+        }
+    }
+}
+
+// Any other D: one warp a row, eight rows a block, two passes over the row.
 constexpr int VEC = 8;       // contiguous elements a lane handles per step
 
 template <class T>
-__global__ void __launch_bounds__(WARPS * 32)
-rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ scale,
-               T* __restrict__ out, long long rows, int D, float eps) {
+__global__ void __launch_bounds__(BLOCK)
+rmsnorm_generic_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                       T* __restrict__ out, long long rows, int D, float eps) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const long long row = (long long)blockIdx.x * WARPS + warp;
+    const long long row = (long long)blockIdx.x * (BLOCK / 32) + warp;
     if (row >= rows) return;
     const T* xr = x + row * D;
     T* orow = out + row * D;
@@ -78,25 +198,117 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ scale,
 }
 
 template <class T>
-int launch(const void* x, const void* scale, void* out, long long rows, int D,
-           float eps, cudaStream_t stream) {
-    const long long blocks = (rows + WARPS - 1) / WARPS;
+int launch_generic(const void* x, const void* scale, void* out,
+                   long long rows, int D, float eps, cudaStream_t stream) {
+    const long long blocks = (rows + BLOCK / 32 - 1) / (BLOCK / 32);
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    rmsnorm_kernel<T><<<(unsigned)blocks, WARPS * 32, 0, stream>>>(
+    rmsnorm_generic_kernel<T><<<(unsigned)blocks, BLOCK, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(scale),
         static_cast<T*>(out), rows, D, eps);
     return (int)cudaGetLastError();
+}
+
+// The card's SM count, read once.
+int sm_count() {
+    static const int n = [] {
+        int dev = 0, sms = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        return sms > 0 ? sms : 1;
+    }();
+    return n;
+}
+
+// The two thread counts a row of width D may take. A row is NVEC 16-byte
+// vectors. MANY: one warp a row, or as many warps as keep each thread at 8
+// vectors or fewer. FEW (for few rows): as many threads a row, up to a block,
+// as make one to four loads each.
+template <class T, int D> struct Width {
+    static constexpr int NVEC = D * (int)sizeof(T) / 16;
+    static constexpr int MANY =
+        NVEC < 32 ? NVEC : (NVEC / 8 > 32 ? NVEC / 8 : 32);
+    static constexpr int FEW = NVEC < BLOCK ? NVEC : BLOCK;
+};
+
+// Threads a row: MANY, unless that leaves fewer blocks than the card has
+// SMs; then FEW.
+template <class T, int D>
+int threads_per_row(long long rows) {
+    using W = Width<T, D>;
+    const long long blocks = (rows + BLOCK / W::MANY - 1) / (BLOCK / W::MANY);
+    return blocks < sm_count() ? W::FEW : W::MANY;
+}
+
+template <class T, int D, int TPR>
+int launch_regs(const void* x, const void* scale, void* out, long long rows,
+                float eps, cudaStream_t stream) {
+    // as many blocks as are resident on the card at once
+    static const long long resident = [] {
+        int per_sm = 0;
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, rmsnorm_regs_kernel<T, D, TPR>, BLOCK, 0);
+        return (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
+    }();
+    const long long groups = (rows + BLOCK / TPR - 1) / (BLOCK / TPR);
+    const long long blocks = groups < resident ? groups : resident;
+    rmsnorm_regs_kernel<T, D, TPR><<<(unsigned)blocks, BLOCK, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(scale),
+        static_cast<T*>(out), rows, eps);
+    return (int)cudaGetLastError();
+}
+
+template <class T, int D>
+int launch_width(const void* x, const void* scale, void* out, long long rows,
+                 float eps, cudaStream_t s) {
+    using W = Width<T, D>;
+    if (threads_per_row<T, D>(rows) == W::FEW)
+        return launch_regs<T, D, W::FEW>(x, scale, out, rows, eps, s);
+    return launch_regs<T, D, W::MANY>(x, scale, out, rows, eps, s);
+}
+
+// f(std::integral_constant<int, D>) for D one of the register widths (the
+// wrapper's REG_WIDTHS), else other().
+template <class F, class G>
+int with_width(int D, F f, G other) {
+    switch (D) {
+        case 128: return f(std::integral_constant<int, 128>{});
+        case 256: return f(std::integral_constant<int, 256>{});
+        case 512: return f(std::integral_constant<int, 512>{});
+        case 1024: return f(std::integral_constant<int, 1024>{});
+        case 2048: return f(std::integral_constant<int, 2048>{});
+        case 4096: return f(std::integral_constant<int, 4096>{});
+        default: return other();
+    }
+}
+
+template <class T>
+int launch(const void* x, const void* scale, void* out, long long rows, int D,
+           float eps, cudaStream_t s) {
+    return with_width(
+        D,
+        [&](auto w) {
+            return launch_width<T, decltype(w)::value>(x, scale, out, rows,
+                                                       eps, s);
+        },
+        [&] { return launch_generic<T>(x, scale, out, rows, D, eps, s); });
+}
+
+template <class T>
+int tpr_of(long long rows, int D) {
+    return with_width(
+        D, [&](auto w) { return threads_per_row<T, decltype(w)::value>(rows); },
+        [] { return 0; });
 }
 
 }  // namespace
 
 extern "C" {
 
-// x, out: [rows, D] contiguous; scale: [D]; all of one dtype (lm::DType).
-// Pointers must be 16-byte aligned when D is a multiple of 8.
+// x, out: [rows, D] contiguous; scale: [D]; all of one dtype (lm::DType);
+// 16-byte aligned. D one of 128, 256, ..., 4096 takes the register kernel,
+// any other D the generic one.
 int rmsnorm_launch(const void* x, const void* scale, void* out,
-                   long long rows, int D, float eps, int dtype,
-                   void* stream) {
+                   long long rows, int D, float eps, int dtype, void* stream) {
     if (rows <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (dtype) {
@@ -104,6 +316,16 @@ int rmsnorm_launch(const void* x, const void* scale, void* out,
         case lm::BF16:
             return launch<__nv_bfloat16>(x, scale, out, rows, D, eps, s);
         default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// The threads a row that rmsnorm_launch gives (rows, D) of dtype on the
+// current device: 0 for the generic kernel, -1 for an unknown dtype.
+int rmsnorm_threads_per_row(long long rows, int D, int dtype) {
+    switch (dtype) {
+        case lm::F32: return tpr_of<float>(rows, D);
+        case lm::BF16: return tpr_of<__nv_bfloat16>(rows, D);
+        default: return -1;
     }
 }
 

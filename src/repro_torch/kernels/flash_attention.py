@@ -7,13 +7,22 @@ It replaces ``flash_attention`` of the JAX package's
 grouped-query attention, q ``(B, Sq, H, hd)``, k and v ``(B, Skv, KV, hd)``,
 query head ``h`` reading KV head ``h // (H // KV)``, masks ``kpos < Skv``,
 ``kpos <= qpos`` (causal) and ``kpos > qpos - window`` (window > 0), with
-``qpos = q_offset + row``. The design, and what bounds the kernel on this
-card, are written at the head of the CUDA source.
+``qpos = q_offset + row``.
 
-:func:`flash_attention` launches the kernel for tensors on a CUDA device and
-raises if it cannot; only for tensors that lie on the CPU does it run the
-plain version :func:`flash_attention_ref`. ``flash_attention.launches``
-counts kernel launches.
+Two kernels, routed by the operands' dtype (never as a fallback):
+
+- bfloat16 -> ``csrc/flash_attention_tc.cu`` (variant ``tc_bf16``): both
+  products on the tensor cores (``wgmma``), copies by TMA, every head dim of
+  ``HEAD_DIMS``; P is rounded to bf16 before P·V.
+- float32 -> ``csrc/flash_attention.cu`` (variant ``simt_f32``): float32 FMAs
+  on the CUDA cores, which the float32 tolerance (2e-5) needs.
+
+The design of each, and what bounds it on this card, are written at the head
+of its CUDA source. :func:`flash_attention` launches the kernel for tensors
+on a CUDA device and raises if it cannot; only for tensors that lie on the
+CPU does it run the plain version :func:`flash_attention_ref`.
+``flash_attention.launches`` counts kernel launches,
+``flash_attention.launches_by_variant`` the launches of each kernel.
 """
 from __future__ import annotations
 
@@ -22,10 +31,17 @@ import torch
 
 from repro_torch.kernels import _lm
 
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+#: the kernel the main path runs (bf16 prefill)
+KERNEL_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_tc.cu"
 
+#: variant -> its library under csrc/: bfloat16 operands take "tc_bf16",
+#: float32 ones "simt_f32"
+VARIANTS = {"tc_bf16": "flash_attention_tc", "simt_f32": "flash_attention"}
+
+#: both launchers: q, k, v, out, B, Sq, Skv, H, KV, hd, q_offset, causal,
+#: window, scale, stream
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_void_p])
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -94,17 +110,22 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if Skv == 0:
         raise ValueError("flash_attention: no key to attend to (Skv = 0)")
     scale = hd ** -0.5
-    lib = _lm.bind("flash_attention", _ARGTYPES)
+    variant = "tc_bf16" if q.dtype == torch.bfloat16 else "simt_f32"
+    name = VARIANTS[variant]
+    lib = _lm.bind(name, _ARGTYPES)
     with torch.cuda.device(dev):
-        err = lib.flash_attention_launch(
+        err = getattr(lib, f"{name}_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
             Skv, H, KV, hd, int(q_offset), int(bool(causal)), int(window),
-            float(scale), _lm.DTYPE_CODES[q.dtype], _lm.stream_of(dev))
-    _lm.raise_on_error(lib, "flash_attention", err,
+            float(scale), _lm.stream_of(dev))
+    _lm.raise_on_error(lib, name, err,
                        f"q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}")
     flash_attention.launches += 1
+    flash_attention.launches_by_variant[variant] += 1
     return out
 
 
 #: kernel launches made by this process through :func:`flash_attention`
 flash_attention.launches = 0
+#: the same launches by kernel (``VARIANTS``)
+flash_attention.launches_by_variant = dict.fromkeys(VARIANTS, 0)

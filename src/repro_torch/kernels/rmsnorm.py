@@ -5,11 +5,15 @@ It replaces ``rms_norm`` of the JAX package's ``kernels/rmsnorm.py`` (the
 function of ``models/layers.py::rms_norm``): ``x * rsqrt(mean(x²) + eps) *
 scale`` over the last axis, statistics in float32, cast back to ``x``'s type.
 The design, and what bounds the kernel on this card, are written at the head
-of the CUDA source.
+of the CUDA source: for the row widths of ``REG_WIDTHS`` a kernel that keeps
+the row in registers (variant ``row_in_registers``; the launcher picks the
+threads a row, which :func:`threads_per_row` reports), for any other width a
+generic one.
 
 :func:`rms_norm` launches the kernel for tensors on a CUDA device and raises
 if it cannot; only for tensors that lie on the CPU does it run the plain
-version :func:`rms_norm_ref`. ``rms_norm.launches`` counts kernel launches.
+version :func:`rms_norm_ref`. ``rms_norm.launches`` counts kernel launches,
+``rms_norm.launches_by_variant`` the launches of each variant.
 """
 from __future__ import annotations
 
@@ -24,6 +28,22 @@ KERNEL_SOURCE = "src/repro_torch/kernels/csrc/rmsnorm.cu"
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
              ctypes.c_void_p]
+
+#: row widths whose kernel keeps the row in registers (the cases of
+#: ``csrc/rmsnorm.cu::with_width``)
+REG_WIDTHS = (128, 256, 512, 1024, 2048, 4096)
+VARIANTS = ("row_in_registers", "generic")
+
+
+def threads_per_row(rows: int, D: int, dtype: torch.dtype) -> int:
+    """The threads a row that the kernel's launcher gives ``rows`` rows of
+    width ``D`` in ``dtype`` on the current CUDA device, 0 for the generic
+    kernel. The rule lives in ``csrc/rmsnorm.cu``; this asks its library."""
+    lib = _lm.bind("rmsnorm", _ARGTYPES)
+    query = lib.rmsnorm_threads_per_row
+    query.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    query.restype = ctypes.c_int
+    return query(rows, D, _lm.DTYPE_CODES[dtype])
 
 
 def rms_norm_ref(x: torch.Tensor, scale: torch.Tensor,
@@ -61,8 +81,12 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
                                  _lm.DTYPE_CODES[x.dtype], _lm.stream_of(dev))
     _lm.raise_on_error(lib, "rmsnorm", err, f"rows={rows}, D={D}, {x.dtype}")
     rms_norm.launches += 1
+    rms_norm.launches_by_variant[
+        VARIANTS[0] if D in REG_WIDTHS else VARIANTS[1]] += 1
     return out
 
 
 #: kernel launches made by this process through :func:`rms_norm`
 rms_norm.launches = 0
+#: the same launches by variant (``VARIANTS``)
+rms_norm.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -140,26 +140,80 @@ def test_rms_norm_kernel_on_the_card(dtype):
         _hold(got, rmsnorm.rms_norm_ref(x, s), tol)
 
 
+# every width of the register kernel at one row, a decode step's 24 rows and
+# more row groups than the card holds at once (the grid-stride loop); each
+# width then takes both of its thread counts (a few rows: many threads a row)
+_RMS_ROWS = (1, 24, 17000)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [128, 256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_register_kernel_at_every_width(D, dtype):
+    _need_card()
+    from repro_torch.kernels import rmsnorm
+    gen = torch.Generator(device="cuda").manual_seed(D)
+    tol = 1e-6 if dtype == torch.float32 else 2e-2
+    tprs = set()
+    for R in _RMS_ROWS:
+        x = _lm_randn(gen, (R, D), dtype, 3.0)
+        s = _lm_randn(gen, (D,), dtype)
+        tpr = rmsnorm.threads_per_row(R, D, dtype)
+        assert tpr > 0
+        tprs.add(tpr)
+        n = rmsnorm.rms_norm.launches_by_variant["row_in_registers"]
+        got = rmsnorm.rms_norm(x, s)
+        torch.cuda.synchronize()
+        assert rmsnorm.rms_norm.launches_by_variant["row_in_registers"] == n + 1
+        _hold(got, rmsnorm.rms_norm_ref(x, s), tol)
+    nvec = D * x.element_size() // 16
+    assert len(tprs) == (1 if nvec <= 32 else 2)
+
+
+# B, Sq, Skv, H, KV, hd, causal, window, q_offset: ragged Sq / Skv (33, 100,
+# 2047: partial q and kv tiles of either kernel), q_offsets, windows,
+# non-causal, G = H / KV of 1, 2, 3 and 4, every head dim
+_ATTENTION_CASES = [
+    (2, 128, 128, 4, 2, 64, True, 0, 0),
+    (2, 100, 100, 2, 1, 16, True, 0, 0),
+    (1, 64, 64, 8, 2, 128, False, 0, 0),
+    (1, 192, 192, 6, 3, 32, True, 32, 0),
+    (2, 50, 80, 4, 2, 128, True, 0, 30),
+    (1, 33, 33, 4, 4, 128, True, 0, 0),
+    (2, 100, 100, 4, 2, 64, True, 0, 0),
+    (1, 2047, 2047, 4, 1, 128, True, 0, 0),
+    (1, 2047, 2047, 2, 2, 32, False, 0, 0),
+    (2, 100, 333, 8, 2, 16, True, 0, 233),
+    (1, 256, 700, 4, 2, 128, True, 0, 444),
+    (1, 300, 300, 4, 1, 64, True, 100, 0),
+    (2, 513, 513, 2, 1, 32, True, 7, 0),
+    (1, 200, 600, 4, 2, 16, True, 150, 400),
+    (1, 100, 257, 8, 4, 64, False, 0, 0),
+    (1, 128, 128, 4, 2, 128, False, 50, 0),
+    (2, 1, 40, 4, 2, 128, True, 0, 39),
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_on_the_card(dtype):
+    """Each case through its dtype's kernel (bf16: the tensor cores, float32:
+    the CUDA cores), held to the plain version."""
     _need_card()
     from repro_torch.kernels import flash_attention as fa
+    variant = "tc_bf16" if dtype == torch.bfloat16 else "simt_f32"
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for B, Sq, Skv, H, KV, hd, causal, win, qo in (
-            (2, 128, 128, 4, 2, 64, True, 0, 0), (2, 100, 100, 2, 1, 16,
-                                                  True, 0, 0),
-            (1, 64, 64, 8, 2, 128, False, 0, 0), (1, 192, 192, 6, 3, 32,
-                                                  True, 32, 0),
-            (2, 50, 80, 4, 2, 128, True, 0, 30)):
+    for B, Sq, Skv, H, KV, hd, causal, win, qo in _ATTENTION_CASES:
         q = _lm_randn(gen, (B, Sq, H, hd), dtype)
         k = _lm_randn(gen, (B, Skv, KV, hd), dtype)
         v = _lm_randn(gen, (B, Skv, KV, hd), dtype)
         kw = dict(causal=causal, window=win, q_offset=qo)
         n = fa.flash_attention.launches
+        nv = fa.flash_attention.launches_by_variant[variant]
         got = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         assert fa.flash_attention.launches == n + 1
+        assert fa.flash_attention.launches_by_variant[variant] == nv + 1
         _hold(got, fa.flash_attention_ref(q, k, v, **kw),
               _LM_TOL[dtype])
 

@@ -96,10 +96,11 @@ def test_wrapper_checks_leaves():
 
 def test_kernel_sources_ship_with_the_package():
     assert _build.sources() == ("decode_attention", "flash_attention",
-                                "rmsnorm", "ws_sim")
+                                "flash_attention_tc", "rmsnorm", "ws_sim")
     for name, launcher in (("ws_sim", "ws_sim_divisible_launch"),
                            ("rmsnorm", "rmsnorm_launch"),
                            ("flash_attention", "flash_attention_launch"),
+                           ("flash_attention_tc", "flash_attention_tc_launch"),
                            ("decode_attention", "decode_attention_launch")):
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert launcher in text and "torch/extension.h" not in text

@@ -13,6 +13,10 @@ Inputs are made with numpy from a seed; a bfloat16 input is cast from the
 same float32 array in both frameworks, and the test checks that both hold
 identical bits.
 """
+import math
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +27,8 @@ from repro.kernels.decode_attention import flash_decode as pallas_decode
 from repro.kernels.flash_attention import flash_attention as pallas_attention
 from repro.kernels.rmsnorm import rms_norm as pallas_rms_norm
 from repro.models import attention as jattn
-from repro_torch.kernels import ops
+from repro_torch.kernels import _lm, ops, rmsnorm
+from repro_torch.kernels import flash_attention as fa
 
 torch.set_num_threads(1)
 
@@ -196,3 +201,118 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
             ops.flash_decode(qd, kc, kc, bad)
     with pytest.raises(TypeError):
         ops.flash_decode(qd, kc, kc.bfloat16(), 4)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core attention kernel's arithmetic (csrc/flash_attention_tc.cu)
+# emulated in torch, held against the Pallas kernel in interpret mode at the
+# bf16 tolerance: its rounding points differ from the plain version's.
+# ---------------------------------------------------------------------------
+
+def _csrc_text(name: str) -> str:
+    return (Path(fa.__file__).with_name("csrc") / name).read_text()
+
+
+def _tc_tiles() -> tuple:
+    """The tensor-core kernel's tiles (q rows a work item, kv rows a step),
+    read from its source, so that the emulation follows the kernel."""
+    src = _csrc_text("flash_attention_tc.cu")
+    return tuple(int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+                 for n in ("BQ", "BK"))
+
+
+def _tc_kernel_emulation(q, k, v, *, causal, window, q_offset):
+    """What the bf16 tensor-core kernel computes, step by step: per q tile of
+    ``BQ`` rows, the kv tiles of ``BK`` rows it visits
+    (wholly masked ones skipped, the ragged edge zero-filled); scores as a
+    bf16 x bf16 product summed in float32, then scaled in float32 by
+    hd ** -0.5 * log2(e); masked to -1e30; an online softmax in base 2 with
+    float32 row maxima and sums (of the unrounded p); P rounded to bf16
+    before P·V; out = acc / max(l, 1e-30) rounded to bf16."""
+    BQ, BK = _tc_tiles()
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale_log2 = (torch.tensor(hd ** -0.5, dtype=torch.float32)
+                  * torch.tensor(math.log2(math.e), dtype=torch.float32))
+    pad = (-Skv) % BK
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    kf, vf = (t.repeat_interleave(G, dim=2) for t in (kf, vf))
+    out = torch.empty(q.shape, dtype=torch.float32)
+    for q0 in range(0, Sq, BQ):
+        qt = q[:, q0:q0 + BQ].float()
+        qpos = q_offset + torch.arange(q0, q0 + qt.shape[1])[:, None]
+        kv_lo, kv_hi = 0, Skv
+        if causal:
+            kv_hi = min(Skv, q_offset + q0 + BQ)
+            if window > 0:
+                kv_lo = max(0, q_offset + q0 - window + 1)
+        kv_lo = kv_lo // BK * BK
+        m = torch.full((B, H, qt.shape[1]), _lm.NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, H, qt.shape[1], hd))
+        for j0 in range(kv_lo, kv_hi, BK):
+            s = torch.einsum("bqhd,bkhd->bhqk", qt, kf[:, j0:j0 + BK])
+            s = s * scale_log2
+            kpos = torch.arange(j0, j0 + BK)[None, :]
+            keep = kpos < Skv
+            if causal:
+                keep = keep & (kpos <= qpos)
+            if window > 0:
+                keep = keep & (kpos > qpos - window)
+            s = torch.where(keep, s, _lm.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.bfloat16().float(), vf[:, j0:j0 + BK])
+            m = m_new
+        out[:, q0:q0 + BQ] = (acc / l.clamp_min(1e-30)[..., None]
+                              ).permute(0, 2, 1, 3)
+    return out.to(q.dtype)
+
+
+# tests/test_kernels.py's shapes (all in bf16, the kernel's only type), and
+# the serving path's q_offset and window at head_dim 128
+TC_CASES = [(B, Sq, Sq, H, KV, hd, causal, win, 0)
+            for B, Sq, H, KV, hd, _dt, causal, win in FA_CASES]
+TC_CASES += [(2, 50, 80, 4, 2, 128, True, 0, 30),
+             (2, 33, 33, 4, 2, 128, True, 7, 0),
+             (1, 300, 300, 4, 1, 64, True, 100, 0)]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal,win,q_offset", TC_CASES)
+def test_tensor_core_arithmetic_vs_pallas(B, Sq, Skv, H, KV, hd, causal, win,
+                                          q_offset):
+    rng = np.random.default_rng(Sq + Skv + H)
+    q, tq = _pair(rng.standard_normal((B, Sq, H, hd)), "bfloat16")
+    k, tk = _pair(rng.standard_normal((B, Skv, KV, hd)), "bfloat16")
+    v, tv = _pair(rng.standard_normal((B, Skv, KV, hd)), "bfloat16")
+    got = _tc_kernel_emulation(tq, tk, tv, causal=causal, window=win,
+                               q_offset=q_offset)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    want = pallas_attention(q, k, v, causal=causal, window=win,
+                            q_offset=q_offset, block_q=64, block_kv=64,
+                            interpret=True)
+    _close(got, want, ATTN_TOL["bfloat16"])
+
+
+# ---------------------------------------------------------------------------
+# The RMSNorm wrapper counts a launch as ``row_in_registers`` for the widths
+# of REG_WIDTHS; the launcher must dispatch exactly those to that kernel.
+# ---------------------------------------------------------------------------
+
+def _rms_register_cases() -> list:
+    src = _csrc_text("rmsnorm.cu")
+    body = src[src.index("int with_width("):]
+    body = body[:body.index("default:")]
+    return [int(d) for d in re.findall(r"case (\d+):", body)]
+
+
+@pytest.mark.parametrize("D", rmsnorm.REG_WIDTHS)
+def test_rms_norm_register_widths_match_the_launcher(D):
+    src = _csrc_text("rmsnorm.cu")
+    assert f"case {D}: return f(std::integral_constant<int, {D}>{{}});" in src
+    assert sorted(_rms_register_cases()) == sorted(rmsnorm.REG_WIDTHS)
