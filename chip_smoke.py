@@ -18,12 +18,16 @@ launch counts (per kernel variant too), and the float32 parity of forward
 and sequential prefill.
 
 Phases, one JSON line each: ``build`` (seconds, ptxas's registers and spills,
-and the count of ``HGMMA`` instructions in each library's SASS), ``kernels``
-(bit-exact against the plain
-loop), ``oracle`` (bit-exact against the serial numpy simulators),
-``main_path`` (one line per path: sweeps, invariants, repeat served from the
-store, sampled oracle rows), ``timing`` (one line per body: the kernel, its
-plain version and its bound at a main-path shape), ``lm_kernels`` (one line
+the count of ``HGMMA`` instructions in each library's SASS, and the
+resources of every instantiation of the simulator kernel, where a spill
+fails the run), ``kernels`` (bit-exact against the plain loop, the
+simulator at every slot-count boundary), ``oracle`` (bit-exact
+against the serial numpy simulators), ``main_path`` (one line per path:
+sweeps, invariants, every launch on the register variant, repeat served from
+the store, sampled oracle rows), ``timing`` (one line per body: the kernel
+per chunk with ns per event on its longest row and its time before the
+redesign, the path's summed kernel time, its plain version and its bound),
+``lm_kernels`` (one line
 per language-model kernel: every case's max error beside its tolerance),
 ``lm_main_path`` (one line per path: tokens per second, launch counts),
 ``lm_parity``, ``lm_timing`` (one line per kernel and shape: the kernel, its
@@ -42,6 +46,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -383,6 +388,71 @@ def adaptive_cases(stats):
     stats.add("ws_sim_adaptive", scn)
 
 
+#: p at each slot-count boundary of the simulator kernel (K = 1, 2, 4, 8,
+#: 16, 32 processors a lane), up to ws.MAX_P
+BOUNDARY_P = (2, 31, 32, 33, 63, 64, 65, 128, 129, 256, 257, 512, 513, 1024)
+
+
+def boundary_case(body: str, p: int) -> tuple:
+    """The case of ``body`` at p of BOUNDARY_P, as (config, scenario): one
+    cluster, two even clusters or two uneven ones in turn; every strategy
+    at every size across the three bodies; SWT or MWT in turn; trace on;
+    four rows, the second cut by a budget of 3 events of its own; a DAG
+    whose FIFO deque cap halts rows, and an adaptive pool that fills, on
+    every other case. Small work keeps the plain loop's steps (one per
+    event of the longest row) few. ``tests/test_torch_gpu.py`` runs the
+    same cases."""
+    n, b = BOUNDARY_P.index(p), BODIES.index(body)
+    if n % 3 == 0:
+        topo = T.one_cluster(p, 3)
+    else:                          # even, then uneven, clusters
+        topo = T.two_clusters(p, 20, lam_local=3, split=p // (1 + n % 3))
+    topo = topo.with_strategy(STRATEGIES[(n + b) % 4], REMOTE_PROB)
+    # above p = 33 a model budget of 800 events keeps the plain loop short;
+    # at p <= 33 every row ends on its own, and the main paths run p = 32,
+    # 64, 256 to their ends
+    common = dict(topology=topo, mwt=bool((n + p) % 2), log_trace=True,
+                  max_trace=32, max_events=1 << 16 if p <= 33 else 800)
+    if body == "ws_sim_divisible":
+        cfg = dv.EngineConfig(**common)
+    elif body == "ws_sim_dag":
+        halt = n % 2 == 1
+        cfg = dg.DagEngineConfig(
+            dag=gen.random_layered(6, 8, 0.4, seed=5), owner_lifo=not halt,
+            deque_cap=6 if halt else None, **common)
+    else:
+        cfg = ad.AdaptiveEngineConfig(pool_cap=15 if n % 2 else 4096,
+                                      merge_alpha=2, merge_beta_num=1,
+                                      **common)
+    W = 0 if body == "ws_sim_dag" else 4 * p
+    scn = sw.scenario_from_rows(
+        sw.grid_rows([W], [(3, 7)], 4, theta=[(1, 1)], seed0=p),
+        remote_prob=REMOTE_PROB, ev_budget=np.asarray(
+            [2**31 - 1, 3, 2**31 - 1, 2**31 - 1]), device=DEV)
+    return cfg, scn
+
+
+def boundary_cases(stats):
+    """Every body at every p of BOUNDARY_P (:func:`boundary_case`) on the
+    variant ``ws.variant`` routes it to, held against the plain loop; each
+    launch must count under its variant."""
+    for body in BODIES:
+        for p in BOUNDARY_P:
+            cfg, scn = boundary_case(body, p)
+            name, k = ws.variant(p)
+            before = dict(ws.ws_sim_cuda.launches_by_variant)
+            res, _ = hold_against_plain(cfg, scn, f"{body} p={p} "
+                                        f"{cfg.topology.name} ({name}, K={k})")
+            if ws.ws_sim_cuda.launches_by_variant[name] != before[name] + 1:
+                raise AssertionError(f"{body} p={p}: the launch did not count "
+                                     f"under variant {name}")
+            if not bool(res.overflow[1]) or int(res.n_events[1]) != 3:
+                raise AssertionError(f"{body} p={p}: the row budget of 3 "
+                                     "events was not honoured")
+            stats.add(body, scn)
+            stats.variants[name] += 1
+
+
 @dataclasses.dataclass
 class CaseStats:
     cases: dict = dataclasses.field(default_factory=lambda: dict.fromkeys(
@@ -391,6 +461,8 @@ class CaseStats:
         BODIES, 0))
     oracle: int = 0
     halted_rows: int = 0
+    variants: dict = dataclasses.field(default_factory=lambda: dict.fromkeys(
+        ws.VARIANTS, 0))
 
     def add(self, body, scn):
         self.cases[body] += 1
@@ -403,12 +475,14 @@ def phase_kernels_and_oracle():
     seconds = {}
     for body, run in (("ws_sim_divisible", divisible_cases),
                       ("ws_sim_dag", dag_cases),
-                      ("ws_sim_adaptive", adaptive_cases)):
+                      ("ws_sim_adaptive", adaptive_cases),
+                      ("slot_boundaries", boundary_cases)):
         t1 = time.perf_counter()
         run(stats)
         seconds[body] = round(time.perf_counter() - t1, 3)
     say("kernels", kernels=list(BODIES), models=stats.cases, rows=stats.rows,
         dag_rows_halted_at_deque_cap=stats.halted_rows, bit_exact=True,
+        boundary_p=BOUNDARY_P, boundary_cases_by_variant=stats.variants,
         max_abs_err=WORST, seconds=seconds,
         total_seconds=round(time.perf_counter() - t0, 3))
     say("oracle", rows=stats.oracle, bit_exact=True)
@@ -579,12 +653,17 @@ def drive_path(store_root: Path, path: str) -> dict:
         grids.append(g)
     wall = time.perf_counter() - t0
     launches = dict(ws.ws_sim_cuda.launches_by_body)   # read just after
+    by_variant = dict(ws.ws_sim_cuda.launches_by_variant)
     total = ws.ws_sim_cuda.launches
     n_chunks = sum(math.ceil(len(g) / s["kw"]["chunk_size"])
                    for s, g in zip(spec["sweeps"], grids))
     if launches[body] < 1 or launches[body] != n_chunks or total != n_chunks:
         raise AssertionError(f"{path} path made {launches} kernel launches, "
                              f"expected one of {body} per chunk = {n_chunks}")
+    if by_variant != {"registers": n_chunks}:
+        raise AssertionError(f"{path}: launches by variant {by_variant}, "
+                             f"expected all {n_chunks} on the register "
+                             "variant")
     if cuda_be.n_run_rows - runs_before != n_chunks:
         raise AssertionError(f"{path}: the cuda backend's n_run_rows did not "
                              "rise by one per chunk")
@@ -621,7 +700,8 @@ def drive_path(store_root: Path, path: str) -> dict:
         n_oracle += len(s["oracle_rows"])
     out = dict(path=path, body=body, rows=sum(len(g) for g in grids),
                chunks=n_chunks, launches=launches[body],
-               launches_by_body=launches, wall_seconds=wall,
+               launches_by_body=launches, launches_by_variant=by_variant,
+               wall_seconds=wall,
                total_events=sum(s["events"] for s in sweeps),
                events_per_second=sum(s["events"] for s in sweeps) / wall,
                sweeps=sweeps, repeat_from_store=True, oracle_rows=n_oracle,
@@ -758,6 +838,25 @@ def kernel_bound_ms(model, scn, res) -> tuple:
     return max(bytes_ms, ops_ms), by, detail
 
 
+#: each timed chunk's kernel ms before the redesign of the event loop (the
+#: shared-memory kernel, this script's phase timing then, kept in PERF.md's
+#: kernel table; NVIDIA H100 80GB HBM3, 700.00 W), by (sweep, lambda)
+WS_MS_BEFORE = {
+    ("one_cluster_p256", 2): 18.675801086425782,
+    ("one_cluster_p256", 62): 11.257772827148438,
+    ("one_cluster_p256", 262): 9.935667419433594,
+    ("one_cluster_p256", 482): 8.646329498291015,
+    ("two_clusters_p64_local_first", 100): 4.686617660522461,
+    ("dag_merge_sort_p32", 2): 133.44782511393228,
+    ("dag_merge_sort_p32", 10): 29.2301025390625,
+    ("dag_merge_sort_p32", 62): 6.8158823649088545,
+    ("adaptive_p256", 2): 200.28875732421875,
+    ("adaptive_p256", 62): 13.372416178385416,
+    ("adaptive_p256", 262): 10.319936116536459,
+    ("adaptive_p256", 482): 8.615456263224283,
+}
+
+
 def time_kernel_ms(model, scn, reps: int) -> float:
     ws.ws_sim_cuda(model, scn)                     # warm
     torch.cuda.synchronize()
@@ -792,10 +891,16 @@ def time_body(path: str, main: dict, reps: int) -> dict:
             ms = time_kernel_ms(model, scn, reps)
             res = ws.ws_sim_cuda(model, scn)
             ev = int(res.n_events.to(torch.int64).sum())
+            longest = int(res.n_events.max())
+            variant, slots = ws.variant(topo.p)
+            lam = int(c.lam_remote[0])
             per_chunk.append(dict(
-                sweep=s["name"], lam=int(c.lam_remote[0]), rows=len(c),
-                p=topo.p, events=ev, max_row_events=int(res.n_events.max()),
-                ms=ms, events_per_second=ev / ms * 1e3))
+                sweep=s["name"], lam=lam, rows=len(c), p=topo.p,
+                variant=variant, slots=slots, events=ev,
+                max_row_events=longest, ms=ms,
+                ns_per_event_longest_row=ms * 1e6 / longest,
+                events_per_second=ev / ms * 1e3,
+                ms_before=WS_MS_BEFORE.get((s["name"], lam))))
             if ci == s["plain_chunk"]:
                 shapes.append((s, model, scn, per_chunk[-1]))
     for s, model, scn, chunk in shapes:
@@ -814,19 +919,34 @@ def time_body(path: str, main: dict, reps: int) -> dict:
     s, model, scn, chunk = shapes[0]
     bound_ms, bound_by, detail = kernel_bound_ms(
         model, scn, ws.ws_sim_cuda(model, scn))
+    # the kernels of the whole main path: one launch per chunk
+    path_ms = sum(c["ms"] for c in per_chunk)
+    before = [c["ms_before"] for c in per_chunk]
+    path_ms_before = sum(before) if None not in before else None
     entry = {
         "name": body, "route": "cuda", "source": ws.KERNEL_SOURCE,
         "replaces": REPLACES, "body": MODEL_SOURCE[body],
-        "launches": main["launches"], "max_abs_err": WORST[body],
+        "launches": main["launches"],
+        "launches_by_variant": main["launches_by_variant"],
+        "variant": chunk["variant"], "slots": chunk["slots"],
+        "max_abs_err": WORST[body],
         "ms": chunk["ms"], "plain_ms": chunk["plain_ms"], "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "shape": {"sweep": s["name"], "rows": chunk["rows"], "p": chunk["p"],
                   "lam": chunk["lam"], "events": chunk["events"],
                   "max_row_events": chunk["max_row_events"]},
-        "bound_detail": detail, "per_chunk": per_chunk,
+        "ns_per_event_longest_row": chunk["ns_per_event_longest_row"],
+        "main_path_kernel_ms": path_ms,
+        "bound_detail": detail,
+        # numbers of this run only; the times before stay in the timing line
+        "per_chunk": [{k: v for k, v in c.items() if k != "ms_before"}
+                      for c in per_chunk],
     }
     say("timing", kernel=body, ms=chunk["ms"], plain_ms=chunk["plain_ms"],
-        bound_ms=bound_ms, bound_by=bound_by, per_chunk=per_chunk,
+        bound_ms=bound_ms, bound_by=bound_by, variant=chunk["variant"],
+        ns_per_event_longest_row=chunk["ns_per_event_longest_row"],
+        ms_before=chunk["ms_before"], main_path_kernel_ms=path_ms,
+        main_path_kernel_ms_before=path_ms_before, per_chunk=per_chunk,
         card=card_line())
     return entry
 
@@ -1418,6 +1538,38 @@ def hgmma_counts() -> dict:
     return counts
 
 
+def register_variant_resources() -> dict:
+    """Registers, stack and local memory of each instantiation of the
+    ws_sim kernel, read by ``cuobjdump -res-usage`` from the
+    library this run loaded (built now or found built). A spill goes to the
+    stack frame in local memory, so any stack or local memory there fails
+    the run, as does a missing instantiation."""
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-res-usage",
+                           str(_build._target("ws_sim"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out = {}
+    for m in re.finditer(r"Function (\S+?):?\s(.*?)(?=Function |\Z)", text,
+                         re.S):
+        if "ws_sim_reg_kernel" not in m.group(1):
+            continue
+        res = {k.lower(): int(v) for k, v in
+               re.findall(r"\b(REG|STACK|LOCAL):(\d+)", m.group(2))}
+        if set(res) != {"reg", "stack", "local"}:
+            raise AssertionError(f"cuobjdump -res-usage: no REG, STACK and "
+                                 f"LOCAL for {m.group(1)}: {m.group(2)!r}")
+        out[m.group(1)] = res
+    bad = {k: v for k, v in out.items() if v["stack"] or v["local"]}
+    if bad:
+        raise AssertionError(f"register variant spills: {bad}")
+    if len(out) != 3 * len(ws.REG_SLOTS):
+        raise AssertionError(f"expected {3 * len(ws.REG_SLOTS)} register "
+                             f"variant instantiations, cuobjdump listed "
+                             f"{len(out)}:\n{text}")
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1436,7 +1588,8 @@ def main():
         ptxas={name: [l.strip() for l in log.splitlines()
                       if "registers" in l or "spill" in l]
                for name, log in _build.build_logs.items()},
-        hgmma=hgmma_counts())
+        hgmma=hgmma_counts(),
+        ws_sim_register_variant=register_variant_resources())
     # 2, 3. each body against its plain version and the oracle
     phase_kernels_and_oracle()
     # 4. the main paths, each counted on its own

@@ -326,9 +326,10 @@ class TorchBackend(ExecutionBackend):
 
 
 class CudaBackend(ExecutionBackend):
-    """The hand-written Hopper kernel: one warp per scenario, state in
-    shared memory for the whole event loop, a body per task model. One
-    launch per row chunk."""
+    """The hand-written Hopper kernel: one warp per scenario, a body per
+    task model, the processors' state in registers up to p = 256 and in
+    shared memory above (``kernels.ws_sim.variant``). One launch per row
+    chunk."""
 
     name = "cuda"
 

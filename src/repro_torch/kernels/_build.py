@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[tuple, ctypes.CDLL] = {}
 #: seconds spent in nvcc per source in this process (0.0: found built)
 build_seconds: Dict[str, float] = {}
 #: what ``-Xptxas -v`` said per source built in this process
@@ -54,28 +54,33 @@ def find_nvcc() -> str:
         "are built from source at first use and need the CUDA toolkit")
 
 
-def _target(name: str) -> Path:
+def _flags(defines: tuple) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _target(name: str, defines: tuple = ()) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built: the file name
     carries a digest of the source, of every ``csrc/*.cuh`` header (a
-    source may include any of them) and of the flags."""
+    source may include any of them) and of the flags (macros included)."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.name.encode())
         h.update(hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str) -> Optional[tuple]:
+def _start(name: str, defines: tuple = ()) -> Optional[tuple]:
     """Start nvcc for one source unless its library is already built;
     returns (process, tmp path, target, t0) or None."""
-    out = _target(name)
+    out = _target(name, defines)
     if out.exists():
         build_seconds.setdefault(name, 0.0)
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [find_nvcc(), *_flags(defines), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out, time.perf_counter()
@@ -105,10 +110,15 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return {n: build_seconds[n] for n in names}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The shared library of ``csrc/<name>.cu``, built at first use."""
-    lib = _libs.get(name)
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The shared library of ``csrc/<name>.cu``, built at first use;
+    ``defines`` are macros for ``-D`` (a build of its own)."""
+    defines = tuple(defines)
+    key = (name,) + defines
+    lib = _libs.get(key)
     if lib is None:
-        build_all([name])
-        lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+        started = _start(name, defines)
+        if started is not None:
+            _finish("+".join(key), started)
+        lib = _libs[key] = ctypes.CDLL(str(_target(name, defines)))
     return lib

@@ -1,13 +1,11 @@
 // The model-independent part of the work-stealing event loop on the card:
-// int32 wrapping arithmetic, the xorshift32 PRNG lanes, the (time, lane)
-// argmin, distance, victim selection (four strategies) and the start of a
-// steal. Shared by every task-model body of ws_sim.cu; the plain version of
-// each function is its namesake in repro_torch/core/engine.py.
+// int32 wrapping arithmetic, the xorshift32 PRNG lanes, a division-free
+// n % d, distance and victim selection (four strategies). Shared by every
+// task-model body of ws_sim.cu; the plain version of each function is its
+// namesake in repro_torch/core/engine.py.
 //
 // Every function here is called by all 32 lanes of the warp that owns one
-// scenario; each lane returns the same (uniform) value. Stores to the shared
-// state vectors are made by lane 0 only, after a __syncwarp that ends the
-// phase in which the other lanes read them.
+// scenario; each lane returns the same (uniform) value.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -66,29 +64,16 @@ __device__ __forceinline__ uint32_t seed_state(uint32_t seed, uint32_t i) {
     return x | 1u;
 }
 
-__device__ __forceinline__ unsigned long long warp_min_u64(unsigned long long v) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        unsigned long long o = __shfl_xor_sync(FULL, v, off);
-        v = o < v ? o : v;
-    }
-    return v;
-}
-
-// Lexicographic (time, lane) minimum of ev_time: ties go to the lowest lane
-// by construction. Returns the lane; *t gets its time.
-__device__ __forceinline__ int next_event(const int* ev_time, int p, int lane,
-                                          int* t) {
-    unsigned long long best = ~0ull;
-    for (int j = lane; j < p; j += 32) {
-        const unsigned long long key =
-            ((unsigned long long)((uint32_t)ev_time[j] ^ 0x80000000u) << 32)
-            | (uint32_t)j;
-        best = key < best ? key : best;
-    }
-    best = warp_min_u64(best);
-    *t = (int)((uint32_t)(best >> 32) ^ 0x80000000u);
-    return (int)(uint32_t)best;
+// n % d for every uint32 n without a division: enc = d | s1 << 16 | s2 << 20
+// and m are the wrapper's divisor_magic(d) (Granlund and Montgomery's
+// round-up method: q = (t + ((n - t) >> s1)) >> s2 with t = umulhi(n, m)).
+__device__ __forceinline__ uint32_t magic_mod(uint32_t n, int enc, int m) {
+    const uint32_t d = (uint32_t)enc & 0xFFFFu;
+    const uint32_t s1 = ((uint32_t)enc >> 16) & 0xFu;
+    const uint32_t s2 = ((uint32_t)enc >> 20) & 0xFu;
+    const uint32_t t = __umulhi(n, (uint32_t)m);
+    const uint32_t q = (t + ((n - t) >> s1)) >> s2;
+    return n - q * d;
 }
 
 struct Row {
@@ -100,6 +85,8 @@ struct Row {
     const int* hops;                // global, [p, p]
     const int* cid;                 // shared, [p]
     float* scratch;                 // shared, [p]
+    const int4* lf;                 // shared, [p]: LOCAL_FIRST counts, divisors
+    int uni_div, uni_magic;         // the divisor p - 1 (UNIFORM)
 };
 
 __device__ __forceinline__ int dist(const Row& r, int i, int j) {
@@ -108,56 +95,11 @@ __device__ __forceinline__ int dist(const Row& r, int i, int j) {
     return mulw(r.lam_remote, __ldg(r.hops + (size_t)i * r.p + j));
 }
 
-// Victim selection for thief i; every lane returns the same (v, rng, rr).
-// Called by all 32 lanes together (it uses warp collectives).
-__device__ int select_victim(const Row& r, int i, int lane, uint32_t& rng,
-                             int& rr) {
+// INV_DISTANCE: P(j) proportional to 1 / max(d(i, j), 1), drawn by a strictly
+// sequential float32 prefix sum over r.scratch (every lane the same).
+__device__ int inv_distance_victim(const Row& r, int i, int lane,
+                                   uint32_t& rng) {
     const int p = r.p;
-    if (r.strategy == UNIFORM) {
-        rng = xorshift32(rng);
-        int v = (int)(rng % (uint32_t)(p - 1));
-        return v + (v >= i ? 1 : 0);
-    }
-    if (r.strategy == ROUND_ROBIN) {
-        int nxt = (rr + 1) % p;
-        if (nxt == i) nxt = (nxt + 1) % p;
-        rr = nxt;
-        return nxt;
-    }
-    if (r.strategy == LOCAL_FIRST) {
-        rng = xorshift32(rng);
-        const bool go_remote = rng < r.remote_prob;
-        rng = xorshift32(rng);
-        const int my = r.cid[i];
-        // candidates in lane order: remote = other clusters, local = own
-        // cluster without i
-        uint32_t n = 0;
-        for (int base = 0; base < p; base += 32) {
-            const int j = base + lane;
-            const bool in = j < p && (go_remote ? r.cid[j] != my
-                                                : (r.cid[j] == my && j != i));
-            n += __popc(__ballot_sync(FULL, in));
-        }
-        if (n == 0) n = 1;
-        uint32_t k = rng % n;           // the k-th candidate, 0-based
-        int v = 0;                      // no candidate at all: index 0
-        for (int base = 0; base < p; base += 32) {
-            const int j = base + lane;
-            const bool in = j < p && (go_remote ? r.cid[j] != my
-                                                : (r.cid[j] == my && j != i));
-            uint32_t bal = __ballot_sync(FULL, in);
-            const uint32_t cnt = __popc(bal);
-            if (k < cnt) {
-                for (uint32_t q = 0; q < k; ++q) bal &= bal - 1;
-                v = base + __ffs(bal) - 1;
-                break;
-            }
-            k -= cnt;
-        }
-        if (v == i) v = (i + 1) % p;    // only if both masks are empty
-        return v;
-    }
-    // INV_DISTANCE: P(j) proportional to 1 / max(d(i, j), 1).
     for (int j = lane; j < p; j += 32) {
         int d;
         if (r.cid[j] == r.cid[i]) d = r.lam_local;
@@ -166,7 +108,6 @@ __device__ int select_victim(const Row& r, int i, int lane, uint32_t& rng,
         r.scratch[j] = (j == i) ? 0.0f : __fdiv_rn(1.0f, fmaxf(df, 1.0f));
     }
     __syncwarp();
-    // strictly sequential float32 prefix sums, every lane the same
     float total = 0.0f;
     for (int j = 0; j < p; ++j) total = __fadd_rn(total, r.scratch[j]);
     rng = xorshift32(rng);
@@ -183,38 +124,57 @@ __device__ int select_victim(const Row& r, int i, int lane, uint32_t& rng,
     return v;
 }
 
-// The per-processor state vectors every model keeps in shared memory.
-struct Core {
-    int* state;
-    int* idle_at;
-    int* ev_time;
-    int* victim;
-    int* stolen;
-    int* busy_until;
-    int* rr_aux;
-    int* idle_since;
-    int* executed;
-    uint32_t* rng;
-};
-
-// processor engine start_stealing(): pick a victim for thief i and put its
-// request in flight. Ends the read phase of the event (one __syncwarp), so
-// every lane must have read what it needs before the call. Returns v.
-__device__ __forceinline__ int start_stealing(const Row& r, const Core& c,
-                                              int i, int t, int lane) {
-    uint32_t rg = c.rng[i];
-    int rr = c.rr_aux[i];
-    const int v = select_victim(r, i, lane, rg, rr);
-    const int d = dist(r, i, v);
-    __syncwarp();
-    if (lane == 0) {
-        c.state[i] = REQ_FLIGHT;
-        c.victim[i] = v;
-        c.ev_time[i] = addw(t, d);
-        c.rng[i] = rg;
-        c.rr_aux[i] = rr;
+// Victim selection for thief i (engine select_victim), with no division in
+// the chain: UNIFORM takes p - 1's multiply-high divisor; ROUND_ROBIN wraps
+// its cursor (0 <= rr < p, kept in `rng`) by a compare; LOCAL_FIRST reads
+// i's candidate counts and their divisors from r.lf and reaches the k-th
+// candidate, in index order, with __fns. `cid_chunk[c]` holds
+// cid[32 c + lane] (CHUNKS >= ceil(p / 32)). Called by all 32 lanes; every
+// lane returns the same (v, rng).
+template <int CHUNKS>
+__device__ __forceinline__ int select_victim(
+        const Row& r, const int (&cid_chunk)[CHUNKS], int i, int lane,
+        uint32_t& rng) {
+    const int p = r.p;
+    if (r.strategy == UNIFORM) {
+        rng = xorshift32(rng);
+        const int v = (int)magic_mod(rng, r.uni_div, r.uni_magic);
+        return v + (v >= i ? 1 : 0);
     }
-    return v;
+    if (r.strategy == ROUND_ROBIN) {     // rng holds the cursor here
+        int nxt = (int)rng + 1;
+        if (nxt == p) nxt = 0;
+        if (nxt == i && ++nxt == p) nxt = 0;
+        rng = (uint32_t)nxt;
+        return nxt;
+    }
+    if (r.strategy == LOCAL_FIRST) {
+        rng = xorshift32(rng);
+        const bool go_remote = rng < r.remote_prob;
+        rng = xorshift32(rng);
+        const int my = r.cid[i];
+        const int4 lf = r.lf[i];
+        uint32_t k = go_remote ? magic_mod(rng, lf.z, lf.w)
+                               : magic_mod(rng, lf.x, lf.y);
+        int v = 0;                      // no candidate at all: index 0
+#pragma unroll
+        for (int c = 0; c < CHUNKS; ++c) {
+            const int j = 32 * c + lane;
+            const bool in = j < p && (go_remote ? cid_chunk[c] != my
+                                                : (cid_chunk[c] == my && j != i));
+            const uint32_t bal = __ballot_sync(FULL, in);
+            const uint32_t cnt = __popc(bal);
+            if (k < cnt) {
+                v = 32 * c + (int)__fns(bal, 0, (int)k + 1);
+                break;
+            }
+            k -= cnt;
+        }
+        if (v == i) v = (i + 1 == p) ? 0 : i + 1;   // only if both sets are empty
+        return v;
+    }
+    return inv_distance_victim(r, i, lane, rng);
 }
+
 
 }  // namespace ws

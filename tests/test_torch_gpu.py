@@ -10,6 +10,12 @@ JAX, no JAX package), so that it runs on a GPU machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import ast
+import functools
+import importlib.util
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -103,6 +109,49 @@ def test_adaptive_body_on_the_card():
                 cfg, _scenario(3000, theta_static=2, theta_comm=1),
                 "ws_sim_adaptive", f"strategy={strategy} pool={pool}")
             assert (got.n_created <= pool).all() and not got.overflow.any()
+
+
+# ---------------------------------------------------------------------------
+# Every body at the slot-count boundaries of the register variant, each case
+# bit-exact against the plain loop on the card. The cases are chip_smoke.py's
+# (``boundary_case``), so the two cannot drift apart.
+# ---------------------------------------------------------------------------
+
+_CHIP_SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+
+
+def _literal(name):
+    """A module-level constant of chip_smoke.py, read without importing it
+    (the script exits where there is no CUDA device)."""
+    for node in ast.parse(_CHIP_SMOKE.read_text()).body:
+        if isinstance(node, ast.Assign) and \
+                [getattr(t, "id", None) for t in node.targets] == [name]:
+            return ast.literal_eval(node.value)
+    raise LookupError(f"{name} not in chip_smoke.py")
+
+
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", _CHIP_SMOKE)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod          # its dataclasses look it up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", _literal("BOUNDARY_P"))
+@pytest.mark.parametrize("body", _literal("BODIES"))
+def test_every_body_at_the_slot_boundaries(body, p):
+    _need_card()
+    from repro_torch.kernels import ws_sim as ws
+    cfg, scn = _chip_smoke().boundary_case(body, p)
+    name, _ = ws.variant(p)
+    assert name == "registers"
+    by_variant = dict(ws_sim_cuda.launches_by_variant)
+    got = _launch_and_hold(cfg, scn, body, f"{body} p={p} {cfg.topology.name}")
+    assert ws_sim_cuda.launches_by_variant[name] == by_variant[name] + 1
+    assert bool(got.overflow[1]) and int(got.n_events[1]) == 3
 
 
 # ---------------------------------------------------------------------------
