@@ -12,10 +12,12 @@ the paper's largest platform, the repository's merge-sort DAG, and adaptive
 tasks at the paper's W and p — and checks the answers. Then the
 language-model serving path of ``qwen3-1.7b`` at full width (random weights
 from a seed): its kernels (RMSNorm, flash attention — bf16 on the tensor
-cores, float32 on the CUDA cores — and flash decode) against their plain
-versions, ``serve.decode_batch`` and ``steps.build_prefill_step`` with their
-launch counts (per kernel variant too), and the float32 parity of forward
-and sequential prefill.
+cores, float32 on the CUDA cores — and flash decode, kv_len as an int and on
+the device, one split and several) against their plain versions,
+``serve.decode_batch`` (each step after the first a replay of one CUDA
+graph; its tokens equal to an eager loop's) and ``steps.build_prefill_step``
+with their launch counts (per kernel variant too), and the float32 parity
+of forward and sequential prefill.
 
 Phases, one JSON line each: ``build`` (seconds, ptxas's registers and spills,
 the count of ``HGMMA`` instructions in each library's SASS, and the
@@ -29,14 +31,18 @@ per chunk with ns per event on its longest row and its time before the
 redesign, the path's summed kernel time, its plain version and its bound),
 ``lm_kernels`` (one line
 per language-model kernel: every case's max error beside its tolerance),
-``lm_main_path`` (one line per path: tokens per second, launch counts),
-``lm_parity``, ``lm_timing`` (one line per kernel and shape: the kernel, its
+``lm_main_path`` (one line per path: tokens per second, launch counts;
+for ``decode_batch`` also the graph's warm-up and capture seconds and ms
+per replayed step, beside the eager loop's wall), ``lm_parity``,
+``lm_timing`` (one line per kernel and shape: the kernel, its
 plain version and one PyTorch call as a yardstick, each as device time from
 a replayed CUDA graph, its bound, the rate it reached and its share of the
-bound, the variant that ran and its time before its redesign) and
-``lm_profile`` (where a decode
-step's time goes, over a window of eight steps). Then a ``{"kernels": [...]}`` line, the
-card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any
+bound, the variant that ran and its time before its redesign; and the cost
+of a one-element fill in a replayed graph, the fixed cost of a launch there) and ``lm_profile`` (where a decode
+step's time goes, over a window of eight steps: eager, then replayed from
+the step's graph; device idle share and the host's launch calls a step).
+Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``. Any
 failed phase raises: the exit code is then not 0 and no result line is
 printed. Needs one CUDA device, no network.
 """
@@ -82,7 +88,8 @@ from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ws_sim as ws  # noqa: E402
 from repro_torch.kernels.ref import ws_sim_ref  # noqa: E402
 from repro_torch.launch.serve import Request, decode_batch  # noqa: E402
-from repro_torch.launch.steps import build_prefill_step  # noqa: E402
+from repro_torch.launch.steps import (GraphedDecodeStep,  # noqa: E402
+                                     build_prefill_step)
 from repro_torch.models import build_model as build_lm_model  # noqa: E402
 from repro_torch.service import SimulationService  # noqa: E402
 
@@ -988,16 +995,19 @@ FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #: the worst |kernel - plain| per kernel over every comparison of this run
 LM_WORST = dict.fromkeys(LM_KERNELS, 0.0)
 
-#: each kernel's device time at the same shapes before the redesign of the
-#: attention and RMSNorm kernels (this script's phase lm_timing then, kept in
-#: PERF.md's kernel table; NVIDIA H100 80GB HBM3, 700.00 W), keyed by kernel
-#: and shape
+#: each kernel's device time at the same shapes before its redesign (this
+#: script's phase lm_timing then, kept in PERF.md's kernel table; NVIDIA H100
+#: 80GB HBM3, 700.00 W), keyed by kernel and shape
 EARLIER_MS = {("rms_norm", (8192, 2048)): 0.09501952171325684,
               ("rms_norm", (131072, 128)): 0.03481791973114014,
               ("rms_norm", (24, 2048)): 0.007502400279045105,
               ("flash_attention", (4, 2048)): 5.592787170410157,
               ("flash_decode", (24, 24)): 0.0036075198650360107,
-              ("flash_decode", (24, 2048)): 0.1580076789855957}
+              ("flash_decode", (24, 2048)): 0.1580076789855957,
+              # the first kernel at the reference's decode_32k length, timed
+              # by benchmarks/flash_decode_bench.py run in the tree before
+              # its redesign (NVIDIA H100 80GB HBM3, 700.00 W)
+              ("flash_decode", (1, 32768)): 2.169217987060547}
 
 
 def lm_compare(kernel: str, got, want, tol: float, what: str) -> dict:
@@ -1020,6 +1030,27 @@ def lm_compare(kernel: str, got, want, tol: float, what: str) -> dict:
                              f"exceeds the tolerance {tol} (x{share:.3f})")
     return dict(case=what, max_abs_err=max_err, tol=tol,
                 share_of_tol=share)
+
+
+def lm_within_a_bf16_step(kernel: str, got, want, what: str) -> dict:
+    """A bfloat16 output held to its own scale: the kernel and the plain
+    version round float32 values that agree to float32's tolerance, so they
+    differ by one bfloat16 step at most, and no step below the output's
+    largest value M exceeds 2**-7 M. Limit: (2**-7 + 2e-5) M. Unlike an
+    absolute 2e-2, it shrinks with the output (flash decode over a long
+    cache averages thousands of rows to about 0.01), so it catches a merge
+    that drops or mis-weights a split. Returns the case's numbers or
+    raises."""
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max())
+    limit = (2.0 ** -7 + LM_TOL[("attention", torch.float32)]) * scale
+    err = float((g - w).abs().max())
+    if not err <= limit:
+        raise AssertionError(f"{kernel} {what}: max abs error {err} exceeds "
+                             f"one bfloat16 step of max|want| = {scale} "
+                             f"({limit})")
+    return dict(max_abs_want=scale, scaled_limit=limit,
+                share_of_scaled_limit=err / limit if limit else 0.0)
 
 
 def lm_randn(gen, shape, dtype, scale: float = 1.0):
@@ -1102,26 +1133,55 @@ def lm_decode_cases(gen, dtype):
     """(B, Smax, kv_len, H, KV, hd, window): every kv_len of the serving
     path (Smax = 24), a long cache, tests/test_kernels.py's shapes
     (kv_len < Smax, a window), kv_len = 1; each with q of the cache's type
-    and with a float32 q (the prefill default: bf16 cache, f32 q)."""
-    cases = [(SERVE_REQUESTS, SERVE_PROMPT + SERVE_NEW, n, 16, 8, 128, 0)
-             for n in range(1, SERVE_PROMPT + SERVE_NEW + 1)]
-    cases += [(SERVE_REQUESTS, 2048, 2048, 16, 8, 128, 0),
-              (2, 256, 200, 4, 2, 64, 0), (1, 512, 512, 8, 8, 32, 0),
-              (2, 256, 100, 4, 1, 64, 64), (1, 384, 300, 4, 2, 128, 0),
-              (3, 40, 1, 4, 2, 16, 0), (3, 40, 39, 4, 2, 16, 5)]
+    and with a float32 q (the prefill default: bf16 cache, f32 q), kv_len
+    as an int. Then kv_len as an int32 on the device (as the serving path
+    passes it): the serving shape, the split path at (1, 32768) (the
+    reference's decode_32k) and at (2, 4096) with windows that leave most
+    splits empty. Each launch's variant (one split or several) is checked
+    against ``num_splits``; a bfloat16 output is also held to one bfloat16
+    step of its largest value (``lm_within_a_bf16_step``)."""
+    cases = [(SERVE_REQUESTS, SERVE_PROMPT + SERVE_NEW, n, 16, 8, 128, 0,
+              False) for n in range(1, SERVE_PROMPT + SERVE_NEW + 1)]
+    cases += [(SERVE_REQUESTS, 2048, 2048, 16, 8, 128, 0, False),
+              (2, 256, 200, 4, 2, 64, 0, False),
+              (1, 512, 512, 8, 8, 32, 0, False),
+              (2, 256, 100, 4, 1, 64, 64, False),
+              (1, 384, 300, 4, 2, 128, 0, False),
+              (3, 40, 1, 4, 2, 16, 0, False), (3, 40, 39, 4, 2, 16, 5, False)]
+    cases += [(SERVE_REQUESTS, SERVE_PROMPT + SERVE_NEW, n, 16, 8, 128, 0,
+               True) for n in (1, 13, SERVE_PROMPT + SERVE_NEW)]
+    cases += [(1, 32768, 32768, 16, 8, 128, 0, True),
+              (1, 32768, 20001, 16, 8, 128, 0, True),
+              (1, 32768, 32768, 16, 8, 128, 1000, True),
+              (2, 4096, 3000, 16, 8, 128, 300, True),
+              (2, 4096, 4096, 8, 1, 64, 700, True),
+              (2, 4096, 1, 16, 8, 128, 0, True)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = []
-    for B, Smax, kvl, H, KV, hd, win in cases:
+    for B, Smax, kvl, H, KV, hd, win, on_device in cases:
         kc = lm_randn(gen, (B, Smax, KV, hd), dtype)
         vc = lm_randn(gen, (B, Smax, KV, hd), dtype)
+        arg = (torch.tensor(kvl, dtype=torch.int32, device=DEV) if on_device
+               else kvl)
+        variant = fd.VARIANTS[fd.num_splits(B, H, KV, Smax, sms)[0] > 1]
         for qdt in dict.fromkeys((dtype, torch.float32)):
             q = lm_randn(gen, (B, 1, H, hd), qdt)
-            got = ops.flash_decode(q, kc, vc, kvl, window=win)
+            before = ops.flash_decode.launches_by_variant[variant]
+            got = ops.flash_decode(q, kc, vc, arg, window=win)
             torch.cuda.synchronize()
+            if ops.flash_decode.launches_by_variant[variant] != before + 1:
+                raise AssertionError(f"flash_decode (B={B}, Smax={Smax}) "
+                                     f"did not run variant {variant}")
             want = fd.decode_attention_ref(q, kc, vc, kvl, window=win)
-            out.append(lm_compare(
-                "flash_decode", got, want, LM_TOL[("attention", qdt)],
-                f"q {qdt} cache {dtype} (B={B}, Smax={Smax}, kv_len={kvl}, "
-                f"H={H}, KV={KV}, hd={hd}) window={win}"))
+            what = (f"q {qdt} cache {dtype} (B={B}, Smax={Smax}, kv_len={kvl}"
+                    f"{' on the device' if on_device else ''}, H={H}, "
+                    f"KV={KV}, hd={hd}) window={win} {variant}")
+            line = lm_compare("flash_decode", got, want,
+                              LM_TOL[("attention", qdt)], what)
+            if qdt == torch.bfloat16:
+                line.update(lm_within_a_bf16_step("flash_decode", got, want,
+                                                  what))
+            out.append(line)
     return out
 
 
@@ -1136,10 +1196,14 @@ def phase_lm_kernels():
             lines.setdefault(kernel, []).extend(cases(gen, dtype))
     for kernel, cases in lines.items():
         worst = max(cases, key=lambda c: c["share_of_tol"])
+        scaled = [c for c in cases if "scaled_limit" in c]
         say("lm_kernels", kernel=kernel, cases=len(cases),
             max_abs_err=LM_WORST[kernel], worst_case=worst,
-            every_case=[(c["case"], c["max_abs_err"], c["tol"])
-                        for c in cases])
+            worst_scaled_case=max(
+                scaled, key=lambda c: c["share_of_scaled_limit"])
+            if scaled else None,
+            every_case=[(c["case"], c["max_abs_err"], c["tol"],
+                         c.get("scaled_limit")) for c in cases])
     say("lm_kernels_done", seconds=round(time.perf_counter() - t0, 3))
 
 
@@ -1173,6 +1237,27 @@ def lm_counts_since_reset(variants: dict, **want) -> tuple:
     return {k: counts[k] for k in LM_KERNELS}, by_variant
 
 
+def eager_serve(model, params, reqs) -> tuple:
+    """decode_batch's greedy loop without its graph: ``Model.prefill`` and
+    ``Model.decode_step`` with Python-int positions, every launch from
+    Python. Returns (tokens (B, new) int32, wall seconds)."""
+    S, new = len(reqs[0].prompt), max(r.max_new for r in reqs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prompts = torch.as_tensor(np.stack([r.prompt for r in reqs]),
+                              dtype=torch.int64, device=DEV)
+    cache, logits = model.prefill(params, {"tokens": prompts},
+                                  max_seq=S + new)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    outs = []
+    for i in range(new):
+        outs.append(tok[:, 0])
+        logits, cache = model.decode_step(params, cache, tok, S + i)
+        tok = torch.argmax(logits, dim=-1)
+    out = torch.stack(outs, dim=1).to(torch.int32).cpu().numpy()
+    return out, time.perf_counter() - t0
+
+
 def phase_lm_main_path() -> dict:
     """(a) serving: decode_batch at serve.py's defaults; (b) production
     prefill: build_prefill_step on 4 x 2048 tokens; each counted on its own;
@@ -1196,27 +1281,49 @@ def phase_lm_main_path() -> dict:
     tokens = decode_batch(model, params, reqs)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
+    graph = decode_batch.last_graph
     steps = SERVE_PROMPT + SERVE_NEW
     L = cfg.n_layers
     # read just after: per step and layer norm1, q_norm, k_norm, norm2 and
-    # one decode attention; per step the final norm
-    # every width of the serving path (2048, 128) has a register kernel
+    # one decode attention; per step the final norm; the step's first run
+    # is eager, the other steps - 1 replay its graph, each counted once
+    # every width of the serving path (2048, 128) has a register kernel,
+    # and a cache of 24 rows is one split
     serve_counts, serve_variants = lm_counts_since_reset(
-        {"rms_norm": {"row_in_registers": steps * (4 * L + 1)}},
+        {"rms_norm": {"row_in_registers": steps * (4 * L + 1)},
+         "flash_decode": {"single": steps * L}},
         rms_norm=steps * (4 * L + 1), flash_decode=steps * L)
+    if graph is None or graph["replays"] != steps - 1:
+        raise AssertionError(f"decode_batch replayed {graph} on the card, "
+                             f"expected {steps - 1} replays")
     if tokens.shape != (SERVE_REQUESTS, SERVE_NEW) or tokens.dtype != \
             np.int32 or tokens.min() < 0 or tokens.max() >= cfg.padded_vocab:
         raise AssertionError(f"decode_batch returned {tokens.shape} "
                              f"{tokens.dtype} in [{tokens.min()}, "
                              f"{tokens.max()}]")
+    # the same requests through an eager loop driven here: Model.prefill
+    # and decode_step with int positions, every launch from Python
+    eager_tokens, eager_s = eager_serve(model, params, reqs)
+    if not np.array_equal(tokens, eager_tokens):
+        raise AssertionError(f"decode_batch's tokens differ from the eager "
+                             f"loop's in {int((tokens != eager_tokens).sum())}"
+                             f" places")
+    replayed_s = serve_s - graph["warmup_seconds"] - graph["capture_seconds"]
     serve = dict(requests=SERVE_REQUESTS, prompt=SERVE_PROMPT,
                  new_tokens=SERVE_NEW, decode_steps=steps,
                  wall_seconds=serve_s,
                  tokens_per_second=SERVE_REQUESTS * SERVE_NEW / serve_s,
                  prompt_and_new_tokens_per_second=(
                      SERVE_REQUESTS * steps / serve_s),
-                 ms_per_decode_step=serve_s / steps * 1e3,
+                 warmup_seconds=graph["warmup_seconds"],
+                 capture_seconds=graph["capture_seconds"],
+                 replays=graph["replays"],
+                 ms_per_replayed_step=replayed_s / graph["replays"] * 1e3,
+                 eager_loop_wall_seconds=eager_s,
+                 eager_loop_ms_per_step=eager_s / steps * 1e3,
+                 tokens_equal_the_eager_loop=True,
                  launches=serve_counts, launches_by_variant=serve_variants,
+                 launches_per_replay=graph["launches_per_replay"][0],
                  sample=tokens[0].tolist())
     say("lm_main_path", path="serve.decode_batch", arch=LM_ARCH,
         params=model.param_count(), param_dtype=cfg.param_dtype,
@@ -1400,79 +1507,129 @@ def lm_time_attention(gen, B: int, S: int, reps: int) -> dict:
 
 
 def lm_time_decode(gen, B: int, Smax: int, kv_len: int, reps: int) -> dict:
+    """The kernel with kv_len on the device, as the serving path passes
+    it."""
     dt, H, KV, hd = torch.bfloat16, 16, 8, 128
     q = lm_randn(gen, (B, 1, H, hd), dt)
     kc, vc = (lm_randn(gen, (B, Smax, KV, hd), dt) for _ in range(2))
+    kv = torch.tensor(kv_len, dtype=torch.int32, device=DEV)
     qt = q.transpose(1, 2).contiguous()
     kt, vt = (c[:, :kv_len].transpose(1, 2).contiguous() for c in (kc, vc))
     # q in, the kv_len valid rows of both caches, out
     bound, by, detail = lm_bound(2 * (2 * q.numel() + 2 * B * kv_len * KV * hd),
                                  B * H * kv_len * 4 * hd, dt)
+    splits, rows = fd.num_splits(B, H, KV, Smax, torch.cuda.
+                                 get_device_properties(0).multi_processor_count)
     row = dict(shape=dict(B=B, Smax=Smax, kv_len=kv_len, H=H, KV=KV, hd=hd,
-                          dtype="bfloat16"),
+                          dtype="bfloat16", kv_len_on_device=True,
+                          splits=splits, rows_per_split=rows),
                **lm_times(
-                   lambda: ops.flash_decode(q, kc, vc, kv_len),
+                   lambda: ops.flash_decode(q, kc, vc, kv),
                    lambda: fd.decode_attention_ref(q, kc, vc, kv_len),
                    lambda: torch.nn.functional.scaled_dot_product_attention(
                        qt, kt, vt, enable_gqa=True), reps, reps),
                bound_ms=bound, bound_by=by, bound_detail=detail)
-    return {**row, **lm_rates(row, "flash_decode", (B, Smax), "simt")}
+    return {**row, **lm_rates(row, "flash_decode", (B, Smax),
+                              fd.VARIANTS[splits > 1])}
 
 
-PROFILE_STEPS = 8      # decode steps in the profiled window
+PROFILE_STEPS = 8      # decode steps in each profiled window
+#: host calls that start device work (kernels, graphs, copies, fills)
+HOST_LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|MemcpyAsync|"
+                         r"MemsetAsync|LaunchKernelExC)")
+#: the traced device kernel that each wrapper's launch runs once (a split
+#: flash decode also runs its merge kernel, which is not counted here)
+TRACED_KERNEL = {"rms_norm": re.compile(r"rmsnorm_(regs|generic)_kernel"),
+                 "flash_attention": re.compile(
+                     r"(fa_tc|flash_attention)_kernel"),
+                 "flash_decode": re.compile(r"decode_split_kernel")}
 
 
-def lm_profile_decode_step() -> dict:
-    """Where a decode step's time goes: torch.profiler over one window of
-    PROFILE_STEPS serving-path decode steps (full width, bf16, the batch of
-    phase lm_main_path), device time by kernel against that same window's
-    wall time. The profiler adds host time of its own, so the window's
-    unprofiled twin (the next PROFILE_STEPS steps) is timed beside it."""
+def profile_window(run_steps) -> dict:
+    """torch.profiler over one window of PROFILE_STEPS serving-path decode
+    steps (``run_steps(first_pos, n)``): device time by kernel against the
+    window's own wall time, the device operations and the host's launch
+    calls a step. The profiler adds host time of its own, so the window's
+    unprofiled twin (the next PROFILE_STEPS steps) is timed beside it.
+
+    The launches that the wrappers counted in the window must be the
+    kernels the trace saw run, wrapper by wrapper (``TRACED_KERNEL``): for
+    a replayed graph the counts are the capture's times the replays, and
+    the trace shows that every replay ran them."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    before = (ops.launch_counts(), ops.variant_counts())
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits = run_steps(3, PROFILE_STEPS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counted = ops.counts_since(before)[0]
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("bf16 decode step: non-finite logits")
+    events = prof.key_averages()
+    # device-side events only (kernels, copies): an operator's own row
+    # would count its kernels' time a second time
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    traced = {fn: sum(c for key, _ms, c in rows if pat.search(key))
+              for fn, pat in TRACED_KERNEL.items()}
+    if traced != counted:
+        raise AssertionError(f"the trace ran {traced} kernel launches, the "
+                             f"wrappers counted {counted}")
+    device_ms = sum(r[1] for r in rows)
+    host_calls = {e.key: e.count for e in events
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and HOST_LAUNCH.match(e.key)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_steps(3 + PROFILE_STEPS, PROFILE_STEPS)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    n = PROFILE_STEPS
+    return dict(steps=n, wall_ms_per_step_profiled=wall_ms / n,
+                wall_ms_per_step=plain_wall_ms / n,
+                device_ms_per_step=device_ms / n if rows else "not measured",
+                # one window: its traced device time over its own wall time
+                device_idle_share=(1 - device_ms / wall_ms) if rows
+                else "not measured",
+                device_idle_share_unprofiled=(1 - device_ms / plain_wall_ms)
+                if rows else "not measured",
+                kernel_launches_per_step=sum(r[2] for r in rows) / n,
+                traced_wrapper_launches_equal_the_counts=traced,
+                host_launch_calls_per_step=sum(host_calls.values()) / n,
+                host_launch_calls=host_calls,
+                top=[dict(name=n_[:80], ms_per_step=ms / n, count=c)
+                     for n_, ms, c in rows[:12]])
+
+
+def lm_profile_decode_steps() -> dict:
+    """Where a decode step's time goes (full width, bf16, the batch of
+    phase lm_main_path): a window of eager steps, every launch from Python,
+    and a window of replays of the step's CUDA graph, as decode_batch runs
+    them."""
     cfg = get_lm_config(LM_ARCH)
     model = build_lm_model(cfg)
     params = model.init_params(
         torch.Generator(device=DEV).manual_seed(LM_SEED))
     B, S = SERVE_REQUESTS, SERVE_PROMPT + SERVE_NEW
-    cache = model.init_cache(B, S)
     tok = torch.zeros((B, 1), dtype=torch.int64, device=DEV)
-    warm = 3
-    for pos in range(warm):
-        model.decode_step(params, cache, tok, pos)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for pos in range(warm, warm + PROFILE_STEPS):
-            logits, _ = model.decode_step(params, cache, tok, pos)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError("bf16 decode step: non-finite logits")
-    # device-side events only (kernels, copies): an operator's own row
-    # would count its kernels' time a second time
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows.sort(key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in rows)
-    # the next PROFILE_STEPS steps without the profiler's cost
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for pos in range(warm + PROFILE_STEPS, warm + 2 * PROFILE_STEPS):
-        model.decode_step(params, cache, tok, pos)
-    torch.cuda.synchronize()
-    plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    n = PROFILE_STEPS
-    out = dict(steps=n, wall_ms_per_step_profiled=wall_ms / n,
-               wall_ms_per_step=plain_wall_ms / n,
-               device_ms_per_step=device_ms / n if rows else "not measured",
-               # one window: its traced device time over its own wall time
-               device_idle_share=(1 - device_ms / wall_ms) if rows
-               else "not measured",
-               kernel_launches_per_step=sum(r[2] for r in rows) / n,
-               top=[dict(name=n_[:80], ms_per_step=ms / n, count=c)
-                    for n_, ms, c in rows[:12]])
+    out = {}
+    for name, make in (("eager", lambda: model.decode_step),
+                       ("graph_replay", lambda: GraphedDecodeStep(model))):
+        cache = model.init_cache(B, S)
+        step = make()
+        for pos in range(3):          # warm (the graph: captured at pos 0)
+            step(params, cache, tok, pos)
+
+        def run_steps(first, n, step=step, cache=cache):
+            for pos in range(first, first + n):
+                logits, _ = step(params, cache, tok, pos)
+            return logits
+        out[name] = profile_window(run_steps)
+        del step, cache
     del params
     return out
 
@@ -1487,14 +1644,20 @@ def phase_lm_timing(main: dict) -> list:
         "flash_attention": [lm_time_attention(gen, PREFILL_B, PREFILL_S, 10)],
         "flash_decode": [lm_time_decode(gen, SERVE_REQUESTS, serve_kv,
                                         serve_kv, 200),
-                         lm_time_decode(gen, SERVE_REQUESTS, 2048, 2048, 50)],
+                         lm_time_decode(gen, SERVE_REQUESTS, 2048, 2048, 50),
+                         lm_time_decode(gen, 1, 32768, 32768, 50)],
     }
     for kernel, rows in shapes.items():
         for r in rows:
             say("lm_timing", kernel=kernel, card=card_line(), **r)
-    profile = lm_profile_decode_step()
-    say("lm_profile", what="decode steps, serving path", card=card_line(),
-        **profile)
+    # the fixed cost of one launch inside a replayed graph: a kernel that
+    # writes one element
+    one = torch.zeros(1, device=DEV)
+    say("lm_timing", kernel="one-element fill (Tensor.fill_)",
+        ms=graph_ms(lambda: one.fill_(1.0), 200), card=card_line())
+    for window, profile in lm_profile_decode_steps().items():
+        say("lm_profile", what=f"decode steps, serving path, {window}",
+            card=card_line(), **profile)
     launches = {k: main["serve"]["launches"][k] + main["prefill"]["launches"][k]
                 for k in LM_KERNELS}
     entries = []

@@ -50,48 +50,12 @@ namespace {
 
 constexpr int BLOCK = 256;   // threads a block, both kernels
 
-// 16 bytes of T as float32 and back (round to nearest even).
-template <class T> struct Vec16;
-template <> struct Vec16<float> {
-    static constexpr int N = 4;
-    __device__ static void unpack(const uint4& u, float (&f)[4]) {
-        f[0] = __uint_as_float(u.x);
-        f[1] = __uint_as_float(u.y);
-        f[2] = __uint_as_float(u.z);
-        f[3] = __uint_as_float(u.w);
-    }
-    __device__ static uint4 pack(const float (&f)[4]) {
-        return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                          __float_as_uint(f[2]), __float_as_uint(f[3]));
-    }
-};
-template <> struct Vec16<__nv_bfloat16> {
-    static constexpr int N = 8;
-    __device__ static void unpack(const uint4& u, float (&f)[8]) {
-        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            f[2 * i] = __uint_as_float(w[i] << 16);          // low half first
-            f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-        }
-    }
-    __device__ static uint4 pack(const float (&f)[8]) {
-        uint32_t w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            __nv_bfloat162 b = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-            w[i] = *reinterpret_cast<uint32_t*>(&b);
-        }
-        return make_uint4(w[0], w[1], w[2], w[3]);
-    }
-};
-
 // The row in registers: TPR threads a row, NV 16-byte vectors a thread.
 template <class T, int D, int TPR>
 __global__ void __launch_bounds__(BLOCK)
 rmsnorm_regs_kernel(const T* __restrict__ x, const T* __restrict__ scale,
                     T* __restrict__ out, long long rows, float eps) {
-    using V = Vec16<T>;
+    using V = lm::Vec16<T>;
     constexpr int NV = D / V::N / TPR;
     constexpr int RPB = BLOCK / TPR;        // rows a block
     constexpr int WPR = TPR / 32;           // warps a row, when TPR > 32

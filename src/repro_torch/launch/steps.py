@@ -1,4 +1,5 @@
-"""Step builders: prefill and decode of the serving path.
+"""Step builders: prefill and decode of the serving path, and the decode
+step as one CUDA graph (:class:`GraphedDecodeStep`).
 
 The JAX package's ``launch/steps.py`` also builds the train step and plans
 and lowers (arch × shape × mesh) cells with activation and context-parallel
@@ -6,7 +7,12 @@ shardings; those come with the training and mesh slices.
 """
 from __future__ import annotations
 
+import time
+
+import torch
+
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 
 
 def check_model_device(model, device) -> None:
@@ -39,3 +45,87 @@ def build_decode_step(model, device=None):
     def decode_step(params, cache, tokens, pos):
         return model.decode_step(params, cache, tokens, pos)
     return decode_step
+
+
+class GraphedDecodeStep:
+    """``Model.decode_step`` captured once in a CUDA graph and replayed: the
+    port's counterpart of the JAX package's ``jax.jit`` of the step
+    (``launch/serve.py``). Capture and replay, not compilation: the graph
+    holds the same hand-written kernels and library calls as an eager step.
+
+    Call it as ``decode_step``: ``step(params, cache, tokens, pos)`` ->
+    (logits, cache), ``pos`` a Python int. The first call runs the step
+    eagerly on a side stream with its position as a device int32 (the
+    warm-up, ``torch.cuda.graphs``' practice: it builds the kernel libraries
+    at first use and creates cuBLAS's handles), then captures one step
+    against that call's params and cache, reading the tokens (B, 1) and the
+    position from static buffers on the card. Every later call copies its
+    tokens and position into those buffers and replays the graph, so it
+    must pass the same params and cache (the graph holds their addresses).
+    A replay returns the graph's static logits, which the next replay
+    overwrites: clone them to keep them.
+
+    Launch counts stay true: the wrappers' counters tick while the graph is
+    captured, not while it is replayed, so the runner takes the capture's
+    launches back out of the counters and adds them once a replay. A
+    failure to capture or to replay raises; nothing falls back to eager
+    steps.
+    """
+
+    def __init__(self, model):
+        if model.device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a model on the card, this "
+                             f"one lives on {model.device}")
+        self.model = model
+        self.graph = None
+        self.warmup_seconds = self.capture_seconds = 0.0
+        self.replays = 0
+        #: launches of one replay, as ``ops.counts_since`` gives them
+        self.launches_per_replay = None
+
+    def __call__(self, params, cache, tokens, pos: int):
+        if self.graph is None:
+            return self._warm_up_and_capture(params, cache, tokens, pos)
+        if params is not self._params or cache is not self._cache:
+            raise ValueError("the graph was captured against other params "
+                             "or another cache")
+        self._tokens.copy_(tokens)
+        self._pos.fill_(pos)
+        self.graph.replay()
+        ops.add_counts(self.launches_per_replay)
+        self.replays += 1
+        return self._logits, cache
+
+    def _warm_up_and_capture(self, params, cache, tokens, pos: int):
+        dev = self.model.device
+        self._params, self._cache = params, cache
+        self._tokens = torch.empty(tokens.shape, dtype=tokens.dtype,
+                                   device=dev)
+        self._tokens.copy_(tokens)
+        self._pos = torch.full((), pos, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            logits, _ = self.model.decode_step(params, cache, self._tokens,
+                                               self._pos)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        before = (ops.launch_counts(), ops.variant_counts())
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self._logits, _ = self.model.decode_step(
+                params, cache, self._tokens, self._pos)
+        self.launches_per_replay = ops.counts_since(before)
+        ops.add_counts(self.launches_per_replay, times=-1)
+        torch.cuda.synchronize(dev)
+        self.warmup_seconds = t1 - t0
+        self.capture_seconds = time.perf_counter() - t1
+        return logits, cache
+
+    def stats(self) -> dict:
+        return dict(warmup_seconds=self.warmup_seconds,
+                    capture_seconds=self.capture_seconds,
+                    replays=self.replays,
+                    launches_per_replay=self.launches_per_replay)

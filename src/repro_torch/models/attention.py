@@ -30,10 +30,12 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                q_offset=q_offset)
 
 
-def decode_attention(q, k_cache, v_cache, kv_len: int, *, window: int = 0):
+def decode_attention(q, k_cache, v_cache, kv_len, *, window: int = 0):
     """Single-step decode: q (B, 1, H, hd) against cache (B, Smax, KV, hd).
 
     ``kv_len`` = number of valid cache positions (the new token's k/v must
-    already be written at kv_len-1).
+    already be written at kv_len-1): a Python int, or an int32 tensor of one
+    element on q's device, read there only (as the JAX package's traced
+    int32).
     """
     return ops.flash_decode(q, k_cache, v_cache, kv_len, window=window)

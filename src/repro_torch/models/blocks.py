@@ -119,10 +119,31 @@ def slot_cache_init(cfg: ArchConfig, mixer: str, batch: int, max_seq: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def decode_position(pos, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pos, kv_len) of a decode step on ``device``: ``pos`` as an int64
+    tensor (1,) (the cache index and RoPE's position) and ``kv_len = pos +
+    1`` as an int32 tensor (1,) (every ``flash_decode``'s). ``pos`` is a
+    Python int or, as the JAX package's traced ``jnp.int32``, an int32
+    tensor of one element on ``device``, read there only, so that a step can
+    be captured in a CUDA graph and replayed at any position."""
+    if isinstance(pos, int):
+        pos = torch.full((1,), pos, dtype=torch.int32, device=device)
+    elif pos.dtype != torch.int32 or pos.numel() != 1 \
+            or pos.device.type != device.type:
+        raise ValueError(f"decode_step: pos must be an int or an int32 "
+                         f"tensor of one element on {device}, got "
+                         f"{pos.dtype} {tuple(pos.shape)} on {pos.device}")
+    pos = pos.reshape(1)
+    return pos.long(), pos + 1
+
+
 def slot_decode(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x,
-                cache: Dict, pos: int, cp_axes=None) -> Tuple[torch.Tensor,
-                                                              Dict]:
-    """x (B,1,D); pos the 0-based index of this token (a Python int).
+                cache: Dict, pos, cp_axes=None, *,
+                kv_len=None) -> Tuple[torch.Tensor, Dict]:
+    """x (B,1,D); pos the 0-based index of this token, as
+    :func:`decode_position` takes it. ``Model.decode_step`` forms (pos,
+    kv_len) once a step with :func:`decode_position` and passes both;
+    without ``kv_len``, ``pos`` is given to it here.
 
     Writes the token's k and v into ``cache`` in place (cast to the cache's
     dtype), attends over the cache's first ``pos + 1`` positions and
@@ -132,12 +153,13 @@ def slot_decode(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x,
     if cp_axes:
         raise not_ported("context-parallel decode (cp_axes)")
     B = x.shape[0]
+    if kv_len is None:
+        pos, kv_len = decode_position(pos, x.device)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    pp = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _qkv(p["attn"], cfg, h, pp)
-    cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
-    o = attn_mod.decode_attention(q, cache["k"], cache["v"], pos + 1,
+    q, k, v = _qkv(p["attn"], cfg, h, pos.expand(B, 1))
+    for name, new in (("k", k), ("v", v)):
+        cache[name].index_copy_(1, pos, new.to(cache[name].dtype))
+    o = attn_mod.decode_attention(q, cache["k"], cache["v"], kv_len,
                                   window=cfg.sliding_window)
     x = x + dense(o.reshape(B, 1, cfg.n_heads * cfg.hd), p["attn"]["wo"])
     if ffn != "none":

@@ -143,38 +143,48 @@ class Model:
         return cache
 
     def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor,
-                    pos: int) -> Tuple[torch.Tensor, Dict]:
-        """tokens (B, 1); pos: the position of this token (a Python int).
+                    pos) -> Tuple[torch.Tensor, Dict]:
+        """tokens (B, 1); pos: the position of this token, a Python int or,
+        as the JAX package's traced ``jnp.int32``, an int32 tensor of one
+        element on this model's device. A tensor is read on the device only
+        (the cache write, RoPE, every ``flash_decode``'s ``kv_len``), so the
+        step can be captured in a CUDA graph and replayed at any position.
         Writes this token's keys and values into ``cache`` in place (the
         JAX package returns a new cache; updating in place saves a copy of
         the cache per step). Returns (logits (B, 1, Vpad) float32, cache).
         """
         cfg = self.cfg
+        pos, kv_len = blk.decode_position(pos, self.device)
         x = embed(tokens, params["tok_embed"])
         for r in range(cfg.repeats):
             slot_params = _layer(params["layers"], r)
             slot_cache = _layer(cache["layers"], r)
             for j, (mixer, ffn) in enumerate(cfg.pattern):
                 x, _ = blk.slot_decode(slot_params[f"slot{j}"], cfg, mixer,
-                                       ffn, x, slot_cache[f"slot{j}"], pos)
+                                       ffn, x, slot_cache[f"slot{j}"], pos,
+                                       kv_len=kv_len)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self.head(params, x), cache
 
     def prefill(self, params: Dict, batch: Dict, max_seq: int,
-                dtype=torch.bfloat16) -> Tuple[Dict, torch.Tensor]:
+                dtype=torch.bfloat16, step=None) -> Tuple[Dict,
+                                                          torch.Tensor]:
         """Sequential prefill via decode steps (the reference path of the
-        serving loop; production prefill runs ``forward``). Returns (cache,
+        serving loop; production prefill runs ``forward``), the port's
+        counterpart of the JAX package's ``lax.scan``. ``step(params, cache,
+        tokens, pos)`` runs each step (default ``self.decode_step``;
+        ``serve.decode_batch`` passes a CUDA-graph runner). Returns (cache,
         logits (B, 1, Vpad) of the last prompt token)."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         if max_seq < S:
             raise ValueError(f"prefill cache too small: {max_seq} < {S}")
+        step = self.decode_step if step is None else step
         cache = self.init_cache(B, max_seq, dtype)
         logits = torch.zeros((B, 1, self.cfg.padded_vocab),
                              dtype=torch.float32, device=self.device)
         for i in range(S):
-            logits, cache = self.decode_step(params, cache,
-                                             tokens[:, i:i + 1], i)
+            logits, cache = step(params, cache, tokens[:, i:i + 1], i)
         return cache, logits
 
 

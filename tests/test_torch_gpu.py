@@ -2,7 +2,9 @@
 version on the same CUDA tensors, every leaf ``torch.equal``; the three
 language-model kernels (``rmsnorm.cu``, ``flash_attention.cu``,
 ``decode_attention.cu``) against their plain versions within the JAX
-package's kernel tolerances; the reduced model on the card against the CPU.
+package's kernel tolerances, flash decode also with a device kv_len replayed
+in a CUDA graph and on its split path; the reduced model on the card against
+the CPU, and ``decode_batch``'s graph against the eager loop.
 
 A CUDA kernel has no interpret mode, so these tests carry the ``gpu`` marker
 and skip where there is no CUDA device. This file imports the port alone (no
@@ -172,6 +174,16 @@ def _hold(got, want, tol):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+def _hold_to_a_bf16_step(got, want):
+    """A bfloat16 output within one bfloat16 step of its largest value M,
+    (2**-7 + 2e-5) M: both sides round float32 values that agree to 2e-5,
+    and the limit shrinks with an output that averages thousands of rows
+    (as chip_smoke.py's ``lm_within_a_bf16_step``)."""
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= (2.0 ** -7 + _LM_TOL[torch.float32]) * scale
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rms_norm_kernel_on_the_card(dtype):
@@ -288,6 +300,137 @@ def test_flash_decode_kernel_on_the_card(dtype):
                 assert fd.flash_decode.launches == n + 1
                 want = fd.decode_attention_ref(q, kc, vc, kv_len, window=win)
                 _hold(got, want, _LM_TOL[qdt])
+
+
+# B, Smax, H, KV, hd, window: the serving shape (one split), a window at a
+# small head dim, and a cache that takes two splits
+_GRAPH_DECODE_CASES = [(3, 24, 16, 8, 128, 0), (2, 40, 4, 2, 16, 5),
+                       (1, 600, 16, 8, 128, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_graph_replays_every_kv_len(dtype):
+    """One launch with a device kv_len, captured in a CUDA graph, replayed
+    for every kv_len in 1..Smax: each result equals the plain version's, so
+    nothing of kv_len froze in the capture."""
+    _need_card()
+    from repro_torch.kernels import decode_attention as fd
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for B, Smax, H, KV, hd, win in _GRAPH_DECODE_CASES:
+        kc = _lm_randn(gen, (B, Smax, KV, hd), dtype)
+        vc = _lm_randn(gen, (B, Smax, KV, hd), dtype)
+        q = _lm_randn(gen, (B, 1, H, hd), dtype)
+        kv_len = torch.full((1,), Smax, dtype=torch.int32, device="cuda")
+        fd.flash_decode(q, kc, vc, kv_len, window=win)      # build, warm
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fd.flash_decode(q, kc, vc, kv_len, window=win)
+        for n in range(1, Smax + 1):
+            kv_len.fill_(n)
+            graph.replay()
+            torch.cuda.synchronize()
+            _hold(out, fd.decode_attention_ref(q, kc, vc, n, window=win),
+                  _LM_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_split_path(dtype):
+    """A long cache (1, 8192) takes the split variant: full, partial and
+    one-row kv_len, and windows that leave most splits empty; kv_len as an
+    int and on the device; q of the cache's type and float32. A bfloat16
+    output is also held to one bfloat16 step of its largest value."""
+    _need_card()
+    from repro_torch.kernels import decode_attention as fd
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    B, Smax, H, KV, hd = 1, 8192, 16, 8, 128
+    kc = _lm_randn(gen, (B, Smax, KV, hd), dtype)
+    vc = _lm_randn(gen, (B, Smax, KV, hd), dtype)
+    for qdt in (dtype, torch.float32):
+        q = _lm_randn(gen, (B, 1, H, hd), qdt)
+        for n, win in ((8192, 0), (5000, 0), (1, 0), (8192, 300),
+                       (4000, 1000), (257, 256)):
+            for kv_len in (n, torch.tensor(n, dtype=torch.int32,
+                                           device="cuda")):
+                before = fd.flash_decode.launches_by_variant["split"]
+                got = fd.flash_decode(q, kc, vc, kv_len, window=win)
+                torch.cuda.synchronize()
+                assert fd.flash_decode.launches_by_variant["split"] == \
+                    before + 1
+                want = fd.decode_attention_ref(q, kc, vc, n, window=win)
+                _hold(got, want, _LM_TOL[qdt])
+                if qdt == torch.bfloat16:
+                    _hold_to_a_bf16_step(got, want)
+
+
+@pytest.mark.gpu
+def test_flash_decode_split_path_is_bit_identical_run_to_run():
+    """The splits are merged in a fixed order, with no float atomics: two
+    runs of the same inputs give the same bits."""
+    _need_card()
+    from repro_torch.kernels import decode_attention as fd
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    kc = _lm_randn(gen, (2, 32768, 8, 128), torch.bfloat16)
+    vc = _lm_randn(gen, (2, 32768, 8, 128), torch.bfloat16)
+    q = _lm_randn(gen, (2, 1, 16, 128), torch.bfloat16)
+    kv_len = torch.tensor([30000], dtype=torch.int32, device="cuda")
+    runs = [fd.flash_decode(q, kc, vc, kv_len) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert fd.num_splits(2, 16, 8, 32768, torch.cuda.get_device_properties(
+        0).multi_processor_count)[0] > 1
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+
+
+@pytest.mark.gpu
+def test_decode_batch_graph_matches_the_eager_loop():
+    """decode_batch replays one captured step; its tokens equal those of an
+    eager ``prefill`` + ``decode_step`` loop, the graph's step logits are
+    within 2e-2 x max|logit| of the eager ones, and the launch counts after
+    the call equal the eager loop's."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request, decode_batch
+    from repro_torch.launch.steps import GraphedDecodeStep
+    from repro_torch.models import build_model
+    cfg = get_config("qwen3-1.7b").reduced()
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(7))
+    S, new, B = 16, 8, 6
+    rng = np.random.default_rng(2)
+    prompts = rng.integers(1, cfg.vocab_size, (B, S)).astype(np.int32)
+    tokens = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+
+    def loop(step):
+        cache, logits = model.prefill(params, {"tokens": tokens},
+                                      max_seq=S + new, step=step)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        toks, steps = [], []
+        for i in range(new):
+            toks.append(tok[:, 0])
+            logits, cache = step(params, cache, tok, S + i)
+            steps.append(logits.clone())
+            tok = torch.argmax(logits, dim=-1)
+        return torch.stack(toks, 1).cpu().numpy(), steps
+
+    ops.reset_counts()
+    eager_tokens, eager_logits = loop(model.decode_step)
+    eager_counts = (ops.launch_counts(), ops.variant_counts())
+    _graph_tokens, graph_logits = loop(GraphedDecodeStep(model))
+    for a, b in zip(eager_logits, graph_logits):
+        assert float((a - b).abs().max()) <= 2e-2 * float(a.abs().max())
+    ops.reset_counts()
+    got = decode_batch(model, params, [Request(i, p, new)
+                                       for i, p in enumerate(prompts)])
+    np.testing.assert_array_equal(got, eager_tokens)
+    assert (ops.launch_counts(), ops.variant_counts()) == eager_counts
+    assert eager_counts[0]["flash_decode"] == (S + new) * cfg.n_layers
+    stats = decode_batch.last_graph
+    assert stats["replays"] == S + new - 1 and stats["capture_seconds"] > 0
 
 
 @pytest.mark.gpu

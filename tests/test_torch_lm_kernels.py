@@ -28,6 +28,7 @@ from repro.kernels.flash_attention import flash_attention as pallas_attention
 from repro.kernels.rmsnorm import rms_norm as pallas_rms_norm
 from repro.models import attention as jattn
 from repro_torch.kernels import _lm, ops, rmsnorm
+from repro_torch.kernels import decode_attention as fd
 from repro_torch.kernels import flash_attention as fa
 
 torch.set_num_threads(1)
@@ -115,6 +116,162 @@ def test_flash_decode_vs_jax(B, Smax, kv_len, H, KV, hd, win, dtype,
     else:
         want = jref.decode_attention_ref(q, kc, vc, kv_len, window=win)
     _close(got, want, ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("against", AGAINST)
+@pytest.mark.parametrize("B,Smax,kv_len,H,KV,hd,win,dtype", DEC_CASES)
+def test_flash_decode_device_kv_len_vs_jax(B, Smax, kv_len, H, KV, hd, win,
+                                           dtype, against):
+    """kv_len as an int32 tensor of one element (0-d and (1,)), as the
+    Pallas kernel takes it: the same bits as the int call, and the Pallas
+    kernel given ``jnp.int32(kv_len)`` (or the JAX reference)."""
+    rng = np.random.default_rng(Smax + kv_len)
+    q, tq = _pair(rng.standard_normal((B, 1, H, hd)), dtype)
+    kc, tkc = _pair(rng.standard_normal((B, Smax, KV, hd)), dtype)
+    vc, tvc = _pair(rng.standard_normal((B, Smax, KV, hd)), dtype)
+    want_int = ops.flash_decode(tq, tkc, tvc, kv_len, window=win)
+    for t in (torch.tensor(kv_len, dtype=torch.int32),
+              torch.tensor([kv_len], dtype=torch.int32)):
+        got = ops.flash_decode(tq, tkc, tvc, t, window=win)
+        assert torch.equal(got, want_int)
+    if against == "pallas_interpret":
+        want = pallas_decode(q, kc, vc, jnp.int32(kv_len), window=win,
+                             block_kv=128, interpret=True)
+    else:
+        want = jref.decode_attention_ref(q, kc, vc, jnp.int32(kv_len),
+                                         window=win)
+    _close(got, want, ATTN_TOL[dtype])
+
+
+def test_flash_decode_refuses_a_kv_len_tensor_it_cannot_take():
+    qd, kc = torch.zeros((1, 1, 4, 16)), torch.zeros((1, 8, 2, 16))
+    with pytest.raises(TypeError, match="int32"):
+        ops.flash_decode(qd, kc, kc, torch.tensor(3))            # int64
+    with pytest.raises(ValueError, match="one element"):
+        ops.flash_decode(qd, kc, kc, torch.tensor([3, 4], dtype=torch.int32))
+    with pytest.raises(ValueError, match="one element"):
+        ops.flash_decode(qd, kc, kc, torch.ones(1, dtype=torch.int32,
+                                                device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# The split-K arithmetic of csrc/decode_attention.cu emulated in torch: each
+# split's partial (m, l, acc) over its rows, merged in split order, held
+# against the Pallas kernel in interpret mode at the kernel tolerances.
+# ---------------------------------------------------------------------------
+
+def _split_k_emulation(q, k_cache, v_cache, kv_len, window, n_split, rows):
+    """What the split path computes: split s takes rows [s*rows, (s+1)*rows)
+    of the valid range [max(0, kv_len - window), kv_len); float32 scores of
+    q * hd**-0.5; its partial is m = max score, l = sum exp(s - m), acc =
+    sum exp(s - m) v, or the neutral (-1e30, 0, 0) where it holds no valid
+    row; the merge takes M = max m_s, weights exp(m_s - M), in split order,
+    and divides by max(l, 1e-30)."""
+    B, _, H, hd = q.shape
+    Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qg = (q.float()[:, 0] * hd ** -0.5).reshape(B, KV, G, hd)
+    lo = max(0, kv_len - window) if window > 0 else 0
+    parts = []
+    for s in range(n_split):
+        a, b = max(lo, s * rows), min(kv_len, (s + 1) * rows, Smax)
+        if a >= b:
+            parts.append((torch.full((B, KV, G), _lm.NEG_INF),
+                          torch.zeros((B, KV, G)),
+                          torch.zeros((B, KV, G, hd))))
+            continue
+        sc = torch.einsum("bkgd,bskd->bkgs", qg, k_cache[:, a:b].float())
+        m = sc.amax(-1)
+        p = torch.exp(sc - m[..., None])
+        parts.append((m, p.sum(-1), torch.einsum(
+            "bkgs,bskd->bkgd", p, v_cache[:, a:b].float())))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    ll, acc = torch.zeros_like(M), torch.zeros((B, KV, G, hd))
+    for m, l_s, acc_s in parts:
+        w = torch.exp(m - M)
+        ll = ll + l_s * w
+        acc = acc + acc_s * w[..., None]
+    out = acc / ll.clamp_min(1e-30)[..., None]
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# B, Smax, kv_len, H, KV, hd, window, dtype: DEC_CASES' shapes, and windows
+# that leave most splits empty
+SPLIT_CASES = DEC_CASES + [(1, 384, 300, 4, 2, 128, 40, "bfloat16"),
+                           (2, 256, 250, 4, 4, 32, 20, "float32")]
+
+
+@pytest.mark.parametrize("n_split", [1, 3, 7])
+@pytest.mark.parametrize("B,Smax,kv_len,H,KV,hd,win,dtype", SPLIT_CASES)
+def test_split_k_arithmetic_vs_pallas(B, Smax, kv_len, H, KV, hd, win, dtype,
+                                      n_split):
+    rng = np.random.default_rng(Smax + kv_len + win)
+    q, tq = _pair(rng.standard_normal((B, 1, H, hd)), dtype)
+    kc, tkc = _pair(rng.standard_normal((B, Smax, KV, hd)), dtype)
+    vc, tvc = _pair(rng.standard_normal((B, Smax, KV, hd)), dtype)
+    rows = -(-Smax // n_split)
+    got = _split_k_emulation(tq, tkc, tvc, kv_len, win, n_split, rows)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    want = pallas_decode(q, kc, vc, jnp.int32(kv_len), window=win,
+                         block_kv=128, interpret=True)
+    _close(got, want, ATTN_TOL[dtype])
+
+
+def _cuda_constant(name: str) -> int:
+    src = _csrc_text("decode_attention.cu")
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_split_rule_constants_match_the_kernel():
+    for name in ("MAX_SPLITS", "MAX_HEADS_PER_BLOCK"):
+        assert getattr(fd, name) == _cuda_constant(name)
+    src = _csrc_text("decode_attention.cu")
+    assert "return G <= 2 ? G : MAX_HEADS_PER_BLOCK;" in src
+    assert [fd.heads_per_block(g) for g in (1, 2, 3, 4, 8)] == [1, 2, 4, 4, 4]
+
+
+@pytest.mark.parametrize("sm_count", [1, 114, 132])
+@pytest.mark.parametrize("B,H,KV", [(1, 16, 8), (24, 16, 8), (3, 8, 1),
+                                    (1, 4, 4), (65535, 2, 1)])
+def test_split_rule(B, H, KV, sm_count):
+    """The splits cover the cache, none is empty, the count stays within the
+    kernel's limit and needs no kv_len; a cache too short to split (the
+    serving path's 24 rows) runs as one split."""
+    for Smax in (1, 24, 511, 512, 2048, 8192, 32768, 10**6):
+        n, rows = fd.num_splits(B, H, KV, Smax, sm_count)
+        assert 1 <= n <= fd.MAX_SPLITS and rows >= 1
+        assert n * rows >= Smax > (n - 1) * rows
+        if Smax < 2 * fd.SPLIT_MIN_ROWS:
+            assert n == 1
+        if n > 1:
+            assert rows >= fd.SPLIT_MIN_ROWS - 1
+
+
+def test_split_rule_at_the_serving_shapes():
+    # qwen3-1.7b (16 query heads, 8 KV heads) on 132 SMs
+    assert fd.num_splits(24, 16, 8, 24, 132) == (1, 24)
+    assert fd.num_splits(24, 16, 8, 2048, 132) == (3, 683)
+    assert fd.num_splits(1, 16, 8, 32768, 132) == (66, 497)
+
+
+def test_counts_move_by_a_delta():
+    """What a CUDA-graph runner does with the counts: take a capture's
+    launches back out, and add them once a replay."""
+    before = (ops.launch_counts(), ops.variant_counts())
+    ops.flash_decode.launches += 2
+    ops.flash_decode.launches_by_variant["split"] += 2
+    ops.rms_norm.launches += 5
+    ops.rms_norm.launches_by_variant["generic"] += 5
+    delta = ops.counts_since(before)
+    assert delta[0] == {"rms_norm": 5, "flash_attention": 0,
+                        "flash_decode": 2}
+    assert delta[1]["flash_decode"] == {"single": 0, "split": 2}
+    ops.add_counts(delta, times=-1)
+    assert (ops.launch_counts(), ops.variant_counts()) == before
+    ops.add_counts(delta, times=3)
+    assert ops.counts_since(before)[0]["rms_norm"] == 15
+    ops.add_counts(delta, times=-3)
+    assert (ops.launch_counts(), ops.variant_counts()) == before
 
 
 # tests/test_kernels.py::test_rmsnorm_vs_ref

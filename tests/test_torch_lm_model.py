@@ -39,7 +39,8 @@ from repro.models import layers as jlayers
 from repro.models import mlp as jmlp
 from repro_torch.configs import get_config as pget
 from repro_torch.launch import serve as pserve
-from repro_torch.launch.steps import build_decode_step, build_prefill_step
+from repro_torch.launch.steps import (GraphedDecodeStep, build_decode_step,
+                                     build_prefill_step)
 from repro_torch.models import attention as pattn
 from repro_torch.models import blocks as pblk
 from repro_torch.models import build_model as pbuild
@@ -310,6 +311,68 @@ def test_prefill_logits_and_caches_vs_jax(f32, cache_dtype):
         fwd = pm.forward(pp, {"tokens": _t(tok, torch.int64)})[:, -1]
         diff = float((fwd - plog[:, 0]).abs().max())
         assert diff < 1e-3 * float(fwd.abs().max()) + 1e-3
+
+
+def test_decode_step_with_a_device_position_vs_jax(built):
+    """``pos`` as an int32 tensor (the JAX package's traced ``jnp.int32``):
+    the same bits as the int position, logits and caches, step by step; and
+    the JAX package's jitted ``decode_step`` given ``jnp.int32(pos)``."""
+    dt, jc, jm, jp, pm, pp = built
+    tok = _tokens(jc, (B, 5), seed=7)
+    jcache = jm.init_cache(B, 8)
+    ca, cb = pm.init_cache(B, 8), pm.init_cache(B, 8)
+    jstep = jax.jit(jm.decode_step)
+    for i in range(5):
+        t = _t(tok[:, i:i + 1], torch.int64)
+        la, _ = pm.decode_step(pp, ca, t, i)
+        lb, _ = pm.decode_step(pp, cb, t, torch.tensor(i, dtype=torch.int32))
+        assert torch.equal(la, lb)
+        for key in ("k", "v"):
+            assert torch.equal(ca["layers"]["slot0"][key],
+                               cb["layers"]["slot0"][key])
+        want, jcache = jstep(jp, jcache, jnp.asarray(tok[:, i:i + 1]),
+                             jnp.int32(i))
+        np.testing.assert_allclose(_np(lb), _np(want), rtol=0,
+                                   atol=_logit_tol(dt, want))
+
+
+def test_decode_step_refuses_a_position_it_cannot_take(f32):
+    _jc, _jm, _jp, pm, pp = f32
+    cache = pm.init_cache(B, 4)
+    tok = torch.zeros((B, 1), dtype=torch.int64)
+    for bad in (torch.tensor(1), torch.tensor([1, 2], dtype=torch.int32),
+                torch.ones(1, dtype=torch.int32, device="meta")):
+        with pytest.raises(ValueError, match="int32 tensor of one element"):
+            pm.decode_step(pp, cache, tok, bad)
+
+
+def test_prefill_runs_the_step_it_is_given(f32):
+    """``Model.prefill(step=...)`` runs every step through the callable
+    (``decode_batch`` gives it a CUDA-graph runner): here one that passes
+    the position on the device; the same bits as the default step."""
+    jc, _jm, _jp, pm, pp = f32
+    tok = _t(_tokens(jc, (B, 6), seed=8), torch.int64)
+    seen = []
+
+    def step(params, cache, tokens, pos):
+        seen.append(pos)
+        return pm.decode_step(params, cache, tokens,
+                              torch.tensor(pos, dtype=torch.int32))
+    ca, la = pm.prefill(pp, {"tokens": tok}, max_seq=8)
+    cb, lb = pm.prefill(pp, {"tokens": tok}, max_seq=8, step=step)
+    assert seen == list(range(6))
+    assert torch.equal(la, lb)
+    for key in ("k", "v"):
+        assert torch.equal(ca["layers"]["slot0"][key],
+                           cb["layers"]["slot0"][key])
+
+
+def test_graphed_decode_step_needs_the_card(f32):
+    """The CUDA-graph runner refuses a model on the CPU (decode_batch runs
+    the CPU's steps eagerly and records no graph)."""
+    _jc, _jm, _jp, pm, _pp = f32
+    with pytest.raises(ValueError, match="on the card"):
+        GraphedDecodeStep(pm)
 
 
 def _replay(jm, jp, pm, pp, prompts, tokens):
