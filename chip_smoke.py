@@ -26,7 +26,14 @@ fails the run), ``kernels`` (bit-exact against the plain loop, the
 simulator at every slot-count boundary), ``oracle`` (bit-exact
 against the serial numpy simulators), ``main_path`` (one line per path:
 sweeps, invariants, every launch on the register variant, repeat served from
-the store, sampled oracle rows), ``timing`` (one line per body: the kernel
+the store, sampled oracle rows), ``query_main_path`` (one line per step of
+the query path under the sanitizer — the planner and its replan, an
+adaptive CI query, ``query_many`` over the DAG and adaptive bodies with
+every row held to the sweep's row of the same seed or to the serial twin,
+the planner's queries under injected faults, and ``cuda`` against the plain
+loop on the card at a small size — each with its dispatches, rows per
+dispatch, launches by body, wall with and without the sanitizer's replays,
+kernel time, store writes and device idle share), ``timing`` (one line per body: the kernel
 per chunk with ns per event on its longest row and its time before the
 redesign, the path's summed kernel time, its plain version and its bound),
 ``lm_kernels`` (one line
@@ -57,6 +64,9 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
+import zipfile
+from contextlib import contextmanager
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -91,7 +101,11 @@ from repro_torch.launch.serve import Request, decode_batch  # noqa: E402
 from repro_torch.launch.steps import (GraphedDecodeStep,  # noqa: E402
                                      build_prefill_step)
 from repro_torch.models import build_model as build_lm_model  # noqa: E402
+from repro_torch.check import sanitizer as san  # noqa: E402
+from repro_torch.sched import plan_for_mesh  # noqa: E402
 from repro_torch.service import SimulationService  # noqa: E402
+from repro_torch.service import resilience as rz  # noqa: E402
+from repro_torch.service.estimator import fixed_reps_for_width  # noqa: E402
 
 DEV = "cuda"
 # float32 products in full float32 (these are PyTorch's defaults for a matrix
@@ -716,6 +730,416 @@ def drive_path(store_root: Path, path: str) -> dict:
                card=card_line())
     say("main_path", **out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the query path — estimator, coalescing broker, self-healing
+# dispatch, sanitizer — and the planner that drives it, on the ws_sim kernel.
+# ---------------------------------------------------------------------------
+
+# sched/planner.py's fleet: 4 pods of 256 chips, one group per 8 chips
+# (tpu_fleet(4, 32): p = 128, ICI 1, DCN 40), 4096 units a group (W = 524288)
+PLANNER = dict(n_pods=4, chips_per_pod=256, dcn_delay=40, work_per_group=4096,
+               reps=64)
+# benchmarks/run.py::service_throughput's four threshold queries
+PARITY = dict(p=32, W=200_000, lams=(2, 10, 30, 50), reps=16, seed0=11,
+              thetas=((0, 0), (0, 2), (8, 0), (16, 2)))
+
+
+@contextmanager
+def pinned_zip_clock():
+    """An npz is a zip, and a zip member carries its time of writing: pin
+    the clock zipfile reads, so that two writes of the same arrays are the
+    same bytes whenever they happen."""
+    fixed = time.mktime((2020, 1, 1, 0, 0, 0, 0, 0, -1))
+    real = zipfile.time
+    zipfile.time = types.SimpleNamespace(time=lambda: fixed,
+                                         localtime=time.localtime)
+    try:
+        yield
+    finally:
+        zipfile.time = real
+
+
+class KernelClock:
+    """Device time of every ``ws_sim`` launch made inside the block: a CUDA
+    event pair recorded on the launch's stream right before and after the
+    kernel launcher's call (the wrapper's host work and uploads stay
+    outside). Also the host time of the sanitizer's oracle replays, which
+    run inside the dispatches."""
+
+    def __enter__(self):
+        self.pairs, self.replay_s = [], 0.0
+        self._lib, self._replay = ws._lib, san._replay
+        clock = self
+
+        class Timed:
+            def __init__(self, lib):
+                self._l = lib
+
+            def __getattr__(self, name):
+                fn = getattr(self._l, name)
+                if not name.endswith("_launch"):
+                    return fn
+
+                def launch(*args):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    err = fn(*args)
+                    b.record()
+                    clock.pairs.append((a, b))
+                    return err
+                return launch
+
+        def replay(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return self._replay(*args, **kw)
+            finally:
+                clock.replay_s += time.perf_counter() - t0
+
+        ws._lib = lambda defines=(): Timed(self._lib(defines))
+        san._replay = replay
+        return self
+
+    def __exit__(self, *exc):
+        ws._lib, san._replay = self._lib, self._replay
+        torch.cuda.synchronize()
+        self.kernel_ms = sum(a.elapsed_time(b) for a, b in self.pairs)
+        return False
+
+
+def query_step(svc, run) -> tuple:
+    """Run ``run()`` with every count at 0 just before: its result and the
+    step's numbers (dispatches and their rows, launches by body and
+    variant, wall, summed kernel ms, store writes, the oracle replays, the
+    device idle share)."""
+    d0, log0 = svc.n_dispatches, len(svc.broker.dispatch_log)
+    ws.reset_counts()
+    torch.cuda.synchronize()
+    with KernelClock() as kc, obs.trace_to(None) as tracer:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = {n: sum(ms) for n, ms in tracer.durations_ms().items()}
+    log = list(svc.broker.dispatch_log)[log0:]
+    launches = dict(ws.ws_sim_cuda.launches_by_body)
+    if ws.ws_sim_cuda.launches != len(kc.pairs):
+        raise AssertionError("the kernel clock missed a launch")
+    if any(e["backend"] != "cuda" for e in log):
+        raise AssertionError(f"a dispatch left the cuda backend: {log}")
+    host_wall = wall - kc.replay_s
+    return out, dict(
+        n_dispatches=svc.n_dispatches - d0,
+        rows_per_dispatch=[e["n_rows"] for e in log],
+        padded_rows_per_dispatch=[e["n_padded"] for e in log],
+        queries_per_dispatch=[e["n_queries"] for e in log],
+        relaxed_dispatches=sum(bool(e["relaxed"]) for e in log),
+        degraded_dispatches=sum(bool(e["degraded"]) for e in log),
+        launches=ws.ws_sim_cuda.launches, launches_by_body=launches,
+        launches_by_variant=dict(ws.ws_sim_cuda.launches_by_variant),
+        wall_seconds=wall, wall_seconds_without_replay=host_wall,
+        kernel_ms=kc.kernel_ms,
+        store_put_ms=spans.get("store.put", 0.0),
+        sanitizer_replay_seconds=kc.replay_s,
+        device_idle=1.0 - kc.kernel_ms / 1e3 / wall,
+        device_idle_without_replay=1.0 - kc.kernel_ms / 1e3 / host_wall)
+
+
+def stored_sweep(root: Path, path: str) -> sw.GridResult:
+    """The answer of ``drive_path``'s sweep of ``path`` (held there against
+    the plain version and the serial twin), read back from its store with
+    no launch."""
+    (s,) = MAIN_PATHS[path]["sweeps"]
+    n = ws.ws_sim_cuda.launches
+    g = SimulationService(root=root / path).sweep(s["topo"](), backend="cuda",
+                                                  **s["kw"])
+    if ws.ws_sim_cuda.launches != n:
+        raise AssertionError(f"the stored {path} sweep launched a kernel")
+    return g
+
+
+def query_rows_against(g: sw.GridResult, model, sweep: sw.GridResult,
+                       name: str) -> dict:
+    """Every row of a query's grid against a reference: the sweep's row of
+    the same W, latencies, thresholds and seed, every column byte for byte;
+    a row the sweep does not hold, against the serial numpy twin. Fails on
+    a row that neither can answer."""
+    def ident(gr, k):
+        return tuple(int(x[k]) for x in (
+            gr.W, gr.lam, gr.extras["lam_local"], gr.theta_static,
+            gr.theta_comm, gr.seed))
+    index = {ident(sweep, k): k for k in range(len(sweep))}
+    if set(g.extras) != set(sweep.extras):
+        raise AssertionError(f"{name}: extras {sorted(g.extras)} != the "
+                             f"sweep's {sorted(sweep.extras)}")
+    cols = [f.name for f in dataclasses.fields(sw.GridResult)
+            if f.name not in ("p", "extras")]
+    n_sweep, n_twin = 0, 0
+    for k in range(len(g)):
+        j = index.get(ident(g, k))
+        if j is None:
+            grid_against_twin(g, model, [k], name)
+            n_twin += 1
+            continue
+        for f, a, b in [(c, getattr(g, c), getattr(sweep, c)) for c in cols] \
+                + [(x, g.extras[x], sweep.extras[x]) for x in g.extras]:
+            if a.dtype != b.dtype or not np.array_equal(a[k], b[j]):
+                raise AssertionError(f"{name} row {k}: {f}={a[k]} != the "
+                                     f"sweep's row {j} {b[j]}")
+        n_sweep += 1
+    return dict(rows=len(g), rows_equal_to_the_sweep=n_sweep,
+                rows_equal_to_the_twin=n_twin)
+
+
+def npz_bytes(root: Path, keys) -> dict:
+    return {k: ((root / f"{k}.npz").read_bytes(),
+                (root / f"{k}.json").read_bytes()) for k in keys}
+
+
+def same_cells(a, b, what: str):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray):
+            if x.dtype != y.dtype or not np.array_equal(x, y, equal_nan=True):
+                raise AssertionError(f"{what}: CellTable {f.name} differs")
+        elif x != y:
+            raise AssertionError(f"{what}: CellTable {f.name} differs")
+
+
+def phase_query_main_path(root: Path, sweeps: Path) -> dict:
+    """The query path's steps, each counted on its own, under the sanitizer
+    (every dispatch replays two rows on the numpy oracle, on the host: a
+    check, never the answer). Fails on any sanitizer violation. ``sweeps``
+    holds the stores of ``drive_path``'s sweeps."""
+    t_phase = time.perf_counter()
+    san.install(replay_denom=1, replay_rows=2)
+    san.reset()
+    try:
+        with pinned_zip_clock():
+            out = query_steps(root, sweeps)
+        s = san.summary()
+    finally:
+        san.uninstall()
+    if s["violations_total"] or not s["n_replayed_rows"]:
+        raise AssertionError(f"sanitizer: {s['violations_by_rule']} "
+                             f"({s['n_replayed_rows']} rows replayed)")
+    say("query_main_path", step="sanitizer",
+        **{k: v for k, v in s.items() if k != "recent"})
+    out["seconds"] = time.perf_counter() - t_phase
+    say("query_main_path", step="done", seconds=out["seconds"])
+    return out
+
+
+def query_steps(root: Path, sweeps: Path) -> dict:
+    launches = dict.fromkeys(BODIES, 0)
+
+    def count(step):
+        for b, n in step["launches_by_body"].items():
+            launches[b] += n
+        if step["launches_by_variant"] != {"registers": step["launches"]}:
+            raise AssertionError(f"launches off the register variant: "
+                                 f"{step['launches_by_variant']}")
+
+    # 1. the planner: one query_many of the strategy x MWT x rp grid (the
+    # theta variants of a combination coalesce), then the paired rematch
+    svc = SimulationService(root=root / "planner",
+                            metrics=obs.MetricsRegistry())
+    asked = []
+    query_many = svc.query_many
+
+    def recording(qs):
+        asked.append(list(qs))
+        return query_many(qs)
+
+    svc.query_many = recording
+    dec, step = query_step(svc, lambda: plan_for_mesh(
+        **PLANNER, service=svc, backend="cuda"))
+    if dec.n_dispatches != step["n_dispatches"] or step["launches"] != \
+            step["n_dispatches"] or step["launches_by_body"][
+                "ws_sim_divisible"] != step["launches"]:
+        raise AssertionError(f"planner: {dec.n_dispatches} dispatches, "
+                             f"launches {step['launches_by_body']}")
+    if step["queries_per_dispatch"][:10] != [1] * 10 or \
+            step["rows_per_dispatch"][:10] != [3 * PLANNER["reps"]] * 10:
+        raise AssertionError("planner: the first round is not one dispatch "
+                             "of three thresholds per combination")
+    count(step)
+    decision = dict(strategy=dec.strategy_name, remote_prob=dec.remote_prob,
+                    theta=(dec.theta_static, dec.theta_comm), mwt=dec.mwt,
+                    expected_makespan=dec.expected_makespan,
+                    baseline_makespan=dec.baseline_makespan,
+                    delta_mean=dec.delta_mean,
+                    delta_half_width=dec.delta_half_width,
+                    significant=dec.significant,
+                    n_paired_reps=dec.n_paired_reps)
+    topo = T.tpu_fleet(PLANNER["n_pods"], PLANNER["chips_per_pod"] // 8,
+                       dcn_delay=PLANNER["dcn_delay"])
+    say("query_main_path", step="planner", p=topo.p,
+        W=PLANNER["work_per_group"] * topo.p, decision=decision,
+        table_rows=len(dec.table), card=card_line(), **step)
+    again, step_r = query_step(svc, lambda: plan_for_mesh(
+        **PLANNER, service=svc, backend="cuda"))
+    if again.n_dispatches or step_r["n_dispatches"] or step_r["launches"]:
+        raise AssertionError("the replanned fleet dispatched or launched")
+    if dataclasses.replace(again, n_dispatches=dec.n_dispatches) != dec:
+        raise AssertionError("the replanned fleet gave another decision")
+    say("query_main_path", step="replan", **step_r)
+
+    # 2. an adaptive CI query at the paper's largest platform
+    svc2 = SimulationService(root=root / "adaptive_ci",
+                             metrics=obs.MetricsRegistry())
+    lams = [2, 62, 262, 482]
+    r, step = query_step(svc2, lambda: svc2.query(
+        T.one_cluster(256, 1), W_list=[MAIN_W], lam_list=lams, ci=0.01,
+        ci_relative=True, batch_reps=64, max_reps=1024, backend="cuda"))
+    cells = r.cells
+    met = cells.half_width <= 0.01 * np.abs(cells.mean)
+    if not (met | (cells.n >= 1024)).all() or step["launches"] != r.n_rounds:
+        raise AssertionError(f"adaptive CI query: target missed "
+                             f"({cells.half_width}) or launches != rounds")
+    fixed = [fixed_reps_for_width(float(cells.std[c]),
+                                  0.01 * float(cells.mean[c]))
+             for c in range(len(cells))]
+    count(step)
+    say("query_main_path", step="adaptive_ci", p=256, W=MAIN_W, lams=lams,
+        rounds=r.n_rounds, reps_per_cell=cells.n.tolist(),
+        reps_spent=int(cells.n.sum()),
+        fixed_reps_for_width_per_cell=fixed,
+        fixed_reps_uniform=max(fixed) * len(cells),
+        half_width_over_mean=(cells.half_width / cells.mean).tolist(),
+        card=card_line(), **step)
+
+    # 3. query_many over the other two bodies, the sweep paths' shapes
+    svc3 = SimulationService(root=root / "bodies",
+                             metrics=obs.MetricsRegistry())
+    dag_q = svc3.make_query(T.one_cluster(32, 1), task_model="dag",
+                            dag=MAIN_DAG, max_events=1 << 20,
+                            lam_list=[2, 10, 62], reps=64, backend="cuda")
+    ad_q = svc3.make_query(T.one_cluster(256, 1), task_model="adaptive",
+                           W_list=[MAIN_W], pool_cap=1 << 13,
+                           lam_list=lams, reps=16, backend="cuda")
+    held = {"dag": stored_sweep(sweeps, "dag"),
+            "adaptive": stored_sweep(sweeps, "adaptive")}
+    (rd, ra), step = query_step(svc3, lambda: svc3.query_many([dag_q, ad_q]))
+    check_dag(rd.grid, "query dag", dag_q.model)
+    check_adaptive(ra.grid, "query adaptive", ad_q.model)
+    for g in (rd.grid, ra.grid):
+        check_common(g, "query bodies")
+    if step["launches_by_body"] != {"ws_sim_divisible": 0, "ws_sim_dag": 1,
+                                    "ws_sim_adaptive": 1}:
+        raise AssertionError(f"bodies: launches {step['launches_by_body']}")
+    count(step)
+    # the padded, straggler-sorted launches against a reference, every row
+    t1 = time.perf_counter()
+    against = {"dag": query_rows_against(rd.grid, dag_q.model, held["dag"],
+                                         "query dag"),
+               "adaptive": query_rows_against(ra.grid, ad_q.model,
+                                              held["adaptive"],
+                                              "query adaptive")}
+    say("query_main_path", step="dag_and_adaptive",
+        mean_makespan={"dag": rd.cells.mean.tolist(),
+                       "adaptive": ra.cells.mean.tolist()},
+        rows_against_a_reference=against,
+        reference_seconds=time.perf_counter() - t1,
+        card=card_line(), **step)
+
+    # 4. step 1's query_many again, into a fresh store, under faults: one
+    # poisoned row at backend.run_rows (it fails three times, then heals)
+    # and one transient failure of the first broker.dispatch
+    first = asked[0]
+    seeds = {int(x) for q in first for x in sw.grid_rows(
+        q.W_list, q.lam_list, q.reps, q.theta, seed0=q.seed0).seed} | {1}
+    poison = next(rz.FaultPlan(rng_seed=k) for k in range(100_000)
+                  if sum(rz.FaultPlan(rng_seed=k).row_poisoned(
+                      rz.Prob(1 / len(seeds)), x) for x in seeds) == 1)
+    plan = rz.FaultPlan(rng_seed=poison.rng_seed, sites={
+        "backend.run_rows": rz.Prob(1 / len(seeds), per_row=True,
+                                    max_faults=3, match={"backend": "cuda"}),
+        "broker.dispatch": rz.At(0)})
+    svc4 = SimulationService(root=root / "faults",
+                             metrics=obs.MetricsRegistry())
+    others = {n: bk.get_backend(n).n_run_rows for n in ("torch", "oracle")}
+    replays = san.summary()["n_replayed_dispatches"]
+    with rz.fault_plan(plan):
+        res4, step = query_step(svc4, lambda: svc4.query_many(first))
+    deg = svc4.stats()["degraded"]
+    if bk.get_backend("torch").n_run_rows != others["torch"] or \
+            bk.get_backend("oracle").n_run_rows - others["oracle"] != \
+            san.summary()["n_replayed_dispatches"] - replays:
+        raise AssertionError("a faulted dispatch ran off the cuda backend")
+    if not deg["salvaged_rows"] > 0 or not step["degraded_dispatches"] or \
+            plan.n_fired.get("backend.run_rows") != 3 or \
+            plan.n_fired.get("broker.dispatch") != 1:
+        raise AssertionError(f"faults: {deg}, fired {plan.n_fired}")
+    keys = [q.key() for q in first]
+    if npz_bytes(root / "faults", keys) != npz_bytes(root / "planner", keys):
+        raise AssertionError("the faulted answers' bytes differ")
+    count(step)
+    say("query_main_path", step="faults", plan=json.loads(plan.to_json()),
+        fired=plan.n_fired, chain=rz.fallback_chain("cuda", first[0].model),
+        degraded={k: deg[k] for k in ("retries", "salvaged_rows",
+                                      "dispatch_failures", "fallbacks")},
+        same_bytes=len(keys), **step)
+
+    # 5. cuda against the plain loop on the card, byte for byte; then the
+    # same queries cold and warm
+    def thetas(svc, backend):
+        return [svc.make_query(T.one_cluster(PARITY["p"], 1),
+                               W_list=[PARITY["W"]],
+                               lam_list=list(PARITY["lams"]), theta=(th,),
+                               reps=PARITY["reps"], seed0=PARITY["seed0"],
+                               backend=backend)
+                for th in PARITY["thetas"]]
+
+    cold = SimulationService(root=root / "parity_cuda",
+                             metrics=obs.MetricsRegistry())
+    rc, step = query_step(cold, lambda: cold.query_many(thetas(cold, "cuda")))
+    plain = SimulationService(root=root / "parity_torch",
+                              metrics=obs.MetricsRegistry())
+    t0 = time.perf_counter()
+    rt = plain.query_many(thetas(plain, "torch"))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if plain.broker.dispatch_log[0]["backend"] != "torch":
+        raise AssertionError("the plain loop's dispatch was not on torch")
+    keys = [r.key for r in rc]
+    if keys != [r.key for r in rt] or npz_bytes(
+            root / "parity_cuda", keys) != npz_bytes(root / "parity_torch",
+                                                     keys):
+        raise AssertionError("cuda and the plain loop differ in keys or "
+                             "bytes")
+    for a, b in zip(rc, rt):
+        same_cells(a.cells, b.cells, "cuda vs torch")
+    warm, step_w = query_step(cold, lambda: cold.query_many(
+        thetas(cold, "cuda")))
+    disk = SimulationService(root=root / "parity_cuda",
+                             metrics=obs.MetricsRegistry())
+    from_disk, step_d = query_step(disk, lambda: disk.query_many(
+        thetas(disk, "cuda")))
+    if step_w["launches"] or step_d["launches"] or not all(
+            r.from_cache for r in warm + from_disk):
+        raise AssertionError("a warm query launched a kernel")
+    count(step)
+    n = len(PARITY["thetas"])
+    say("query_main_path", step="parity_and_rate", **{
+        k: v for k, v in PARITY.items() if k != "thetas"},
+        same_keys_and_bytes=len(keys), plain_loop_seconds=plain_s,
+        queries_per_second={"cold": n / step["wall_seconds"],
+                            "warm_memory": n / step_w["wall_seconds"],
+                            "warm_disk": n / step_d["wall_seconds"],
+                            "plain_loop_on_the_card": n / plain_s},
+        # what a user sees: the sanitizer is off unless asked for
+        queries_per_second_without_replay={
+            "cold": n / step["wall_seconds_without_replay"],
+            "warm_memory": n / step_w["wall_seconds_without_replay"],
+            "warm_disk": n / step_d["wall_seconds_without_replay"]},
+        card=card_line(), **step)
+    if not all(launches.values()):
+        raise AssertionError(f"a body was not launched: {launches}")
+    return dict(launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -1759,10 +2183,14 @@ def main():
     with tempfile.TemporaryDirectory(prefix="ws_store_") as tmp:
         main_out = {path: drive_path(Path(tmp) / path, path)
                     for path in MAIN_PATHS}
+        # 4b. the query path and the planner, under the sanitizer
+        query = phase_query_main_path(Path(tmp) / "query", Path(tmp))
     # 5. times at a main-path shape
     entries = [time_body(path, main_out[path],
                          reps=5 if path == "divisible" else 3)
                for path in MAIN_PATHS]
+    for e in entries:
+        e["launches_query_path"] = query["launches"][e["name"]]
     # 6-8. the language-model serving path: its kernels against their plain
     # versions, its two main paths counted, the kernels' times
     phase_lm_kernels()

@@ -62,6 +62,21 @@ def _fault_point(site: str, **ctx):
     return _fault_point_impl(site, **ctx)
 
 
+_sanitize_impl = None
+
+
+def _sanitize(site: str, **ctx):
+    """Lazy bridge to the opt-in determinism sanitizer
+    (``repro_torch.check.sanitizer.probe``), same shape as
+    :func:`_fault_point`: a disabled probe costs one env read per
+    dispatch."""
+    global _sanitize_impl
+    if _sanitize_impl is None:
+        from repro_torch.check.sanitizer import probe
+        _sanitize_impl = probe
+    return _sanitize_impl(site, **ctx)
+
+
 @dataclasses.dataclass(frozen=True)
 class BackendCapabilities:
     """What a backend can run, reported without executing anything."""
@@ -162,7 +177,14 @@ class ExecutionBackend:
                       n_rows=len(rows)):
             devs = (tuple(torch.device(d) for d in devices)
                     if devices is not None else self.local_devices(dev))
-            return self._run_rows(model, rows, remote_prob, ev_budget, devs)
+            out = self._run_rows(model, rows, remote_prob, ev_budget, devs)
+            # Sanitizer: steal-accounting check + seeded oracle replay of a
+            # sampled dispatch (repro_torch.check.sanitizer). No-op when
+            # disabled.
+            _sanitize("backend.result", backend=self, model=model,
+                      rows=rows, remote_prob=remote_prob,
+                      ev_budget=ev_budget, grid=out)
+            return out
 
     def _run_rows(self, model, rows, remote_prob, ev_budget, devices):
         n = len(rows)

@@ -31,20 +31,28 @@ deterministic function of each row's seed instead of the call sequence, so
 the *same rows* fail on every retry ("poisoned rows") until the dispatcher
 routes them elsewhere — the adversarial case bisection salvage exists for.
 
-**Recovery** — what this slice of the port needs:
+**Recovery**:
 
 * :class:`RetryPolicy`: exponential backoff with full jitter, capped by both
-  attempt count and a wall-clock deadline (store I/O);
+  attempt count and a wall-clock deadline (store I/O, dispatch retries);
+* :class:`CircuitBreaker`: per-backend CLOSED → OPEN → HALF-OPEN state
+  machine, exported as the ``resilience.breaker_state{backend=…}`` gauge;
+* :func:`fallback_chain` + :func:`dispatch_resilient`: the broker's
+  self-healing dispatch — retry, then bisection salvage of a failing batch
+  (one poisoned row in n costs O(log n) dispatches, not n), then demotion
+  down the chain of bit-identical backends;
 * :func:`degraded_summary`: every recovery counter on the metrics registry
   (``resilience.retries / fallbacks / salvaged_rows / dispatch_failures /
   breaker_trips``), which :meth:`SimulationService.stats` reports under
   ``"degraded"``.
 
-The dispatch-side recovery (circuit breaker, bisection salvage, a chain of
-substitute backends) belongs to the broker and arrives with it. Whatever it
-demotes to, the ``cuda`` backend never gives way to the plain loop or to the
-host while its tensors are on the card: a kernel that fails to build or
-launch raises.
+**The device rule decides the chain.** A dispatch whose tensors lie on a
+CUDA device has a chain of its primary alone (``cuda`` or ``torch``):
+retries and bisection salvage still run, on that backend, and then the error
+propagates. The ``cuda`` backend never gives way to the plain loop or to the
+host: a kernel that fails to build or launch raises. Only a dispatch on the
+CPU (a service built with ``device="cpu"``) may demote ``torch`` to
+``oracle``, and only where the oracle twins the model.
 
 Import discipline: this module imports only :mod:`repro_torch.obs`, so the
 store and the backends can use it without cycles.
@@ -58,7 +66,7 @@ import os
 import random
 import threading
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 from repro_torch import obs
 
@@ -390,6 +398,250 @@ class RetryPolicy:
                                         {"op": label}).inc()
                 time.sleep(self.sleep_s(attempt - 1, rng))
 
+
+
+def decorrelated_jitter(prev_s: float, base_s: float, cap_s: float,
+                        rng: Optional[random.Random] = None) -> float:
+    """Next poll interval, decorrelated-jitter style: U(base, 3·prev) capped.
+    Used by the broker's lock-wait loop so N waiters on one hot key spread
+    out instead of stampeding the store in phase."""
+    hi = max(base_s, 3.0 * prev_s)
+    return min(cap_s, (rng or random).uniform(base_s, hi))
+
+
+# -- circuit breaker ----------------------------------------------------------
+
+#: breaker_state gauge values
+BREAKER_CLOSED, BREAKER_HALF_OPEN, BREAKER_OPEN = 0.0, 0.5, 1.0
+
+
+class CircuitBreaker:
+    """Per-key (backend-name) circuit breaker: trips OPEN after
+    ``k_failures`` consecutive failures, rejects while open, lets one probe
+    through per ``cooldown_s`` (HALF-OPEN), closes again on a success. State
+    is exported as the ``resilience.breaker_state{backend=…}`` gauge
+    (0 closed / 0.5 half-open / 1 open)."""
+
+    def __init__(self, k_failures: int = 3, cooldown_s: float = 5.0,
+                 metrics: Optional[obs.MetricsRegistry] = None):
+        self.k_failures = int(k_failures)
+        self.cooldown_s = float(cooldown_s)
+        self.metrics = metrics if metrics is not None else obs.REGISTRY
+        self._fails: Dict[str, int] = {}
+        self._opened_at: Dict[str, float] = {}
+        self._probing: set = set()
+
+    def _gauge(self, name: str, state: float):
+        self.metrics.gauge("resilience.breaker_state",
+                           {"backend": name}).set(state)
+
+    def state(self, name: str) -> float:
+        if name not in self._opened_at:
+            return BREAKER_CLOSED
+        if time.monotonic() - self._opened_at[name] >= self.cooldown_s:
+            return BREAKER_HALF_OPEN
+        return BREAKER_OPEN
+
+    def allow(self, name: str) -> bool:
+        """May a dispatch go to ``name`` right now? Open → no; half-open →
+        one probe per cooldown window."""
+        st = self.state(name)
+        if st == BREAKER_CLOSED:
+            return True
+        if st == BREAKER_HALF_OPEN and name not in self._probing:
+            self._probing.add(name)
+            self._gauge(name, BREAKER_HALF_OPEN)
+            return True
+        return False
+
+    def record_success(self, name: str):
+        self._fails[name] = 0
+        self._probing.discard(name)
+        if self._opened_at.pop(name, None) is not None:
+            self._gauge(name, BREAKER_CLOSED)
+
+    def record_failure(self, name: str, weight: int = 1):
+        self._probing.discard(name)
+        if name in self._opened_at:        # failed probe: restart cooldown
+            self._opened_at[name] = time.monotonic()
+            self._gauge(name, BREAKER_OPEN)
+            return
+        self._fails[name] = self._fails.get(name, 0) + int(weight)
+        if self._fails[name] >= self.k_failures:
+            self._opened_at[name] = time.monotonic()
+            self.metrics.counter("resilience.breaker_trips",
+                                 {"backend": name}).inc()
+            self._gauge(name, BREAKER_OPEN)
+
+
+# -- backend fallback chain ---------------------------------------------------
+
+#: Demotion preference among the port's backends that run on the host: the
+#: plain batched loop first, the serial oracle as the dependable floor. The
+#: ``cuda`` backend is never a substitute (it has no CPU form) and never
+#: gives way (see :func:`fallback_chain`).
+FALLBACK_ORDER = ("torch", "oracle")
+
+
+def backend_compatible(be, model) -> bool:
+    """Can ``be`` produce bit-identical results for ``model``? The oracle
+    twins model neither trace logging nor the capacity halts of the DAG and
+    adaptive engines, so only the divisible model without ``log_trace`` may
+    demote onto it (the rule the sanitizer's replay follows too)."""
+    from repro_torch.core import divisible as dv
+    from repro_torch.core import sweep as sw
+    caps = be.capabilities()
+    if not caps.available:
+        return False
+    model = sw.as_model(model)
+    if model.p > caps.max_p:
+        return False
+    if caps.kind == "reference":
+        return isinstance(model, dv.DivisibleModel) and not model.log_trace
+    return True
+
+
+def fallback_chain(primary: str, model, device=None) -> List[str]:
+    """Ordered backend names a dispatch of ``model`` on ``device`` may run
+    on. ``device`` follows the device rule (None is the card).
+
+    A dispatch whose tensors lie on a CUDA device, and any dispatch on the
+    ``cuda`` backend, gets its primary alone: nothing on the card gives way
+    to the plain loop or to the host. On the CPU the chain is the primary,
+    then every other compatible backend in :data:`FALLBACK_ORDER` — so a
+    CPU ``torch`` dispatch of a divisible model may demote to ``oracle``.
+    All entries are bit-identical on the same rows, so demotion is
+    invisible in results and store keys."""
+    from repro_torch.core import backend as bk
+    from repro_torch.device import resolve_device
+    if resolve_device(device).type == "cuda" or primary == "cuda":
+        return [primary]
+    chain = [primary]
+    for name in FALLBACK_ORDER:
+        if name == primary or name not in bk.backend_names():
+            continue
+        if backend_compatible(bk.get_backend(name), model):
+            chain.append(name)
+    return chain
+
+
+# -- salvage dispatch ---------------------------------------------------------
+
+#: Exception classes a dispatch failure must NOT recover from: these are
+#: caller/config errors (a backend that cannot take the model, oversized p,
+#: type errors), where retrying or demoting would only mask the bug.
+NON_RECOVERABLE = (ValueError, TypeError, NotImplementedError, KeyError,
+                   KeyboardInterrupt, SystemExit)
+
+
+def non_recoverable_names() -> tuple:
+    """Class names of :data:`NON_RECOVERABLE`, the single source a lint of
+    ``except`` clauses matches against, so it can never drift from the
+    runtime tuple."""
+    return tuple(e.__name__ for e in NON_RECOVERABLE)
+
+
+@dataclasses.dataclass
+class ResilienceConfig:
+    """Knobs for the broker's self-healing dispatch. ``enabled=False``
+    restores the raise-through behaviour (one attempt, exceptions
+    propagate)."""
+    enabled: bool = True
+    retry: RetryPolicy = dataclasses.field(
+        default_factory=lambda: RetryPolicy(max_attempts=2, base_s=0.02,
+                                            cap_s=0.5, deadline_s=30.0))
+    breaker_failures: int = 3
+    breaker_cooldown_s: float = 5.0
+    salvage: bool = True
+
+    def make_breaker(self, metrics=None) -> CircuitBreaker:
+        return CircuitBreaker(self.breaker_failures, self.breaker_cooldown_s,
+                              metrics=metrics)
+
+
+def dispatch_resilient(call: Callable, rows, budgets, chain: Sequence[str],
+                       *, retry: RetryPolicy, breaker: CircuitBreaker,
+                       metrics: obs.MetricsRegistry,
+                       salvage: bool = True) -> Tuple[object, bool]:
+    """Run ``call(rows, budgets, backend_name, primary: bool)`` with retry,
+    bisection salvage and fallback-chain demotion.
+
+    Returns ``(GridResult, degraded)`` where ``degraded`` is True iff any
+    failure was recovered along the way. Row order is preserved exactly
+    (halves are concatenated back in order), and every backend in ``chain``
+    is bit-identical, so the result is byte-identical to a fault-free
+    dispatch of the same rows on the primary.
+
+    Failure economics: a clean dispatch costs one call. One poisoned row in
+    n costs O(log n) bisection dispatches on the primary plus one fallback
+    dispatch for the poisoned row itself (where the chain has a second
+    entry); the clean complement is counted on ``resilience.salvaged_rows``
+    — rows rescued without recomputing the whole flush. With a chain of
+    one, a row that fails on every attempt raises once bisection has
+    isolated it.
+    """
+    from repro_torch.core import sweep as sw
+
+    def attempt(rows, budgets, ci: int, top: bool) -> Tuple[object, bool]:
+        """(grid, clean) for chain[ci]; clean = no failure in this subtree.
+        ``top`` marks the initial whole-batch attempt; every salvage or
+        fallback sub-dispatch passes False."""
+        name = chain[ci]
+        last = ci == len(chain) - 1
+        if not last and not breaker.allow(name):
+            metrics.counter("resilience.fallbacks").inc()
+            grid, _ = attempt(rows, budgets, ci + 1, False)
+            return grid, False
+        err = None
+        deadline = time.monotonic() + retry.deadline_s
+        for k in range(max(1, retry.max_attempts)):
+            if k:
+                metrics.counter("resilience.retries").inc()
+                metrics.counter("resilience.retries",
+                                {"op": "dispatch"}).inc()
+                time.sleep(retry.sleep_s(k - 1))
+            try:
+                grid = call(rows, budgets, name, top)
+            except NON_RECOVERABLE:
+                raise
+            except Exception as e:          # noqa: BLE001 — recovery layer
+                err = e
+                metrics.counter("resilience.dispatch_failures",
+                                {"backend": name}).inc()
+                breaker.record_failure(
+                    name, weight=(breaker.k_failures
+                                  if isinstance(e, InjectedDeviceLoss)
+                                  else 1))
+                if time.monotonic() >= deadline:
+                    break
+            else:
+                breaker.record_success(name)
+                return grid, err is None
+        n = len(rows)
+        if salvage and n > 1:
+            # Binary bisection: isolate the failing rows instead of
+            # recomputing (or abandoning) the whole dispatch.
+            mid = n // 2
+            bl = br = None
+            if budgets is not None:
+                bl, br = budgets[:mid], budgets[mid:]
+            with obs.span("resilience.salvage", backend=name, n_rows=n):
+                gl, cl = attempt(rows.slice(0, mid), bl, ci, False)
+                gr, cr = attempt(rows.slice(mid, n), br, ci, False)
+            salvaged = (mid if cl else 0) + (n - mid if cr else 0)
+            if salvaged:
+                metrics.counter("resilience.salvaged_rows").inc(salvaged)
+            return sw.concat_grids([gl, gr]), False
+        if not last:
+            metrics.counter("resilience.fallbacks").inc()
+            with obs.span("resilience.fallback", n_rows=n,
+                          src=name, dst=chain[ci + 1]):
+                grid, _ = attempt(rows, budgets, ci + 1, False)
+            return grid, False
+        raise err
+
+    grid, clean = attempt(rows, budgets, 0, True)
+    return grid, not clean
 
 # -- degradation summary ------------------------------------------------------
 

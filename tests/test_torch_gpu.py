@@ -465,3 +465,85 @@ def test_reduced_model_on_the_card_matches_the_cpu():
     np.testing.assert_array_equal(
         decode_batch(mc, pc, reqs, device="cpu"),
         decode_batch(mg, pg, reqs))
+
+
+@pytest.fixture
+def _pinned_zip_clock(monkeypatch):
+    """An npz is a zip, and a zip member carries its time of writing: pin
+    the clock zipfile reads so that equal arrays give equal bytes."""
+    import time
+    import types
+    import zipfile
+    fixed = time.mktime((2020, 1, 1, 0, 0, 0, 0, 0, -1))
+    monkeypatch.setattr(zipfile, "time", types.SimpleNamespace(
+        time=lambda: fixed, localtime=time.localtime))
+
+
+def _capped_queries(svc, backend):
+    """Two queries whose static caps differ (one overflows at 128 events):
+    one relaxed dispatch of 6 rows, padded to 8 with W=1 rows."""
+    kw = dict(W_list=[30_000], reps=3, backend=backend)
+    return [svc.make_query(PT.one_cluster(8, 1), lam_list=[2],
+                           max_events=128, **kw),
+            svc.make_query(PT.one_cluster(8, 1), lam_list=[60],
+                           max_events=1 << 15, **kw)]
+
+
+@pytest.mark.gpu
+def test_relaxed_mixed_caps_and_pow2_padding_on_the_card(tmp_path,
+                                                         _pinned_zip_clock):
+    """Per-row budgets under a relaxed static cap, with pad rows, launched on
+    the card: the same answers and npz bytes as the plain loop on the card."""
+    _need_card()
+    from repro_torch.service import SimulationService
+    before = ws_sim_cuda.launches
+    out = {}
+    for backend in ("cuda", "torch"):
+        svc = SimulationService(root=tmp_path / backend)
+        res = svc.query_many(_capped_queries(svc, backend))
+        log = svc.broker.dispatch_log[0]
+        assert svc.n_dispatches == 1 and log["backend"] == backend
+        assert log["relaxed"] and (log["n_rows"], log["n_padded"]) == (6, 8)
+        assert res[0].grid.overflow.any() and not res[1].grid.overflow.any()
+        out[backend] = res
+    assert ws_sim_cuda.launches == before + 1
+    for a, b in zip(out["cuda"], out["torch"]):
+        assert a.key == b.key
+        for name in (f"{a.key}.npz", f"{a.key}.json"):
+            assert (tmp_path / "cuda" / name).read_bytes() == \
+                (tmp_path / "torch" / name).read_bytes()
+        np.testing.assert_array_equal(a.cells.mean, b.cells.mean)
+
+
+@pytest.mark.gpu
+def test_a_faulted_cuda_dispatch_never_demotes(tmp_path):
+    """On the card the chain is the cuda backend alone: a transient fault is
+    retried there, and a fault on every call raises — nothing runs on the
+    plain loop or on the host oracle."""
+    _need_card()
+    from repro_torch import obs
+    from repro_torch.core import backend as pbk
+    from repro_torch.service import SimulationService
+    from repro_torch.service import resilience as rz
+    others = {n: pbk.get_backend(n).n_run_rows for n in ("torch", "oracle")}
+    cfg = rz.ResilienceConfig(retry=rz.RetryPolicy(max_attempts=2,
+                                                   base_s=0.0, cap_s=0.0))
+    svc = SimulationService(root=tmp_path, resilience=cfg,
+                            metrics=obs.MetricsRegistry())
+    q = _capped_queries(svc, None)[1]
+    assert rz.fallback_chain("cuda", q.model) == ["cuda"]
+    assert rz.fallback_chain("torch", q.model) == ["torch"]
+    transient = rz.FaultPlan(sites={"backend.run_rows": rz.Prob(
+        1.0, max_faults=1, match={"backend": "cuda"})})
+    with rz.fault_plan(transient):
+        r = svc.query_many([q])[0]
+    assert svc.broker.dispatch_log[0]["degraded"]
+    assert svc.broker.dispatch_log[0]["backend"] == "cuda"
+    assert np.isfinite(r.cells.mean).all()
+    always = rz.FaultPlan(sites={"backend.run_rows": rz.Prob(
+        1.0, match={"backend": "cuda"})})
+    q2 = svc.make_query(PT.one_cluster(8, 1), W_list=[20_000], lam_list=[5],
+                        reps=4)
+    with rz.fault_plan(always), pytest.raises(rz.InjectedFault):
+        svc.query_many([q2])
+    assert {n: pbk.get_backend(n).n_run_rows for n in others} == others

@@ -57,7 +57,10 @@ def test_port_has_the_expected_modules():
                  "models/blocks.py", "models/model.py", "models/interop.py",
                  "launch/steps.py", "launch/serve.py", "kernels/ops.py",
                  "kernels/rmsnorm.py", "kernels/flash_attention.py",
-                 "kernels/decode_attention.py"):
+                 "kernels/decode_attention.py", "service/estimator.py",
+                 "service/broker.py", "check/__init__.py",
+                 "check/sanitizer.py", "sched/__init__.py",
+                 "sched/planner.py"):
         assert want in names, want
     for src in ("ws_sim.cu", "ws_sim_core.cuh", "rmsnorm.cu",
                 "flash_attention.cu", "decode_attention.cu",
@@ -103,6 +106,29 @@ print("LEAKED", bad)
 """
 
 
+_CPU_QUERY = """
+import sys, tempfile
+from repro_torch.core import one_cluster
+from repro_torch.sched import plan
+from repro_torch.service import PairedPolicy, SimulationService
+topo = one_cluster(4, 2)
+with tempfile.TemporaryDirectory() as d:
+    svc = SimulationService(root=d, device="cpu")
+    r = svc.query(topo, W_list=[500], lam_list=[2, 5], reps=4)
+    a = svc.make_query(topo, W_list=[500], lam_list=[5], reps=4)
+    b = svc.make_query(topo, W_list=[500], lam_list=[5], reps=4, mwt=True)
+    pr = svc.query_pair(a, b, policy=PairedPolicy(batch_reps=4, min_reps=4,
+                                                  max_reps=8))
+    dec = plan(topo, work_per_group=64, reps=2, service=svc)
+    again = plan(topo, work_per_group=64, reps=2, service=svc)
+assert r.cells.n.tolist() == [4, 4] and pr.paired.n[0] >= 4
+assert dec.n_dispatches > 0 and again.n_dispatches == 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LEAKED", bad)
+"""
+
+
 def _run_port_alone(script: str) -> None:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", script], env=env,
@@ -117,6 +143,10 @@ def test_cpu_sweep_in_a_subprocess_loads_neither_jax_nor_repro():
 
 def test_cpu_serve_in_a_subprocess_loads_neither_jax_nor_repro():
     _run_port_alone(_CPU_SERVE)
+
+
+def test_cpu_query_and_plan_in_a_subprocess_load_neither_jax_nor_repro():
+    _run_port_alone(_CPU_QUERY)
 
 
 def _skip_if_cuda():
@@ -168,16 +198,21 @@ def test_cuda_backend_is_unavailable_and_never_gives_way(tmp_path):
 
 
 def test_no_backend_demotion_in_the_port():
-    """The slice ships fault injection, store retry and the degraded summary
-    only: nothing that would demote a failed kernel launch to the plain loop
-    or to the host."""
+    """Nothing demotes a dispatch on the card: the chain of a dispatch whose
+    tensors lie on a CUDA device is its primary alone, the ``cuda`` backend
+    is never given up, and no backend is picked by cost. Only the host
+    backends may stand in for each other, on the CPU."""
     from repro_torch import obs
     from repro_torch.core import backend as pbk
+    from repro_torch.core import one_cluster
+    from repro_torch.core import sweep as psw
     from repro_torch.kernels import _build
     from repro_torch.service import resilience as rz
-    for name in ("FALLBACK_ORDER", "fallback_chain", "dispatch_resilient",
-                 "CircuitBreaker", "ResilienceConfig"):
-        assert not hasattr(rz, name), name
+    model = psw.resolve_model(one_cluster(4, 2), W_list=[500], lam_list=[2])
+    for name in pbk.backend_names():
+        assert rz.fallback_chain(name, model, "cuda") == [name]
+    assert rz.fallback_chain("cuda", model, "cpu") == ["cuda"]
+    assert "cuda" not in rz.FALLBACK_ORDER
     assert not hasattr(pbk, "cheapest_backend")
     summary = rz.degraded_summary(obs.MetricsRegistry())
     assert summary["degraded"] is False and summary["fallbacks"] == 0
@@ -189,6 +224,36 @@ def test_no_backend_demotion_in_the_port():
     assert not hasattr(_build, "BUILD_DIR_ENV")
     root = Path(_build.__file__).resolve().parents[3]
     assert _build.build_dir() == root / "build" / "repro_torch_kernels"
+
+
+def test_no_silent_cpu_run_of_the_query_path(tmp_path):
+    """Without CUDA and without ``device``, the query path and the planner
+    raise instead of running on the host, and write nothing."""
+    _skip_if_cuda()
+    from repro_torch.core import one_cluster
+    from repro_torch.core import sweep as psw
+    from repro_torch.sched import planner
+    from repro_torch.service import ResultStore, SimulationService
+    from repro_torch.service import resilience as rz
+    from repro_torch.service.broker import QueryBroker
+    topo = one_cluster(4, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SimulationService(root=tmp_path).query(topo, W_list=[500],
+                                               lam_list=[2], reps=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QueryBroker()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QueryBroker(store=ResultStore(root=tmp_path))
+    assert planner._DEFAULT_SERVICE is None
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        planner.default_service()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        planner.plan_for_mesh(2, 32, dcn_delay=200)
+    assert planner._DEFAULT_SERVICE is None
+    model = psw.resolve_model(topo, W_list=[500], lam_list=[2])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rz.fallback_chain("torch", model)
+    assert not list(tmp_path.iterdir())
 
 
 def test_no_silent_cpu_run_of_the_language_model_path():
