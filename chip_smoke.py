@@ -33,7 +33,18 @@ every row held to the sweep's row of the same seed or to the serial twin,
 the planner's queries under injected faults, and ``cuda`` against the plain
 loop on the card at a small size — each with its dispatches, rows per
 dispatch, launches by body, wall with and without the sanitizer's replays,
-kernel time, store writes and device idle share), ``timing`` (one line per body: the kernel
+kernel time, store writes and device idle share), ``paper`` (one line per
+step, each counted on its own: ``benchmarks/paper_torch.py``'s Fig 10 on the
+paper's own grid of 96 cells x 1000 reps through the kernel, with one row of
+every cell held to the numpy oracle; Fig 11, Fig 12 at W=10^8, the steal
+threshold and the multi-cluster scenarios at ``--full``, a few rows each
+held to the oracle; ``examples/quickstart_torch.py``'s traced launch against
+the plain loop and decoded by the log engine, then the rest of the
+quickstart; ``examples/paper_sweep_torch.py``'s task models and backend
+table; the backend matrix with the segmented ``torch`` loop on the card
+equal to ``cuda`` and a run under the sanitizer; ``serve.main(
+["--no-reduced"])`` at full width with the planner's decision, the
+scheduler's stats and the launches), ``timing`` (one line per body: the kernel
 per chunk with ns per event on its longest row and its time before the
 redesign, the path's summed kernel time, its plain version and its bound),
 ``lm_kernels`` (one line
@@ -55,7 +66,9 @@ printed. Needs one CUDA device, no network.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -70,6 +83,8 @@ from contextlib import contextmanager
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# the port's figure benches and examples (benchmarks/, examples/)
+sys.path.insert(1, str(Path(__file__).resolve().parent))
 # One card: the backend would otherwise shard every chunk across all of them.
 os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
 
@@ -90,6 +105,8 @@ from repro_torch.core import oracle as orc  # noqa: E402
 from repro_torch.core import sweep as sw  # noqa: E402
 from repro_torch.core import topology as T  # noqa: E402
 from repro_torch.configs import get_config as get_lm_config  # noqa: E402
+from repro_torch.configs import ws_paper  # noqa: E402
+from repro_torch.core import gantt  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as fd  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -97,6 +114,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ws_sim as ws  # noqa: E402
 from repro_torch.kernels.ref import ws_sim_ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.serve import Request, decode_batch  # noqa: E402
 from repro_torch.launch.steps import (GraphedDecodeStep,  # noqa: E402
                                      build_prefill_step)
@@ -106,6 +124,9 @@ from repro_torch.sched import plan_for_mesh  # noqa: E402
 from repro_torch.service import SimulationService  # noqa: E402
 from repro_torch.service import resilience as rz  # noqa: E402
 from repro_torch.service.estimator import fixed_reps_for_width  # noqa: E402
+from benchmarks import paper_torch as pt  # noqa: E402
+from examples import paper_sweep_torch as ps  # noqa: E402
+from examples import quickstart_torch as qs  # noqa: E402
 
 DEV = "cuda"
 # float32 products in full float32 (these are PyTorch's defaults for a matrix
@@ -1383,6 +1404,295 @@ def time_body(path: str, main: dict, reps: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase paper: the paper's §4 experiments through the kernel, the log engine
+# on a traced launch, the segmented loop, and serve's command line.
+# ---------------------------------------------------------------------------
+
+#: the figure benches at --full (benchmarks/paper_torch.py): 100 reps,
+#: W=10^8 for Fig 12
+FULL_REPS = 100
+
+
+class Cells:
+    """``on_cell`` of a figure bench: keeps each cell's (config, scenario,
+    result) on the card for the oracle rows held after the run."""
+
+    def __init__(self):
+        self.cells = []
+
+    def __call__(self, cfg, scn, res):
+        self.cells.append((cfg, scn, res))
+
+    def events(self) -> int:
+        return int(sum(int(r.n_events.sum(dtype=torch.int64))
+                       for _, _, r in self.cells))
+
+    def hold(self, picks, what: str) -> float:
+        """Row ``k`` of cell ``c`` for each (c, k) of ``picks`` against the
+        serial numpy twin, every field (each row's values fit in int32, where
+        the twin's Python ints and the kernel's int32 agree). Returns the
+        host seconds it took."""
+        t0 = time.perf_counter()
+        for c, k in picks:
+            cfg, scn, res = self.cells[c]
+            model = sw.as_model(cfg)
+            if int(res.total_idle[k]) < 0 or int(res.makespan[k]) < 0:
+                raise AssertionError(f"{what} cell {c} row {k}: int32 wrap")
+            hold_against_oracle(model, scn, res, [k], f"{what} cell {c}",
+                                model.topology.remote_prob)
+        return time.perf_counter() - t0
+
+
+def counted(fn):
+    """``fn()`` with every launch count at 0 just before and read just
+    after, its kernel time (CUDA events around each launch) and its wall.
+    Returns (value, launches by body, kernel ms, wall s)."""
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with KernelClock() as clk:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, dict(ws.ws_sim_cuda.launches_by_body), clk.kernel_ms, wall
+
+
+def quiet(fn):
+    """``fn()`` with its printing captured; returns (value, text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue()
+
+
+def phase_paper() -> dict:
+    """The paper's §4 experiments on the card (module docstring, phase
+    ``paper``). Returns the ``ws_sim`` launches of the phase's counted runs
+    by body."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(BODIES, 0)
+
+    def add(launches):
+        for b, n in launches.items():
+            total[b] += n
+
+    # 1. Fig 10 on the paper's own grid: 96 cells x 1000 reps
+    grid = ws_paper.grid(full=True)
+    cells = Cells()
+    (rows, csv), launches, kms, wall = counted(lambda: quiet(
+        lambda: pt.fig10_overhead_ratio(grid.reps, grid, on_cell=cells)))
+    n_rows = len(cells.cells) * grid.reps
+    if len(rows) != 96 or n_rows != 96_000 or \
+            launches != {**dict.fromkeys(BODIES, 0), BODIES[0]: 96}:
+        raise AssertionError(f"fig10 full grid: {len(rows)} rows, {n_rows} "
+                             f"simulations, launches {launches}")
+    for r in rows:
+        if not all(math.isfinite(r[k]) for k in ("ratio_med", "fit_med")):
+            raise AssertionError(f"fig10 row not finite: {r}")
+    add(launches)
+    events = cells.events()
+    # one row of every cell, a different seed in each
+    oracle_s = cells.hold([(c, c % grid.reps) for c in range(96)], "fig10")
+    say("paper", step="fig10_full_grid", cells=96, reps=grid.reps,
+        rows=n_rows, launches=launches, kernel_ms=kms, wall_seconds=wall,
+        events=events, events_per_second_of_wall=events / wall,
+        rows_per_second_of_wall=n_rows / wall,
+        median_ratio=float(np.median([r["ratio_med"] for r in rows])),
+        paper_ratio="4-5.5",
+        median_fitted_constant=float(np.median([r["fit_med"]
+                                                for r in rows])),
+        paper_fitted_constant=3.8, oracle_rows_equal=96,
+        oracle_seconds=oracle_s, csv=csv.strip(), card=card_line())
+    del cells
+
+    # 2. the other figure benches at --full, a few rows of each held
+    benches = (
+        ("fig11_accept_latency",
+         lambda c: pt.fig11_accept_latency(FULL_REPS, on_cell=c)),
+        ("fig12_mwt_swt",
+         lambda c: pt.fig12_mwt_swt(FULL_REPS, True, on_cell=c)),
+        ("steal_threshold",
+         lambda c: pt.steal_threshold(FULL_REPS, on_cell=c)),
+        ("multicluster", lambda c: pt.multicluster(FULL_REPS, on_cell=c)))
+    for name, bench in benches:
+        cells = Cells()
+        (rows, csv), launches, kms, wall = counted(
+            lambda: quiet(lambda: bench(cells)))
+        n = len(cells.cells)
+        if not rows or launches[BODIES[0]] != n or sum(launches.values()) \
+                != n:
+            raise AssertionError(f"{name}: {n} cells, launches {launches}")
+        add(launches)
+        picks = [(0, 0), (n // 2, FULL_REPS // 2), (n - 1, FULL_REPS - 1)]
+        oracle_s = cells.hold(picks, name)
+        say("paper", step=name, reps=FULL_REPS, cells=n,
+            rows=n * FULL_REPS, launches=launches, kernel_ms=kms,
+            wall_seconds=wall, events=cells.events(),
+            oracle_rows_equal=len(picks), oracle_seconds=oracle_s,
+            csv=csv.strip(), card=card_line())
+        del cells
+
+    # 3. the quickstart: its traced run through the kernel and the log
+    # engine, then the sweep, the two-cluster strategies and the DAG
+    ((res, dec), text), launches, kms, wall = counted(
+        lambda: quiet(lambda: qs.single_run()))
+    if launches != {**dict.fromkeys(BODIES, 0), BODIES[0]: 1}:
+        raise AssertionError(f"quickstart traced run launched {launches}")
+    add(launches)
+    cfg = dv.EngineConfig(topology=T.one_cluster(8, 10), log_trace=True,
+                          max_trace=8192, max_events=1 << 18)
+    scn = dv.batch_scenarios(5000, np.array([42], np.uint32), lam=10,
+                             device=DEV)
+    plain = ws_sim_ref(dv.DivisibleModel(cfg), scn)
+    for f in res._fields:
+        if not torch.equal(getattr(res, f), getattr(plain, f)[0]):
+            raise AssertionError(f"traced launch != plain loop: {f}")
+    makespan = int(res.makespan)
+    executed = res.executed.cpu().numpy()
+    for proc, runs in dec["runs"].items():
+        busy = sum(t1 - t0 for t0, t1 in runs)
+        if not all(0 <= t0 <= t1 <= makespan for t0, t1 in runs) or \
+                busy != executed[proc]:
+            raise AssertionError(f"Gantt of P{proc}: {runs} against "
+                                 f"makespan {makespan}, executed "
+                                 f"{executed[proc]}")
+    gantt_lines = gantt.ascii_gantt(dec["runs"], makespan, width=64)
+    paje = gantt.to_paje(dec["runs"], makespan)
+    rest, rest_launches, rest_kms, rest_wall = counted(lambda: quiet(
+        lambda: (qs.sweep(), qs.two_cluster_strategies(),
+                 qs.dag_application())))
+    if rest_launches != {BODIES[0]: 4, BODIES[1]: 1, BODIES[2]: 0}:
+        raise AssertionError(f"quickstart's sweep, strategies and DAG "
+                             f"launched {rest_launches}")
+    add(rest_launches)
+    say("paper", step="quickstart", makespan=makespan,
+        n_trace=int(res.n_trace), n_events=int(res.n_events),
+        trace_equals_plain_loop=True,
+        run_intervals=sum(len(v) for v in dec["runs"].values()),
+        steal_arrows=len(dec["arrows"]),
+        ascii_gantt_lines=len(gantt_lines.splitlines()),
+        paje_lines=len(paje.splitlines()), launches=launches,
+        kernel_ms=kms, wall_seconds=wall,
+        sweep_strategies_dag_launches=rest_launches,
+        sweep_strategies_dag_wall_seconds=rest_wall,
+        dag_makespan=int(rest[0][2].makespan), card=card_line())
+
+    # 4. the paper sweep's all_task_models and execution_backends
+    (grids, _), launches, kms, wall = counted(
+        lambda: quiet(lambda: ps.all_task_models()))
+    if launches != dict.fromkeys(BODIES, 1):
+        raise AssertionError(f"all_task_models launched {launches}")
+    add(launches)
+    (parity, _), be_launches, _, be_wall = counted(
+        lambda: quiet(lambda: ps.execution_backends()))
+    if parity != {"oracle": True, "torch": True, "cuda": True} or \
+            be_launches != {**dict.fromkeys(BODIES, 0), BODIES[0]: 1}:
+        raise AssertionError(f"execution_backends: parity {parity}, "
+                             f"launches {be_launches}")
+    add(be_launches)
+    say("paper", step="paper_sweep", all_task_models_launches=launches,
+        all_task_models_kernel_ms=kms, all_task_models_wall_seconds=wall,
+        cells={k: len(g) for k, g in zip(("divisible", "dag", "adaptive"),
+                                          grids)},
+        execution_backends_parity=parity,
+        execution_backends_launches=be_launches,
+        execution_backends_wall_seconds=be_wall)
+
+    # 5. the segmented loop: backend_matrix (oracle, torch segmented on the
+    # card, cuda), torch == cuda byte for byte, one run under the sanitizer
+    (doc, csv), launches, kms, wall = counted(
+        lambda: quiet(lambda: pt.backend_matrix(16)))
+    by = {r["backend"]: r for r in doc["backends"]}
+    if not all(by[b].get("parity_vs_oracle") for b in
+               ("oracle", "torch", "cuda")) or \
+            launches != {**dict.fromkeys(BODIES, 0), BODIES[0]: 2}:
+        raise AssertionError(f"backend_matrix: {doc}, launches {launches}")
+    add(launches)
+    g = doc["grid"]
+    model = sw.resolve_model(T.one_cluster(g["p"], 1), "divisible",
+                             W_list=[g["W"]], lam_list=g["lams"],
+                             pow2_max_events=True)
+    rows = sw.grid_rows([g["W"]], g["lams"], g["reps"])
+    tg = sw.run_rows(model, rows, backend="torch")
+    seg = bk.get_backend("torch").last_stats
+    cg = sw.run_rows(model, rows, backend="cuda")
+    if seg is None or not pt.grids_equal(tg, cg):
+        raise AssertionError("segmented torch on the card != cuda")
+    os.environ[san.ENV] = "1"
+    san.reset()
+    try:
+        sane = sw.run_rows(model, rows, backend="torch")
+        s = san.summary()
+    finally:
+        del os.environ[san.ENV]
+    if s["violations_total"] or s["n_probes"] < 2 or \
+            not pt.grids_equal(sane, cg):
+        raise AssertionError(f"sanitized segmented run: {s}")
+    say("paper", step="segmented", grid=g, launches=launches,
+        rows_per_second={b: by[b]["rows_per_s"] for b in by
+                         if by[b].get("available")},
+        parity_vs_oracle={b: by[b]["parity_vs_oracle"] for b in by},
+        torch_equals_cuda_bytes=True,
+        segment_stats=by["torch"]["segment_stats"],
+        wasted_frac_convoy=by["torch"]["wasted_frac_convoy"],
+        wasted_frac_actual=by["torch"]["wasted_frac_actual"],
+        sanitizer_violations=s["violations_total"],
+        sanitizer_probes=s["n_probes"], csv=csv.strip().splitlines()[-1],
+        card=card_line())
+
+    # 6. serve's command line at full width: plan, schedule, decode
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run, text = quiet(lambda: serve.main(["--no-reduced"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    planner_launches = dict(ws.ws_sim_cuda.launches_by_body)
+    L = get_lm_config(LM_ARCH).n_layers
+    steps = SERVE_PROMPT + SERVE_NEW
+    lm_counts, lm_variants = lm_counts_since_reset(
+        {"rms_norm": {"row_in_registers": steps * (4 * L + 1)},
+         "flash_decode": {"single": steps * L}},
+        rms_norm=steps * (4 * L + 1), flash_decode=steps * L,
+        **planner_launches)
+    st = run.stats
+    if st.completed != SERVE_REQUESTS or \
+            run.tokens.shape != (SERVE_REQUESTS, SERVE_NEW) or \
+            sum(planner_launches.values()) != run.decision.n_dispatches:
+        raise AssertionError(f"serve.main: {st}, tokens "
+                             f"{run.tokens.shape}, planner launches "
+                             f"{planner_launches} for "
+                             f"{run.decision.n_dispatches} dispatches")
+    add(planner_launches)
+    d = run.decision
+    say("paper", step="serve_main", argv=["--no-reduced"], arch=LM_ARCH,
+        decision=dict(strategy=d.strategy_name, remote_prob=d.remote_prob,
+                      theta_static=d.theta_static, theta_comm=d.theta_comm,
+                      mwt=d.mwt, expected_makespan=d.expected_makespan,
+                      baseline_makespan=d.baseline_makespan,
+                      significant=d.significant,
+                      n_dispatches=d.n_dispatches),
+        planner_launches=planner_launches,
+        scheduler=dict(n_requests=st.n_requests, n_success=st.n_success,
+                       n_fail=st.n_fail,
+                       n_cross_cluster_steals=st.n_cross_cluster_steals,
+                       completed=st.completed, makespan=st.makespan,
+                       idle_time=st.idle_time,
+                       per_group_busy=st.per_group_busy.tolist()),
+        decode_seconds=run.seconds,
+        tokens_per_second=SERVE_REQUESTS * SERVE_NEW / run.seconds,
+        launches=lm_counts, launches_by_variant=lm_variants,
+        wall_seconds=wall, printed=text.strip().splitlines(),
+        card=card_line())
+    for body in BODIES:
+        if not total[body]:
+            raise AssertionError(f"phase paper launched no {body}")
+    seconds = time.perf_counter() - t_phase
+    say("paper", step="done", launches=total, seconds=seconds)
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Language-model serving path: qwen3-1.7b at full width through the kernels
 # rms_norm, flash_attention and flash_decode.
 # ---------------------------------------------------------------------------
@@ -2185,12 +2495,16 @@ def main():
                     for path in MAIN_PATHS}
         # 4b. the query path and the planner, under the sanitizer
         query = phase_query_main_path(Path(tmp) / "query", Path(tmp))
+    # 4c. the paper's experiments, the log engine, the segmented loop and
+    # serve's command line
+    paper = phase_paper()
     # 5. times at a main-path shape
     entries = [time_body(path, main_out[path],
                          reps=5 if path == "divisible" else 3)
                for path in MAIN_PATHS]
     for e in entries:
         e["launches_query_path"] = query["launches"][e["name"]]
+        e["launches_paper_path"] = paper[e["name"]]
     # 6-8. the language-model serving path: its kernels against their plain
     # versions, its two main paths counted, the kernels' times
     phase_lm_kernels()

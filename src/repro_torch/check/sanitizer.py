@@ -1,13 +1,23 @@
 """Opt-in runtime determinism sanitizer.
 
 Enable with ``REPRO_WS_SANITIZE=1`` (or :func:`install` in-process). The
-backend and the broker call :func:`probe` at two sites through the same
-lazy-bridge pattern as fault injection — a disabled probe is one env read
-and a boolean, so production dispatch pays nothing measurable.
+segmented engine, the backend and the broker call :func:`probe` at three
+sites through the same lazy-bridge pattern as fault injection — a disabled
+probe is one env read and a boolean, so production dispatch pays nothing
+measurable.
 
 Probes (each violation increments ``check.violations{pass="sanitizer",
 rule=...}`` in the global metrics registry and lands in a bounded ring
 surfaced by ``SimulationService.stats()["sanitizer"]``):
+
+``engine.segment`` — at every segment boundary of a segmented run
+    (``core/engine.py::SegmentedRun``, bridge ``engine._sanitize``):
+    * ``clock_monotonic``    — per original row, the simulated clock and
+      the event count never decrease across a boundary;
+    * ``segment_budget``     — no row runs more than ``seg_len`` events in
+      one segment;
+    * ``work_conservation``  — divisible model only: executed plus
+      in-flight work equals the row's W.
 
 ``backend.result`` — after every backend dispatch:
     * ``steal_accounting``   — per row, ``n_requests == n_success +
@@ -29,10 +39,6 @@ surfaced by ``SimulationService.stats()["sanitizer"]``):
       ``[1, cap]`` and the resulting straggler predictions stay finite
       and positive (a poisoned EMA silently destroys dispatch ordering,
       which byte-identical fan-back then hides).
-
-The JAX package's third site, ``engine.segment`` (clock monotonicity, the
-segment budget and work conservation at the boundaries of a segmented run),
-has no caller here: the port has no segmented run yet.
 """
 from __future__ import annotations
 
@@ -142,10 +148,70 @@ def probe(site: str, **ctx) -> None:
     if not enabled():
         return
     _STATE.n_probes += 1
-    if site == "backend.result":
+    if site == "engine.segment":
+        _probe_segment(**ctx)
+    elif site == "backend.result":
         _probe_dispatch(**ctx)
     elif site == "broker.observe":
         _probe_bucket(**ctx)
+
+
+# ---------------------------------------------------------------------------
+# engine.segment
+# ---------------------------------------------------------------------------
+
+def _probe_segment(run, fin) -> None:
+    from repro_torch.core import engine as eng
+    from repro_torch.core.divisible import DivisibleModel
+
+    core = run.loop.core
+    t = core.t.cpu().numpy().astype(np.float64)
+    nev = core.n_events.cpu().numpy().astype(np.int64)
+    live = run.idx >= 0
+    rows = run.idx[live]
+
+    prev_t = getattr(run, "_san_prev_t", None)
+    if prev_t is None:
+        # Indexed by *original row id* so compaction cannot shuffle it.
+        prev_t = run._san_prev_t = np.zeros(run.n, np.float64)
+        run._san_prev_ev = np.zeros(run.n, np.int64)
+    prev_ev = run._san_prev_ev
+
+    t_l, ev_l = t[live], nev[live]
+    bad_t = t_l < prev_t[rows]
+    bad_ev = ev_l < prev_ev[rows]
+    over = (ev_l - prev_ev[rows]) > int(run.seg_len)
+    for mask, rule, msg in (
+            (bad_t, "clock_monotonic", "per-lane sim clock decreased"),
+            (bad_ev, "clock_monotonic", "per-lane event count decreased"),
+            (over, "segment_budget",
+             "lane executed more events than seg_len in one segment")):
+        if mask.any():
+            idx = np.flatnonzero(mask)[:4]
+            violation(rule, "engine.segment",
+                      message=f"{msg} across a segment boundary",
+                      rows=[int(rows[i]) for i in idx],
+                      got=[float(t_l[i]) if rule == "clock_monotonic"
+                           else int(ev_l[i]) for i in idx])
+    prev_t[rows] = t_l
+    prev_ev[rows] = ev_l
+
+    if isinstance(run.model, DivisibleModel) and live.any():
+        W = run.loop.scn.W.cpu().numpy().astype(np.int64)
+        executed = core.executed.cpu().numpy().astype(np.int64)
+        state = core.state.cpu().numpy()
+        stolen = core.stolen.cpu().numpy().astype(np.int64)
+        inflight = np.where(state == eng.ANS_FLIGHT, stolen, 0).sum(axis=1)
+        total = executed.sum(axis=1) + inflight
+        mism = live & (total != W)
+        if mism.any():
+            idx = np.flatnonzero(mism)[:4]
+            violation("work_conservation", "engine.segment",
+                      message="executed + in-flight work != spawned W at a "
+                      "segment boundary",
+                      rows=[int(run.idx[i]) for i in idx],
+                      got=[int(total[i]) for i in idx],
+                      want=[int(W[i]) for i in idx])
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,10 @@ three substrates the port ships —
 * ``oracle`` — the serial numpy twin (``repro_torch.core.oracle``): slow,
                dependency-light ground truth, always on the host;
 * ``torch``  — the plain batched PyTorch loop (``engine.simulate_batch``) on
-               whatever device it is given;
+               whatever device it is given; batches of ``seg_min_rows`` rows
+               or more run segmented (``engine.simulate_segmented``: the
+               same loop, finished rows harvested and the batch compacted
+               between segments of events);
 * ``cuda``   — the hand-written Hopper kernel
                (``repro_torch.kernels.ws_sim``): per-scenario state resident
                in shared memory for the whole event loop. Available iff
@@ -46,6 +49,10 @@ from repro_torch.core import sweep as sw
 
 #: Environment override consumed by :func:`default_backend_name`.
 BACKEND_ENV = "REPRO_WS_BACKEND"
+
+#: Segment length override for the torch backend's segmented driver: a
+#: positive int forces that segment length, "0" disables segmentation.
+SEG_LEN_ENV = "REPRO_WS_SEG_LEN"
 
 _fault_point_impl = None
 
@@ -88,6 +95,7 @@ class BackendCapabilities:
     max_events_pow2: bool     # dispatcher should round static caps to pow2
     note: str = ""
     n_devices: int = 1        # local devices run_rows shards rows across
+    segment_len: Optional[int] = None  # preferred event-segment length
 
 
 def _cuda_devices() -> Tuple[torch.device, ...]:
@@ -115,6 +123,7 @@ class ExecutionBackend:
 
     def __init__(self):
         self.n_run_rows = 0     # dispatch counter (test/bench telemetry)
+        self.last_stats = None  # SegmentStats of the last segmented run
 
     def capabilities(self) -> BackendCapabilities:
         raise NotImplementedError
@@ -171,13 +180,20 @@ class ExecutionBackend:
         _fault_point("backend.run_rows", backend=self.name,
                      n_rows=len(rows), row_seeds=np.asarray(rows.seed))
         self.n_run_rows += 1
+        # Reset before (not after) running: last_stats always describes THIS
+        # dispatch, so a monolithic run cannot leak the previous segmented
+        # run's wasted-lane telemetry.
+        self.last_stats = None
         obs.REGISTRY.counter("backend.run_rows",
                              {"backend": self.name}).inc()
         with obs.span("backend.run_rows", backend=self.name,
-                      n_rows=len(rows)):
+                      n_rows=len(rows)) as sp:
             devs = (tuple(torch.device(d) for d in devices)
                     if devices is not None else self.local_devices(dev))
             out = self._run_rows(model, rows, remote_prob, ev_budget, devs)
+            if self.last_stats is not None:
+                sp.set(n_segments=self.last_stats.n_segments,
+                       wasted_frac=round(self.last_stats.wasted_frac, 4))
             # Sanitizer: steal-accounting check + seeded oracle replay of a
             # sampled dispatch (repro_torch.check.sanitizer). No-op when
             # disabled.
@@ -332,19 +348,72 @@ class OracleBackend(ExecutionBackend):
 
 class TorchBackend(ExecutionBackend):
     """The plain batched PyTorch loop, on whatever device it is given. It is
-    the kernel's plain version, and what the CPU tests run."""
+    the kernel's plain version, and what the CPU tests run.
+
+    Batches at or above :attr:`seg_min_rows` run through the segmented
+    driver (``engine.run_segmented_chunks``): the loop is cut into segments
+    with the finished rows harvested and the batch compacted in between, so
+    a batch costs about ``sum(events)`` row-steps instead of ``n_rows x
+    max(events)`` (bit-identical results). ``REPRO_WS_SEG_LEN`` overrides
+    the segment length (0 disables segmentation);
+    :attr:`last_stats` carries the wasted-lane telemetry of the most recent
+    segmented dispatch.
+    """
 
     name = "torch"
+    #: below this batch width, segmentation overhead beats its convoy savings
+    seg_min_rows = 32
 
     def capabilities(self) -> BackendCapabilities:
         return BackendCapabilities(
             name=self.name, available=True, kind="torch",
             devices=("cpu",) + (("cuda",) if _cuda_devices() else ()),
             max_p=1 << 14, max_events_pow2=False,
-            n_devices=max(len(_cuda_devices()), 1))
+            n_devices=max(len(_cuda_devices()), 1),
+            segment_len=eng.default_segment_len(1 << 20))
+
+    def _segment_len(self, model, ev_budget, n: int) -> Optional[int]:
+        env = os.environ.get(SEG_LEN_ENV, "").strip()
+        if env:
+            v = int(env)
+            return v if v > 0 else None
+        if n < self.seg_min_rows:
+            return None
+        return eng.default_segment_len(model.max_events, ev_budget)
 
     def _run_batch(self, model, scn):
         return eng.simulate_batch(model, scn)
+
+    def _run_rows(self, model, rows, remote_prob, ev_budget, devices):
+        n = len(rows)
+        seg_len = self._segment_len(model, ev_budget, n)
+        if seg_len is None or n == 0:
+            return super()._run_rows(model, rows, remote_prob, ev_budget,
+                                     devices)
+        chunks = self._device_chunks(n, devices)
+        budgets = None if ev_budget is None else np.broadcast_to(
+            np.asarray(ev_budget, np.int64), (n,))
+        scns, pieces = [], []
+        for lo, hi, dev in chunks:
+            scn = sw.scenario_from_rows(
+                rows.slice(lo, hi), remote_prob=remote_prob,
+                ev_budget=None if budgets is None else budgets[lo:hi],
+                device=dev)
+            # the INV_DISTANCE table bounds the rows of one batch
+            step = eng.batch_rows(model, hi - lo)
+            for k, part in enumerate(eng.split_rows(scn, step)):
+                scns.append(part)
+                pieces.append(rows.slice(lo + k * step,
+                                         min(lo + (k + 1) * step, hi)))
+        results, stats = eng.run_segmented_chunks(model, scns,
+                                                  seg_len=seg_len)
+        merged = stats[0]
+        for st in stats[1:]:
+            merged = merged.merge(st)
+        self.last_stats = merged
+        return sw.concat_grids(
+            [sw.grid_from_result(model.p, piece, res)
+             for piece, res in zip(pieces, results)])
 
 
 class CudaBackend(ExecutionBackend):

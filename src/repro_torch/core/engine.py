@@ -59,6 +59,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import topology as topo_mod
 from repro_torch.core.topology import Topology
 from repro_torch.device import DeviceLike, resolve_device  # noqa: F401
@@ -541,26 +542,56 @@ def static_tables(model: TaskModel, scn: Scenario) -> StaticTables:
                         model.static_arrays(dev))
 
 
-def run_loop(model: TaskModel, scn: Scenario):
-    """The batched event loop over ``[G]`` scenario leaves (see the module
-    docstring); returns the model's result NamedTuple with a leading G axis.
-    """
-    p = model.p
+class Loop(NamedTuple):
+    """The state of a batched event loop between steps: everything a row of
+    the batch owns (``scn``, ``core``, ``ms``, ``budget`` and the per-row
+    table ``tabs.inv_cum``) has a leading G axis."""
+    tabs: StaticTables
+    scn: Scenario
+    core: CoreState
+    ms: tuple
+    budget: torch.Tensor    # int32[G] min(scenario budget, model cap)
+
+
+def start_loop(model: TaskModel, scn: Scenario) -> Loop:
+    """A fresh loop over the ``[G]`` scenario leaves."""
     tabs = static_tables(model, scn)
     core = init_core(model, scn)
     ms = model.init(scn, core)
-
     # Per-row event budget: the static model cap bounds every row, the
     # scenario budget truncates each row on its own.
     budget = torch.clamp(scn.max_events, max=int(min(model.max_events,
                                                      int(INF32))))
+    return Loop(tabs, scn, core, ms, budget)
+
+
+def finished(loop: Loop) -> torch.Tensor:
+    """bool[G]: the rows that will run no further event."""
+    c = loop.core
+    return c.done | (c.n_events >= loop.budget) | c.halt
+
+
+def advance(model: TaskModel, loop: Loop, max_steps: Optional[int] = None
+            ) -> int:
+    """Run the loop's rows until each is finished or, with ``max_steps``,
+    has run that many further events; returns the steps taken (the batch's
+    iterations, which is the most events a row ran).
+
+    A step takes each row's argmin event and applies *all three* handlers,
+    each under the mask of the rows whose event is of its kind; a row outside
+    the live mask changes no leaf. Every live row runs one event a step, so
+    a per-row segment budget of ``max_steps`` is the step count itself.
+    """
+    p = model.p
+    tabs, scn, core, ms = loop.tabs, loop.scn, loop.core, loop.ms
     lane = tabs.lane.unsqueeze(0)
     lane64 = lane.to(I64)
-
-    while True:
-        live = ~core.done & (core.n_events < budget) & ~core.halt
+    steps = 0
+    while max_steps is None or steps < max_steps:
+        live = ~finished(loop)
         if not bool(live.any()):
             break
+        steps += 1
         # Lexicographic (time, lane) minimum: ties break to the lowest lane
         # whatever the device's argmin does. Exact for every int32 time and
         # p <= 2**31.
@@ -581,8 +612,16 @@ def run_loop(model: TaskModel, scn: Scenario):
                                 live & (st == ANS_FLIGHT))
         start_stealing(model, tabs, scn, core, ev, steal | retry)
         model.on_steal(core, ms, ev, retry)
+    return steps
 
-    return model.results(core, ms)
+
+def run_loop(model: TaskModel, scn: Scenario):
+    """The batched event loop over ``[G]`` scenario leaves (see the module
+    docstring); returns the model's result NamedTuple with a leading G axis.
+    """
+    loop = start_loop(model, scn)
+    advance(model, loop)
+    return model.results(loop.core, loop.ms)
 
 
 #: ``inv_distance_table`` holds G * p * p floats; batches are split so that it
@@ -590,21 +629,266 @@ def run_loop(model: TaskModel, scn: Scenario):
 _INV_TABLE_MAX_ELEMS = 1 << 26
 
 
+def batch_rows(model: TaskModel, G: int) -> int:
+    """The most rows of one loop: ``G``, or fewer where the INV_DISTANCE
+    table would pass :data:`_INV_TABLE_MAX_ELEMS`."""
+    if model.topology.strategy == topo_mod.INV_DISTANCE:
+        return min(G, max(1, _INV_TABLE_MAX_ELEMS // (model.p * model.p)))
+    return G
+
+
+def split_rows(scn: Scenario, rows: int) -> list:
+    """``scn`` cut into consecutive batches of at most ``rows`` rows."""
+    G = int(scn.W.shape[0])
+    return [Scenario(*(x[lo:lo + rows] for x in scn))
+            for lo in range(0, G, rows)]
+
+
+def cat_results(parts: list):
+    """One result NamedTuple from several, concatenated along the rows."""
+    return type(parts[0])(*(torch.cat(leaves) for leaves in zip(*parts)))
+
+
 def simulate_batch(model: TaskModel, scn: Scenario):
     """Run a batch: every leaf of ``scn`` has a leading batch axis. Runs on
     the device the scenario's tensors lie on."""
     G = int(scn.W.shape[0])
-    rows = G
-    if model.topology.strategy == topo_mod.INV_DISTANCE:
-        rows = max(1, _INV_TABLE_MAX_ELEMS // (model.p * model.p))
+    rows = batch_rows(model, G)
     if G <= rows:
         return run_loop(model, scn)
-    parts = [run_loop(model, Scenario(*(x[lo:lo + rows] for x in scn)))
-             for lo in range(0, G, rows)]
-    return type(parts[0])(*(torch.cat(leaves) for leaves in zip(*parts)))
+    return cat_results([run_loop(model, part)
+                        for part in split_rows(scn, rows)])
 
 
 def simulate(model: TaskModel, scn: Scenario):
     """Run one simulation: every leaf of ``scn`` is 0-d."""
     res = simulate_batch(model, Scenario(*(x.reshape(1) for x in scn)))
     return type(res)(*(x[0] for x in res))
+
+
+# ---------------------------------------------------------------------------
+# Segmented execution: the same event loop (:func:`advance`), cut into
+# segments of at most ``seg_len`` events a row, with the finished rows
+# harvested between segments and the batch compacted to a power of two.
+#
+# The plain loop steps every row of its batch until the last row is done, so
+# a batch costs n_rows x max(events) row-steps instead of sum(events). Between
+# segments the host takes the finished rows out and gathers the survivors
+# into a smaller batch. Each row's event sequence is untouched (the step is
+# :func:`advance`'s, and rows are independent), so the results are
+# bit-identical to :func:`simulate_batch` and the statistics
+# (:class:`SegmentStats`) equal the JAX package's segmented driver's on the
+# same rows and segment length.
+# ---------------------------------------------------------------------------
+
+
+def _pow2ceil(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length() if n > 1 else 1
+
+
+def default_segment_len(max_events: int, ev_budget=None) -> int:
+    """Segment length for the segmented driver, derived from the static
+    model cap and (when present) the per-row event budgets: small caps run
+    as a single exact segment, large caps use short segments so finished
+    lanes are harvested (and the batch compacted) long before the stragglers
+    finish."""
+    base = int(max_events)
+    if ev_budget is not None:
+        b = np.asarray(ev_budget, np.int64)
+        pos = b[b > 0]
+        if pos.size:
+            base = int(min(base, int(pos.min())))
+    return int(max(32, min(128, _pow2ceil(base))))
+
+
+@dataclasses.dataclass
+class SegmentStats:
+    """Telemetry of one segmented run (the wasted-lane accounting the
+    backend-matrix bench reports)."""
+    n_segments: int = 0
+    n_compactions: int = 0
+    lane_cycles: int = 0      # sum over segments of batch_width * iterations
+    events_executed: int = 0  # useful events actually run
+    max_width: int = 0
+    final_width: int = 0
+
+    @property
+    def wasted_frac(self) -> float:
+        """Fraction of lane-iterations spent on finished/padded lanes."""
+        if self.lane_cycles <= 0:
+            return 0.0
+        return 1.0 - self.events_executed / self.lane_cycles
+
+    def merge(self, other: "SegmentStats") -> "SegmentStats":
+        return SegmentStats(
+            n_segments=self.n_segments + other.n_segments,
+            n_compactions=self.n_compactions + other.n_compactions,
+            lane_cycles=self.lane_cycles + other.lane_cycles,
+            events_executed=self.events_executed + other.events_executed,
+            max_width=max(self.max_width, other.max_width),
+            final_width=max(self.final_width, other.final_width))
+
+
+_sanitize_impl = None
+
+
+def _sanitize(site: str, **ctx):
+    """Lazy bridge to the opt-in determinism sanitizer
+    (``repro_torch.check.sanitizer.probe``), the same shape as the bridges in
+    ``core/backend.py``: core never imports the checker at module level, and
+    a disabled probe costs one env read per segment."""
+    global _sanitize_impl
+    if _sanitize_impl is None:
+        from repro_torch.check.sanitizer import probe
+        _sanitize_impl = probe
+    return _sanitize_impl(site, **ctx)
+
+
+def _gather_loop(loop: Loop, gidx: torch.Tensor, n_real: int) -> Loop:
+    """Rows ``gidx`` of every per-row leaf of the loop (the scenario, the
+    core and model state, the budgets, the INV_DISTANCE table), in one
+    gather each; positions >= ``n_real`` are padding (copies of a row) and
+    are marked done, so they never run another event."""
+    def take(x):
+        return x.index_select(0, gidx)
+
+    core = CoreState(*(take(x) for x in loop.core))
+    core.done[n_real:] = True
+    tabs = loop.tabs
+    if tabs.inv_cum is not None:
+        tabs = tabs._replace(inv_cum=take(tabs.inv_cum))
+    return Loop(tabs, Scenario(*(take(x) for x in loop.scn)), core,
+                type(loop.ms)(*(take(x) for x in loop.ms)),
+                take(loop.budget))
+
+
+class SegmentedRun:
+    """Host-side driver of one segmented batched simulation, on the device
+    of its scenario.
+
+    ``step()`` runs one segment and harvests the rows it finished; when the
+    count of survivors drops to half a power of two below the current batch
+    width, the batch is compacted (gathered into a dense pow2 prefix, the
+    padding rows marked done). Drive to completion with
+    :func:`simulate_segmented`, or interleave several runs via
+    :func:`run_segmented_chunks`. ``loop`` is the live batch, ``idx`` its
+    rows' original positions (-1: harvested or padding).
+    """
+
+    def __init__(self, model: TaskModel, scn: Scenario,
+                 seg_len: Optional[int] = None):
+        n = int(scn.W.shape[0])
+        if n == 0:
+            raise ValueError("segmented run needs at least one scenario row")
+        if seg_len is None:
+            seg_len = default_segment_len(model.max_events)
+        self.model = model
+        self.seg_len = int(seg_len)
+        self.loop = start_loop(model, scn)
+        self.idx = np.arange(n)
+        self.n = n
+        self._parts: list = []
+        self._part_idx: list = []
+        self.stats = SegmentStats(max_width=n, final_width=n)
+        self.done = False
+
+    def step(self):
+        """Run one segment; harvest finished rows; maybe compact.
+
+        A segment boundary is where the engine's span (``engine.segment``)
+        and metrics land."""
+        if self.done:
+            return
+        with obs.span("engine.segment", width=len(self.idx),
+                      seg_len=self.seg_len) as sp:
+            self._step(sp)
+        m = obs.REGISTRY
+        m.counter("engine.segments").inc()
+        if self.done:
+            m.counter("engine.lane_cycles").inc(self.stats.lane_cycles)
+            m.counter("engine.events_executed").inc(
+                self.stats.events_executed)
+            m.gauge("engine.wasted_frac").set(
+                round(self.stats.wasted_frac, 4))
+
+    def _step(self, sp):
+        loop = self.loop
+        before = loop.core.n_events.clone()
+        k_max = advance(self.model, loop, self.seg_len)
+        fin_d = finished(loop)
+        k_sum = (loop.core.n_events - before).sum(dtype=I64)
+        # the one read of a segment: the finished mask and the events run
+        host = torch.cat([fin_d.to(I64), k_sum.view(1)]).cpu().numpy()
+        fin = host[:-1].astype(bool)
+        width = fin.shape[0]
+        self.stats.n_segments += 1
+        self.stats.lane_cycles += width * k_max
+        self.stats.events_executed += int(host[-1])
+        # Sanitizer tick: idx still maps every lane to its original row
+        # (harvest below rewrites it), the state is post-segment: the
+        # boundary the monotonicity/conservation invariants quantify over.
+        _sanitize("engine.segment", run=self, fin=fin)
+        real = self.idx >= 0
+        newly = fin & real
+        if newly.any():
+            res = self.model.results(loop.core, loop.ms)
+            pick = torch.as_tensor(newly, device=fin_d.device)
+            self._parts.append(type(res)(*(x[pick] for x in res)))
+            self._part_idx.append(self.idx[newly])
+            self.idx = np.where(newly, -1, self.idx)
+            real = self.idx >= 0
+        sp.set(n_finished=int(newly.sum()))
+        k = int(real.sum())
+        if k == 0:
+            self.done = True
+            return
+        new_width = _pow2ceil(k)
+        if new_width <= width // 2:
+            keep = np.flatnonzero(real)
+            gidx = np.concatenate([keep, np.zeros(new_width - k, np.int64)])
+            self.loop = _gather_loop(
+                loop, torch.as_tensor(gidx, device=fin_d.device), k)
+            self.idx = np.concatenate(
+                [self.idx[keep], np.full(new_width - k, -1)])
+            self.stats.n_compactions += 1
+            self.stats.final_width = new_width
+            sp.set(compacted_to=new_width)
+            obs.REGISTRY.counter("engine.compactions").inc()
+
+    def result(self):
+        """The model's result NamedTuple, rows in their original order, on
+        the scenario's device."""
+        if not self.done:
+            raise RuntimeError("segmented run not finished; call step()")
+        order = np.argsort(np.concatenate(self._part_idx), kind="stable")
+        res = cat_results(self._parts)
+        pick = torch.as_tensor(order, device=res.makespan.device)
+        return type(res)(*(x[pick] for x in res))
+
+
+def simulate_segmented(model: TaskModel, scn: Scenario,
+                       seg_len: Optional[int] = None):
+    """Segmented batched simulation -> (results, :class:`SegmentStats`).
+
+    Bit-identical to :func:`simulate_batch` on the same scenario batch
+    (``tests/test_torch_segmented.py`` holds both, and the statistics, to the
+    JAX package's ``simulate_segmented``)."""
+    run = SegmentedRun(model, scn, seg_len=seg_len)
+    while not run.done:
+        run.step()
+    return run.result(), run.stats
+
+
+def run_segmented_chunks(model: TaskModel, scns, seg_len: Optional[int] = None):
+    """Drive one :class:`SegmentedRun` per scenario chunk (each on the device
+    its tensors lie on) with round-robin stepping, so each device's next
+    segment is issued while the others still compute. Returns (results
+    list, stats list)."""
+    runs = [SegmentedRun(model, s, seg_len=seg_len) for s in scns]
+    while True:
+        live = [r for r in runs if not r.done]
+        if not live:
+            break
+        for r in live:
+            r.step()
+    return [r.result() for r in runs], [r.stats for r in runs]

@@ -1,22 +1,34 @@
-"""Serving: batched prefill + greedy decode of same-length requests.
+"""Serving driver: batched prefill + greedy decode with the work-stealing
+request scheduler (the paper's algorithm on the serving plane).
 
-The JAX package's ``serve.main()`` first plans the stealing policy by
-simulating the fleet (``sched/planner.py``) and schedules the requests with
-``sched/ws_scheduler.py``; that command line comes with the query-path slice.
-This module holds the part that runs the model: :class:`Request` and
-:func:`decode_batch`. On the card every step of the call (prefill's and
+:func:`main` first plans the stealing policy by simulating the fleet
+(``sched/planner.py``: the ``ws_sim`` kernel on the card), schedules the
+requests with ``sched/ws_scheduler.py`` (everything lands on group 0 and
+idle groups steal), then runs the model on them with :func:`decode_batch`.
+On the card every step of a :func:`decode_batch` call (prefill's and
 decode's) after the first is a replay of one CUDA graph
 (``launch/steps.py::GraphedDecodeStep``); on the CPU the steps run eagerly.
+
+  python -m repro_torch.launch.serve --no-reduced      # full width, card
+  python -m repro_torch.launch.serve --requests 24      # reduced config
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
-from typing import List
+import time
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import get_config, list_archs
+from repro_torch.core.topology import tpu_fleet
 from repro_torch.launch.steps import GraphedDecodeStep, check_model_device
+from repro_torch.models import build_model
+from repro_torch.sched.planner import PlannerDecision, plan_for_mesh
+from repro_torch.sched.ws_scheduler import (SchedulerStats, WorkItem,
+                                            WorkStealingScheduler)
 
 
 @dataclasses.dataclass
@@ -61,3 +73,85 @@ def decode_batch(model, params, reqs: List[Request],
 #: the graph of the last call on the card (``GraphedDecodeStep.stats()``:
 #: warm-up and capture seconds, replays, launches a replay); None on the CPU
 decode_batch.last_graph = None
+
+
+class ServeRun(NamedTuple):
+    """What :func:`main` did: the planner's decision, the scheduler's stats,
+    the generated tokens (requests, max_new) and the decode's wall seconds."""
+    decision: PlannerDecision
+    stats: SchedulerStats
+    tokens: np.ndarray
+    seconds: float
+
+
+def main(argv: Optional[Sequence[str]] = None) -> ServeRun:
+    """The command line (``argv``: its arguments, default ``sys.argv``).
+    Runs on the card. ``--reduced`` (the default, as in the JAX package)
+    serves the reduced config; ``--no-reduced`` serves the full one."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-1.7b", choices=list_archs())
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True)
+    ap.add_argument("--requests", type=int, default=24)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--groups", type=int, default=4)
+    ap.add_argument("--pods", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch).reduced() if args.reduced \
+        else get_config(args.arch)
+    model = build_model(cfg)
+    params = model.init_params(
+        torch.Generator(device=model.device).manual_seed(args.seed))
+    print(f"serving {cfg.name} ({model.param_count():,} params), "
+          f"{args.groups * args.pods} logical groups on {args.pods} pods")
+
+    # 1) plan the stealing policy by simulating the fleet topology
+    decision = plan_for_mesh(n_pods=args.pods, chips_per_pod=args.groups * 8,
+                             dcn_delay=40, work_per_group=args.prompt_len * 64,
+                             reps=8)
+    print(f"planner: strategy={decision.strategy_name} "
+          f"theta=({decision.theta_static},{decision.theta_comm}) "
+          f"mwt={decision.mwt} expected_makespan={decision.expected_makespan:.0f} "
+          f"(uniform baseline {decision.baseline_makespan:.0f})")
+
+    # 2) schedule requests with the planned policy
+    topo = tpu_fleet(args.pods, args.groups, ici_delay=1, dcn_delay=40) \
+        .with_strategy(decision.strategy, remote_prob=decision.remote_prob)
+    sched = WorkStealingScheduler(topo, mwt=decision.mwt,
+                                  theta_static=decision.theta_static,
+                                  theta_comm=decision.theta_comm,
+                                  seed=args.seed + 1)
+    rng = np.random.default_rng(args.seed)
+    reqs = [Request(uid=i,
+                    prompt=rng.integers(1, cfg.vocab_size,
+                                        args.prompt_len).astype(np.int32),
+                    max_new=args.max_new)
+            for i in range(args.requests)]
+    # skewed arrival: everything lands on group 0 (paper's W-on-one-processor)
+    for r in reqs:
+        sched.submit(0, WorkItem(uid=r.uid, cost=float(args.prompt_len
+                                                       + r.max_new)))
+    stats = sched.run()
+    print(f"scheduler: completed={stats.completed} steals ok/fail="
+          f"{stats.n_success}/{stats.n_fail} cross-pod="
+          f"{stats.n_cross_cluster_steals} makespan={stats.makespan:.0f} "
+          f"busy-std={np.std(stats.per_group_busy):.1f}")
+    if stats.completed != args.requests:
+        raise RuntimeError(f"the scheduler completed {stats.completed} of "
+                           f"{args.requests} requests")
+
+    # 3) run the actual model on the requests (single physical replica here)
+    t0 = time.time()
+    out = decode_batch(model, params, reqs)
+    dt = time.time() - t0
+    tput = args.requests * args.max_new / dt
+    print(f"decoded {out.shape} tokens in {dt:.2f}s ({tput:.1f} tok/s) "
+          f"sample={out[0][:6].tolist()}")
+    return ServeRun(decision, stats, out, dt)
+
+
+if __name__ == "__main__":
+    main()

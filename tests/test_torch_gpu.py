@@ -547,3 +547,100 @@ def test_a_faulted_cuda_dispatch_never_demotes(tmp_path):
     with rz.fault_plan(always), pytest.raises(rz.InjectedFault):
         svc.query_many([q2])
     assert {n: pbk.get_backend(n).n_run_rows for n in others} == others
+
+
+def _port_script(rel: str):
+    """A module of the port that lives outside the package (the examples
+    and the figure benches)."""
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        return importlib.import_module(rel)
+    finally:
+        sys.path.remove(str(root))
+
+
+@pytest.mark.gpu
+def test_a_traced_launch_decodes_like_the_plain_loop():
+    """The quickstart's traced run through the kernel, and a trace cut at
+    ``max_trace``: the kernel's trace, ``n_trace`` and every export of the
+    log engine equal the plain loop's on the card."""
+    _need_card()
+    from repro_torch.core import gantt
+    qs = _port_script("examples.quickstart_torch")
+    res, dec = qs.single_run()
+    assert res.trace.is_cuda
+    for max_trace in (8192, 64):
+        cfg = pdv.EngineConfig(topology=PT.one_cluster(8, 10),
+                               log_trace=True, max_trace=max_trace,
+                               max_events=1 << 18)
+        scn = pdv.batch_scenarios(5000, np.array([42], np.uint32), lam=10,
+                                  device="cuda")
+        got = _launch_and_hold(cfg, scn, "ws_sim_divisible",
+                               f"max_trace={max_trace}")
+        plain = ref.ws_sim_ref(cfg, scn)
+        row = [type(r)(*(x[0] for x in r)) for r in (got, plain)]
+        exports = []
+        for r in row:
+            ms = int(r.makespan)
+            d = gantt.decode_trace(r.trace, r.n_trace, 8, 5000, ms)
+            exports.append((d, gantt.ascii_gantt(d["runs"], ms),
+                            gantt.to_paje(d["runs"], ms),
+                            gantt.to_json(r, 8, 5000),
+                            gantt.to_chrome_events(d, ms)))
+        assert exports[0] == exports[1]
+        if max_trace == 8192:
+            assert exports[0][0] == dec
+        else:
+            assert int(row[0].n_trace) == 64
+
+
+@pytest.mark.gpu
+def test_segmented_torch_on_the_card_equals_cuda():
+    """The backend matrix's 66-row grid: the torch backend, segmented on the
+    card, gives the ``cuda`` kernel's grid, every column."""
+    _need_card()
+    from repro_torch.core import backend as bk
+    from repro_torch.core import sweep as sw
+    pt = _port_script("benchmarks.paper_torch")
+    rows = sw.grid_rows([30_000], (2, 6, 20), 22)
+    model = sw.resolve_model(PT.one_cluster(16, 1), "divisible",
+                             W_list=[30_000], lam_list=(2, 6, 20),
+                             pow2_max_events=True)
+    tg = sw.run_rows(model, rows, backend="torch")
+    st = bk.get_backend("torch").last_stats
+    cg = sw.run_rows(model, rows, backend="cuda")
+    assert bk.get_backend("cuda").last_stats is None
+    assert len(rows) == 66 and pt.grids_equal(tg, cg)
+    assert st.n_segments > 1 and st.n_compactions >= 1
+    assert st.events_executed == int(cg.extras["n_events"].sum())
+
+
+@pytest.mark.gpu
+def test_a_figure_bench_on_the_card_equals_the_oracle():
+    """Fig 10 on a small grid through the kernel: every row of every cell
+    equals the numpy oracle's, and its rows equal the bench's on the plain
+    loop."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import ws_paper
+    from repro_torch.core import oracle as orc
+    pt = _port_script("benchmarks.paper_torch")
+    grid = ws_paper.PaperGrid(W_list=(10**4, 10**5), p_list=(32, 64),
+                              lam_list=(2, 262), reps=4)
+    cells = []
+    rows = pt.fig10_overhead_ratio(4, grid,
+                                   on_cell=lambda *c: cells.append(c))
+    assert len(cells) == 8
+    for cfg, scn, res in cells:
+        for k in range(4):
+            o = dataclasses.asdict(orc.simulate_oracle(
+                cfg.topology, int(scn.W[k]), seed=int(scn.seed[k]),
+                lam_local=int(scn.lam_local[k]),
+                lam_remote=int(scn.lam_remote[k]),
+                max_events=cfg.max_events))
+            for f, v in o.items():
+                np.testing.assert_array_equal(
+                    np.asarray(v), getattr(res, f)[k].cpu().numpy(),
+                    err_msg=f)
+    assert rows == pt.fig10_overhead_ratio(4, grid, device="cpu")

@@ -1,6 +1,7 @@
-"""Guards of the port's boundary: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor the JAX package, and no entry point carries on on the CPU
-unless it was asked to."""
+"""Guards of the port's boundary: ``repro_torch``, ``chip_smoke.py``, the
+port's examples (``examples/*_torch.py``) and its figure benches
+(``benchmarks/paper_torch.py``) import neither ``jax`` nor the JAX package,
+and no entry point carries on on the CPU unless it was asked to."""
 import ast
 import os
 import subprocess
@@ -12,8 +13,10 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+PACKAGE_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+PORT_FILES = PACKAGE_FILES + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "examples").glob("*_torch.py")) \
+    + [ROOT / "benchmarks" / "paper_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
 
 
@@ -45,7 +48,7 @@ def test_no_import_of_jax_or_the_jax_package(path):
 
 def test_port_has_the_expected_modules():
     names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
-             for p in PORT_FILES[:-1]}
+             for p in PACKAGE_FILES}
     for want in ("core/engine.py", "core/divisible.py", "core/dag.py",
                  "core/dag_gen.py", "core/adaptive.py", "core/oracle.py",
                  "core/interop.py", "core/sweep.py", "core/backend.py",
@@ -60,8 +63,14 @@ def test_port_has_the_expected_modules():
                  "kernels/decode_attention.py", "service/estimator.py",
                  "service/broker.py", "check/__init__.py",
                  "check/sanitizer.py", "sched/__init__.py",
-                 "sched/planner.py"):
+                 "sched/planner.py", "sched/ws_scheduler.py",
+                 "core/analysis.py", "core/gantt.py",
+                 "configs/ws_paper.py"):
         assert want in names, want
+    for other in ("examples/quickstart_torch.py",
+                  "examples/paper_sweep_torch.py",
+                  "benchmarks/paper_torch.py"):
+        assert ROOT / other in PORT_FILES, other
     for src in ("ws_sim.cu", "ws_sim_core.cuh", "rmsnorm.cu",
                 "flash_attention.cu", "decode_attention.cu",
                 "lm_common.cuh"):
@@ -129,9 +138,38 @@ print("LEAKED", bad)
 """
 
 
-def _run_port_alone(script: str) -> None:
+_CPU_PAPER = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from benchmarks import paper_torch as pt
+from examples import quickstart_torch as qs
+from repro_torch.configs import ws_paper
+from repro_torch.core import analysis, gantt, one_cluster
+from repro_torch.core import engine, sweep
+from repro_torch.sched import WorkItem, WorkStealingScheduler
+res, dec = qs.single_run(device="cpu")
+assert gantt.to_paje(dec["runs"], int(res.makespan)).startswith("%EventDef")
+rows = pt.fig10_overhead_ratio(
+    2, ws_paper.PaperGrid((2000,), (4,), (2,), 2), device="cpu")
+assert len(rows) == 1 and np.isfinite(rows[0]["ratio_med"])
+model = sweep.resolve_model(one_cluster(4, 2), W_list=[900], lam_list=[2])
+scn = sweep.scenario_from_rows(sweep.grid_rows([900], [2], 8), device="cpu")
+_, st = engine.simulate_segmented(model, scn, seg_len=32)
+assert st.n_segments > 1
+s = WorkStealingScheduler(one_cluster(4, 2))
+for i in range(8):
+    s.submit(0, WorkItem(i, 3.0))
+assert s.run().completed == 8
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LEAKED", bad)
+"""
+
+
+def _run_port_alone(script: str, *args: str) -> None:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", script], env=env,
+    out = subprocess.run([sys.executable, "-c", script, *args], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LEAKED []" in out.stdout, out.stdout
@@ -147,6 +185,12 @@ def test_cpu_serve_in_a_subprocess_loads_neither_jax_nor_repro():
 
 def test_cpu_query_and_plan_in_a_subprocess_load_neither_jax_nor_repro():
     _run_port_alone(_CPU_QUERY)
+
+
+def test_cpu_paper_surface_in_a_subprocess_loads_neither_jax_nor_repro():
+    """The traced quickstart run, a figure bench, the segmented loop and the
+    host scheduler on the CPU."""
+    _run_port_alone(_CPU_PAPER, str(ROOT))
 
 
 def _skip_if_cuda():
@@ -254,6 +298,33 @@ def test_no_silent_cpu_run_of_the_query_path(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         rz.fallback_chain("torch", model)
     assert not list(tmp_path.iterdir())
+
+
+def test_no_silent_cpu_run_of_the_paper_surface():
+    """The figure benches, the examples and serve's command line raise
+    without a CUDA device unless given ``device="cpu"``."""
+    _skip_if_cuda()
+    sys.path.insert(0, str(ROOT))
+    try:
+        from benchmarks import paper_torch as pt
+        from examples import paper_sweep_torch as ps
+        from examples import quickstart_torch as qs
+    finally:
+        sys.path.remove(str(ROOT))
+    from repro_torch.launch import serve
+    for call in (lambda: pt.fig10_overhead_ratio(2),
+                 lambda: pt.fig11_accept_latency(2),
+                 lambda: pt.fig12_mwt_swt(2, False),
+                 lambda: pt.steal_threshold(2),
+                 lambda: pt.multicluster(2),
+                 lambda: pt.backend_matrix(2),
+                 lambda: qs.single_run(), lambda: qs.sweep(),
+                 lambda: ps.acceptable_latency(2),
+                 lambda: ps.all_task_models(2),
+                 lambda: ps.execution_backends(2),
+                 lambda: serve.main([])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_no_silent_cpu_run_of_the_language_model_path():

@@ -21,6 +21,7 @@ from repro.service import PairedQuery as JPairedQuery
 from repro.service import QuantilePolicy as JQuantilePolicy
 from repro.service import SimulationService as JaxService
 from repro.service import model_digest as j_model_digest
+from repro_torch import obs
 from repro_torch.service import PairedPolicy, PairedQuery, QuantilePolicy
 from repro_torch.service import SimulationService as PortService
 from repro_torch.service import model_digest
@@ -348,7 +349,10 @@ def test_store_filled_by_one_package_answers_the_other(filler, tmp_path,
 
 
 def test_stats_carries_the_broker_keys(tmp_path):
-    ps = PortService(root=tmp_path, device="cpu")
+    # a registry of its own: "degraded" counts every fault the registry has
+    # seen, and the process-wide one also holds earlier tests' faults
+    ps = PortService(root=tmp_path, device="cpu",
+                     metrics=obs.MetricsRegistry())
     ps.query(PTOPO, W_list=[2000], lam_list=[2], reps=2)
     ps.query(PTOPO, W_list=[2000], lam_list=[2], reps=2)
     st = ps.stats()

@@ -236,3 +236,55 @@ def test_findings_fingerprint_like_the_jax_packages():
 def test_the_pass_runs_clean_on_the_cpu():
     assert sz.run(device="cpu") == []
     assert not sz.summary()["enabled"]          # the pass restores the state
+
+
+def _tamper(run, how):
+    """Corrupt a segmented run's state between two segments, the way the
+    JAX package's sanitizer tests do (``tests/test_check.py``)."""
+    if how == "clock":            # the per-row clock memory runs ahead
+        run._san_prev_t[:] = 1e12
+    elif how == "budget":         # rows seem to have run > seg_len events
+        run._san_prev_ev[:] = -1000
+    elif how == "conservation":   # every row claims one more unit of work
+        if hasattr(run, "loop"):
+            scn = run.loop.scn
+            run.loop = run.loop._replace(scn=scn._replace(W=scn.W + 1))
+        else:
+            run.scn = run.scn._replace(W=run.scn.W + 1)
+
+
+@pytest.mark.parametrize("how,rules", [
+    ("clean", set()), ("clock", {"clock_monotonic"}),
+    ("budget", {"segment_budget"}),
+    ("conservation", {"work_conservation"})])
+def test_the_segment_probe_as_the_jax_packages(how, rules):
+    """The ``engine.segment`` probe at every boundary of a segmented run:
+    silent on an honest run, and on a tampered one the reference's rule
+    names, probe for probe equal to the JAX package's sanitizer watching the
+    same rows."""
+    from repro.core import engine as jeng
+    from repro_torch.core import engine as eng
+
+    summaries = []
+    for s, e, make, scn in (
+            (sz, eng, _model,
+             lambda rows: sweep.scenario_from_rows(rows, device="cpu")),
+            (jsz, jeng,
+             lambda: jsw.make_model("divisible", topology=JTOPO,
+                                    max_events=1 << 14),
+             jsw.scenario_from_rows)):
+        s.install(replay_denom=1_000_000)
+        s.reset()
+        run = e.SegmentedRun(make(), scn(_rows(n=64 if how == "clean"
+                                               else 8)), seg_len=16)
+        run.step()
+        assert not run.done, "the workload must span two segments"
+        _tamper(run, how)
+        while not run.done:
+            run.step()
+        summaries.append(s.summary())
+        assert s.summary()["n_probes"] == run.stats.n_segments
+    ps, js = summaries
+    assert set(ps["violations_by_rule"]) == rules
+    for k in ("n_probes", "violations_total", "violations_by_rule"):
+        assert ps[k] == js[k], k
