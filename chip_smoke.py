@@ -44,7 +44,21 @@ quickstart; ``examples/paper_sweep_torch.py``'s task models and backend
 table; the backend matrix with the segmented ``torch`` loop on the card
 equal to ``cuda`` and a run under the sanitizer; ``serve.main(
 ["--no-reduced"])`` at full width with the planner's decision, the
-scheduler's stats and the launches), ``timing`` (one line per body: the kernel
+scheduler's stats and the launches), ``daemon`` (one line per step, each
+counted on its own, every daemon client with ``fallback=False``: three
+client processes asking one question of an in-process daemon on the card —
+one dispatch, one launch, npz bytes equal to library mode's; the paper's
+grid of 96000 rows as 96 ``sweep_chunk`` RPCs from four client processes —
+96 launches, every chunk's bytes equal to library mode's, one row a p held
+to the oracle, rows/s and events/s beside library mode's and the wire bytes;
+an adaptive question and a paired comparison through the rounds, equal to
+library mode; a DAG question, which cannot cross the wire, answered by the
+client's library mode on the card; ``python -m repro_torch.service.daemon``
+killed at its first dispatch — two client threads fall back on the card with
+no exception, exit code 17 — then restarted, serving the question from the
+store and, after a graceful stop, leaving a history a new daemon loads; and
+``benchmarks/daemon_torch.py``'s warm daemon against cold processes),
+``timing`` (one line per body: the kernel
 per chunk with ns per event on its longest row and its time before the
 redesign, the path's summed kernel time, its plain version and its bound),
 ``lm_kernels`` (one line
@@ -76,6 +90,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 import zipfile
@@ -121,9 +136,12 @@ from repro_torch.launch.steps import (GraphedDecodeStep,  # noqa: E402
 from repro_torch.models import build_model as build_lm_model  # noqa: E402
 from repro_torch.check import sanitizer as san  # noqa: E402
 from repro_torch.sched import plan_for_mesh  # noqa: E402
-from repro_torch.service import SimulationService  # noqa: E402
+from repro_torch.service import (DaemonClient, SimulationDaemon,  # noqa: E402
+                                 SimulationService)
 from repro_torch.service import resilience as rz  # noqa: E402
+from repro_torch.service import store as store_mod  # noqa: E402
 from repro_torch.service.estimator import fixed_reps_for_width  # noqa: E402
+from benchmarks import daemon_torch as dt  # noqa: E402
 from benchmarks import paper_torch as pt  # noqa: E402
 from examples import paper_sweep_torch as ps  # noqa: E402
 from examples import quickstart_torch as qs  # noqa: E402
@@ -1693,6 +1711,430 @@ def phase_paper() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase daemon: the simulation daemon on the card — client processes over a
+# unix socket, the daemon's rounds and sweep chunks, the client's library
+# mode, a daemon killed mid-round and restarted, and the daemon bench.
+# ---------------------------------------------------------------------------
+
+#: the platform of steps 1, 3 and 5 (the paper's largest) and step 1's
+#: question, asked by three client processes at once
+DAEMON_P = 256
+DAEMON_Q = dict(W_list=[10**6, 10**7], lam_list=[2], reps=1000)
+
+#: A client process of the phase: connects, waits for the go file, asks its
+#: question (``query`` or ``sweep``) with ``fallback=False`` and prints one
+#: JSON line: the answer's summary, its seconds and the wire bytes it sent
+#: and received (frames counted at the framing functions).
+_DAEMON_CLIENT = """
+import json, os, sys, time
+cfg = json.loads(sys.argv[1])
+sys.path.insert(0, cfg["src"])
+from repro_torch.core import one_cluster
+from repro_torch.service import DaemonClient, wire
+nbytes = {"sent": 0, "received": 0}
+send, recv = wire.send_frame, wire._recv_exact
+def counted_send(sock, obj):
+    nbytes["sent"] += 4 + len(json.dumps(obj, separators=(",", ":")).encode())
+    return send(sock, obj)
+def counted_recv(sock, n):
+    got = recv(sock, n)
+    nbytes["received"] += len(got or b"")
+    return got
+wire.send_frame, wire._recv_exact = counted_send, counted_recv
+c = DaemonClient(root=cfg["root"], fallback=False)
+assert c.alive()
+nbytes.update(sent=0, received=0)
+print("READY", flush=True)
+while not os.path.exists(cfg["go"]):
+    time.sleep(0.001)
+t0 = time.perf_counter()
+topo = one_cluster(cfg["p"], 1)
+if cfg["op"] == "query":
+    r = c.query(topo, **cfg["kw"])
+    out = dict(key=r.key, from_cache=r.from_cache,
+               mean=[float(m) for m in r.cells.mean])
+else:
+    g = c.sweep(topo, **cfg["kw"])
+    out = dict(rows=len(g), makespan_sum=int(g.makespan.sum()),
+               events=int(g.extras["n_events"].astype("int64").sum()))
+out.update(seconds=time.perf_counter() - t0, fallbacks=c.n_fallbacks,
+           answers=c.n_daemon_answers, local=c._local is not None, **nbytes)
+print(json.dumps(out), flush=True)
+"""
+
+
+def daemon_clients(root: Path, go: Path, cfgs) -> tuple:
+    """One client process per cfg (``_DAEMON_CLIENT``), released together
+    once all have connected. Returns (each one's JSON line, the seconds from
+    the release to the last answer)."""
+    src = str(Path(__file__).resolve().parent / "src")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DAEMON_CLIENT,
+         json.dumps(dict(c, src=src, root=str(root), go=str(go)))],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c in cfgs]
+    try:
+        for p in procs:
+            if p.stdout.readline().strip() != "READY":
+                raise AssertionError(f"a daemon client did not connect: "
+                                     f"{p.communicate(timeout=60)[1][-2000:]}")
+        t0 = time.perf_counter()
+        go.touch()
+        outs = []
+        for p in procs:
+            out, err = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"a daemon client failed:\n"
+                                     f"{err[-2000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [o for o in outs if o["fallbacks"] or o["local"]]
+    if bad:
+        raise AssertionError(f"a daemon client fell back: {bad}")
+    return outs, wall
+
+
+def daemon_step(d, run) -> tuple:
+    """``run()`` with every count at 0 just before: its result and the
+    step's numbers (launches by body read just after, kernel ms, wall, the
+    daemon's dispatches, rounds and RPCs in the step, and the summed ms of
+    each obs span the smoke's process recorded — the daemon's threads
+    included: ``daemon.rpc`` per op, ``daemon.round``, ``store.put``,
+    ``backend.run_rows``)."""
+    d0, r0, rpc0 = d.service.n_dispatches, d.n_rounds, d.n_rpcs
+    reset_all_counts()
+    torch.cuda.synchronize()
+    with KernelClock() as kc, obs.trace_to(None) as tracer:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(ws.ws_sim_cuda.launches_by_body)
+    if ws.ws_sim_cuda.launches != len(kc.pairs):
+        raise AssertionError("the kernel clock missed a launch")
+    return out, dict(launches=launches, kernel_ms=kc.kernel_ms,
+                     wall_seconds=wall,
+                     n_dispatches=d.service.n_dispatches - d0,
+                     n_rounds=d.n_rounds - r0, n_rpcs=d.n_rpcs - rpc0,
+                     span_ms={n: sum(ms) for n, ms in
+                              tracer.durations_ms().items()})
+
+
+def same_stored_bytes(a: Path, b: Path, keys, what: str) -> int:
+    """The npz of each key under two store roots, byte for byte (the zip
+    clock pinned by the caller)."""
+    for k in keys:
+        if (a / f"{k}.npz").read_bytes() != (b / f"{k}.npz").read_bytes():
+            raise AssertionError(f"{what}: stored npz of {k} differs from "
+                                 "library mode's")
+    return len(keys)
+
+
+def daemon_cli(root: Path, fault_plan=None) -> subprocess.Popen:
+    """``python -m repro_torch.service.daemon --root ROOT`` on the card,
+    ``REPRO_WS_FAULT_PLAN`` set in its environment only; returns once it
+    printed READY. A thread reaps it the moment it exits, so its pid stops
+    answering and the store locks of a daemon that died are broken at once
+    (a zombie's pid still looks alive)."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    env.pop(rz.FAULT_PLAN_ENV, None)
+    if fault_plan is not None:
+        env[rz.FAULT_PLAN_ENV] = json.dumps(fault_plan)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.service.daemon", "--root",
+         str(root), "--coalesce-window-s", "0.01"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    line = proc.stdout.readline().strip()
+    if not line.startswith("READY"):
+        proc.kill()
+        raise AssertionError(f"the daemon did not start: "
+                             f"{proc.communicate(timeout=60)[1][-2000:]}")
+    threading.Thread(target=proc.wait, daemon=True).start()
+    return proc
+
+
+def phase_daemon(tmp: Path) -> dict:
+    """The simulation daemon on the card (module docstring, phase
+    ``daemon``). Returns the ``ws_sim`` launches of the phase's counted
+    steps by body."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(BODIES, 0)
+
+    def add(launches):
+        for b, n in launches.items():
+            total[b] += n
+
+    store = tmp / "store"
+    d = SimulationDaemon(root=store, coalesce_window_s=0.25).start()
+    try:
+        with pinned_zip_clock():
+            daemon_steps(d, tmp, add)
+    finally:
+        d.stop()
+    with pinned_zip_clock():
+        killed_mid_round(tmp / "killed", add)
+
+    # 6. the daemon bench: a warm shared daemon against cold processes
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    doc, text = quiet(lambda: dt.daemon_throughput())
+    wall = time.perf_counter() - t0
+    launches = dict(ws.ws_sim_cuda.launches_by_body)
+    if launches[BODIES[0]] < 1 or launches[BODIES[0]] != \
+            sum(launches.values()) or doc["daemon"]["n_dispatches"] < 1 or \
+            doc["library"]["n_dispatches"] != dt.N_CLIENTS * dt.N_QUERIES:
+        raise AssertionError(f"daemon bench: {doc}, launches {launches}")
+    add(launches)
+    say("daemon", step="daemon_throughput", workload=doc["workload"],
+        daemon=doc["daemon"], library=doc["library"],
+        speedup_vs_library=doc["speedup_vs_library"], launches=launches,
+        wall_seconds=wall, csv=text.strip().splitlines()[0],
+        card=card_line())
+    for body in BODIES:
+        if not total[body]:
+            raise AssertionError(f"phase daemon launched no {body}")
+    seconds = time.perf_counter() - t_phase
+    say("daemon", step="done", launches=total, seconds=seconds)
+    return total
+
+
+def daemon_steps(d, tmp: Path, add) -> None:
+    """Steps 1-4 of phase ``daemon`` against the in-process daemon ``d``."""
+    store = d.store.root
+    none = dict.fromkeys(BODIES, 0)
+
+    # 1. three client processes, one question, one dispatch
+    topo = T.one_cluster(DAEMON_P, 1)
+    outs, st = daemon_step(d, lambda: daemon_clients(
+        store, tmp / "go1", [dict(op="query", p=DAEMON_P, kw=DAEMON_Q)] * 3))
+    outs, wall = outs
+    keys = {o["key"] for o in outs}
+    # RPCs: a ping, a submit and a flush a client
+    if len(keys) != 1 or st["n_dispatches"] != 1 or st["n_rpcs"] != 9 or \
+            st["launches"] != {**none, BODIES[0]: 1}:
+        raise AssertionError(f"three clients: keys {keys}, {st}")
+    (key,) = keys
+    lib = SimulationService(root=tmp / "lib1").query(topo, **DAEMON_Q)
+    if lib.key != key or lib.from_cache:
+        raise AssertionError("library mode asked another question")
+    same_stored_bytes(store, tmp / "lib1", [key], "three clients")
+    if [o["mean"] for o in outs] != [lib.cells.mean.tolist()] * 3:
+        raise AssertionError("a client's cell means differ from library "
+                             "mode's")
+    add(st["launches"])
+    say("daemon", step="three_clients_one_dispatch", clients=3, p=DAEMON_P,
+        question=DAEMON_Q, rows=2 * DAEMON_Q["reps"], **st,
+        release_to_last_answer_seconds=wall,
+        client_seconds=[o["seconds"] for o in outs],
+        from_cache=[o["from_cache"] for o in outs],
+        wire_bytes_received=sum(o["received"] for o in outs),
+        wire_bytes_sent=sum(o["sent"] for o in outs),
+        npz_equal_to_library_mode=True, card=card_line())
+
+    # 2. the paper's grid through sweep_chunk: one client process a p
+    grid = ws_paper.grid(full=True)
+    kw = dict(W_list=list(grid.W_list), lam_list=list(grid.lam_list),
+              reps=grid.reps, chunk_size=1000)
+    n_chunks = len(grid.W_list) * len(grid.lam_list) * grid.reps // 1000
+    (outs, wall), st = daemon_step(d, lambda: daemon_clients(
+        store, tmp / "go2",
+        [dict(op="sweep", p=p, kw=kw) for p in grid.p_list]))
+    rows = sum(o["rows"] for o in outs)
+    events = sum(o["events"] for o in outs)
+    # RPCs: a ping and one sweep_chunk a chunk, a client
+    if rows != 96_000 or st["launches"] != {**none, BODIES[0]: 96} or \
+            st["n_rpcs"] != len(grid.p_list) * (n_chunks + 1):
+        raise AssertionError(f"paper grid: {rows} rows, {st}")
+    add(st["launches"])
+    lib_root = tmp / "lib2"
+    svc = SimulationService(root=lib_root)
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lib = {p: svc.sweep(T.one_cluster(p, 1), **kw) for p in grid.p_list}
+    torch.cuda.synchronize()
+    lib_wall = time.perf_counter() - t0
+    lib_launches = dict(ws.ws_sim_cuda.launches_by_body)
+    for o, p in zip(outs, grid.p_list):
+        if (o["rows"], o["makespan_sum"]) != (len(lib[p]),
+                                              int(lib[p].makespan.sum())):
+            raise AssertionError(f"paper grid p={p}: the client's answer "
+                                 "differs from library mode's")
+    chunk_keys = sorted(f.stem for f in lib_root.glob("*.npz"))
+    if len(chunk_keys) != 96:
+        raise AssertionError(f"library mode stored {len(chunk_keys)} chunks")
+    same_stored_bytes(store, lib_root, chunk_keys, "paper grid")
+    t0 = time.perf_counter()
+    for i, p in enumerate(grid.p_list):
+        model = sw.resolve_model(T.one_cluster(p, 1), "divisible",
+                                 W_list=kw["W_list"],
+                                 lam_list=kw["lam_list"])
+        k = 18_000 + 37 * i          # chunk 18: W=10^8, λ=2, the longest
+        from_daemon = d.store.get(sw_chunk_key(model, kw, k // 1000))
+        grid_against_twin(from_daemon, model, [k % 1000],
+                          f"paper grid p={p}")
+    oracle_s = time.perf_counter() - t0
+    wire_bytes = sum(o["received"] + o["sent"] for o in outs)
+    say("daemon", step="paper_grid_through_daemon", clients=len(outs),
+        p=list(grid.p_list), rows=rows, chunks=len(grid.p_list) * n_chunks,
+        events=events,
+        **st, release_to_last_answer_seconds=wall,
+        rows_per_second_of_wall=rows / wall,
+        events_per_second_of_wall=events / wall,
+        library_mode=dict(wall_seconds=lib_wall,
+                          rows_per_second=rows / lib_wall,
+                          events_per_second=events / lib_wall,
+                          launches=lib_launches),
+        wire_bytes=wire_bytes, wire_bytes_per_row=wire_bytes / rows,
+        chunk_keys_equal=len(chunk_keys), npz_equal_to_library_mode=True,
+        oracle_rows_equal=len(grid.p_list), oracle_seconds=oracle_s,
+        card=card_line())
+
+    # 3. an adaptive question and a paired comparison through the rounds
+    c = DaemonClient(root=store, fallback=False)
+    ad_q = dict(task_model="adaptive", W_list=[MAIN_W], lam_list=[2, 62],
+                pool_cap=1 << 13, reps=64)
+    ptopo = T.one_cluster(64, 1)
+    pair = dict(W_list=[MAIN_W], lam_list=[62], reps=64)
+
+    def ask():
+        r = c.query(topo, **ad_q)
+        pr = c.query_pair(c.make_query(ptopo, **pair),
+                          c.make_query(ptopo, mwt=True, **pair))
+        return r, pr
+    (r, pr), st = daemon_step(d, ask)
+    if st["launches"][BODIES[2]] < 1 or c.n_fallbacks or \
+            c.n_daemon_answers != 2 or st["n_rounds"] < 2:
+        raise AssertionError(f"adaptive and pair: {st}, fallbacks "
+                             f"{c.n_fallbacks}")
+    add(st["launches"])
+    svc = SimulationService(root=tmp / "lib3")
+    rl = svc.query(topo, **ad_q)
+    prl = svc.query_pair(svc.make_query(ptopo, **pair),
+                         svc.make_query(ptopo, mwt=True, **pair))
+    if rl.key != r.key or prl.key != pr.key or \
+            not pt.grids_equal(r.grid, rl.grid) or \
+            not pt.grids_equal(pr.grid_a, prl.grid_a) or \
+            not pt.grids_equal(pr.grid_b, prl.grid_b) or \
+            not np.array_equal(pr.paired.delta_mean, prl.paired.delta_mean):
+        raise AssertionError("adaptive and pair: the daemon's answers differ "
+                             "from library mode's")
+    same_stored_bytes(store, tmp / "lib3", [r.key], "adaptive")
+    say("daemon", step="adaptive_and_pair", adaptive=dict(p=DAEMON_P, **ad_q),
+        pair=dict(p=64, arms=["swt", "mwt"], **pair), **st,
+        adaptive_mean=r.cells.mean.tolist(),
+        delta_mean=np.asarray(pr.paired.delta_mean).tolist(),
+        n_fallbacks=c.n_fallbacks, equal_to_library_mode=True,
+        card=card_line())
+
+    # 4. a DAG cannot cross the wire: the client answers it on the card
+    c = DaemonClient(root=store)
+    dag_q = dict(task_model="dag", dag=MAIN_DAG, max_events=1 << 20,
+                 lam_list=[2], reps=64)
+    r, st = daemon_step(d, lambda: c.query(T.one_cluster(32, 1), **dag_q))
+    if c.n_fallbacks != 1 or st["n_rpcs"] or st["n_dispatches"] or \
+            st["launches"][BODIES[1]] < 1 or \
+            c.local.device.type != torch.device(DEV).type:
+        raise AssertionError(f"DAG in library mode: {st}, fallbacks "
+                             f"{c.n_fallbacks}")
+    add(st["launches"])
+    model = c.local.make_query(T.one_cluster(32, 1), **dag_q).model
+    grid_against_twin(r.grid, model, [0, 63], "DAG in library mode")
+    say("daemon", step="dag_in_library_mode", dag=MAIN_DAG.name,
+        rows=len(r.grid), **st, n_fallbacks=c.n_fallbacks,
+        library_dispatches=c.local.n_dispatches, oracle_rows_equal=2,
+        card=card_line())
+
+
+def sw_chunk_key(model, kw: dict, chunk: int) -> str:
+    """The store key of one chunk of a sweep (``SimulationService.sweep``'s
+    and the daemon's ``sweep_chunk``'s)."""
+    grid = sw.canonical_grid(kw["W_list"], kw["lam_list"], kw["reps"])
+    return store_mod.chunk_key(model, grid, kw["chunk_size"], chunk)
+
+
+def killed_mid_round(root: Path, add) -> None:
+    """Step 5 of phase ``daemon``: a daemon process that exits (code 17) at
+    its first dispatch; two client threads fall back to library mode on the
+    card; a restarted daemon serves the question from the store, and after a
+    graceful stop a new daemon loads the straggler history it saved."""
+    topo = T.one_cluster(DAEMON_P, 1)
+    proc = daemon_cli(root, {"sites": {"broker.dispatch": {"kind": "exit"}}})
+    try:
+        results, errors = [], []
+
+        def ask(i):
+            try:
+                c = DaemonClient(root=root, rpc_timeout_s=60.0)
+                r = c.query(topo, W_list=[MAIN_W + 10**5 * i], lam_list=[2],
+                            reps=256)
+                results.append((i, r, c.n_fallbacks, c.local.device.type))
+            except Exception as e:         # noqa: BLE001 — the check
+                errors.append((i, repr(e)))
+
+        reset_all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ws.ws_sim_cuda.launches_by_body)
+        code = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if errors or len(results) != 2 or code != 17 or \
+            any(nf < 1 or dev != torch.device(DEV).type or
+                not np.isfinite(r.cells.mean).all()
+                for _, r, nf, dev in results) or launches[BODIES[0]] < 1:
+        raise AssertionError(f"killed mid-round: errors {errors}, exit "
+                             f"{code}, results {[x[2:] for x in results]}, "
+                             f"launches {launches}")
+    add(launches)
+    first = min(results, key=lambda x: x[0])[1]
+
+    proc = daemon_cli(root)
+    try:
+        c = DaemonClient(root=root, fallback=False)
+        again = c.query(topo, W_list=[MAIN_W], lam_list=[2], reps=256)
+        if not again.from_cache or again.key != first.key or \
+                not pt.grids_equal(again.grid, first.grid):
+            raise AssertionError("the restarted daemon did not serve the "
+                                 "question from the store")
+        c.query(topo, W_list=[MAIN_W + 10**6], lam_list=[2], reps=256)
+        if not c.shutdown():
+            raise AssertionError("the restarted daemon refused to stop")
+        code2 = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    d3 = SimulationDaemon(root=root)
+    loaded = d3.metrics.gauge("daemon.history_loaded").value
+    if code2 != 0 or loaded <= 0 or len(d3.service.broker.history) != loaded:
+        raise AssertionError(f"restart: exit {code2}, history loaded "
+                             f"{loaded}")
+    say("daemon", step="killed_mid_round", client_threads=2,
+        client_exceptions=len(errors), daemon_exit_code=code,
+        fallbacks=[nf for _, _, nf, _ in sorted(results, key=lambda x: x[0])],
+        fallback_device=results[0][3], launches=launches, wall_seconds=wall,
+        restart_from_cache=True, graceful_exit_code=code2,
+        history_loaded=loaded, card=card_line())
+
+
+# ---------------------------------------------------------------------------
 # Language-model serving path: qwen3-1.7b at full width through the kernels
 # rms_norm, flash_attention and flash_decode.
 # ---------------------------------------------------------------------------
@@ -2498,6 +2940,10 @@ def main():
     # 4c. the paper's experiments, the log engine, the segmented loop and
     # serve's command line
     paper = phase_paper()
+    # 4d. the simulation daemon: client processes, sweep chunks, library
+    # mode, a daemon killed mid-round, the daemon bench
+    with tempfile.TemporaryDirectory(prefix="ws_daemon_") as tmp:
+        daemon = phase_daemon(Path(tmp))
     # 5. times at a main-path shape
     entries = [time_body(path, main_out[path],
                          reps=5 if path == "divisible" else 3)
@@ -2505,6 +2951,7 @@ def main():
     for e in entries:
         e["launches_query_path"] = query["launches"][e["name"]]
         e["launches_paper_path"] = paper[e["name"]]
+        e["launches_daemon_path"] = daemon[e["name"]]
     # 6-8. the language-model serving path: its kernels against their plain
     # versions, its two main paths counted, the kernels' times
     phase_lm_kernels()

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -26,6 +27,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[tuple, ctypes.CDLL] = {}
+#: held while a library is built or loaded: the daemon's threads and a
+#: client's fallback threads may ask for the same library at once
+_load_lock = threading.Lock()
 #: seconds spent in nvcc per source in this process (0.0: found built)
 build_seconds: Dict[str, float] = {}
 #: what ``-Xptxas -v`` said per source built in this process
@@ -117,8 +121,11 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     key = (name,) + defines
     lib = _libs.get(key)
     if lib is None:
-        started = _start(name, defines)
-        if started is not None:
-            _finish("+".join(key), started)
-        lib = _libs[key] = ctypes.CDLL(str(_target(name, defines)))
+        with _load_lock:
+            lib = _libs.get(key)
+            if lib is None:
+                started = _start(name, defines)
+                if started is not None:
+                    _finish("+".join(key), started)
+                lib = _libs[key] = ctypes.CDLL(str(_target(name, defines)))
     return lib

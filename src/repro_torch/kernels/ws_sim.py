@@ -27,6 +27,7 @@ plain version.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -273,9 +274,10 @@ def _launch(model, scn: eng.Scenario, k: int, probe=None, defines=()):
                     f"p={prm.p}, slots a lane={k}, shared bytes={smem}, "
                     f"slab words per row={prm.slab_stride}): CUDA error "
                     f"{err}: {msg}")
-            ws_sim_cuda.launches += 1
-            ws_sim_cuda.launches_by_body[kernel_name(model)] += 1
-            ws_sim_cuda.launches_by_variant["registers"] += 1
+            with _count_lock:
+                ws_sim_cuda.launches += 1
+                ws_sim_cuda.launches_by_body[kernel_name(model)] += 1
+                ws_sim_cuda.launches_by_variant["registers"] += 1
         return _result(model, outs)
 
 
@@ -369,6 +371,9 @@ def reset_counts() -> None:
     ws_sim_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
+#: the counts are bumped from any thread that launches (a daemon's
+#: dispatch and connection threads, a client's fallback threads)
+_count_lock = threading.Lock()
 #: kernel launches made by this process through :func:`ws_sim_cuda`
 ws_sim_cuda.launches = 0
 ws_sim_cuda.launches_by_body = {}

@@ -13,9 +13,18 @@ mean CIs, streaming P² quantile CIs, or paired common-random-numbers A/B
 verdicts — with replication driven by a precision target instead of a
 fixed rep count (``estimator``). Failed dispatches heal by retry, bisection
 salvage and, on the CPU only, demotion to a bit-identical backend
-(``resilience``). ``api.SimulationService`` is the facade callers use.
+(``resilience``). ``api.SimulationService`` is the facade callers use;
+``daemon.SimulationDaemon`` serves it to other processes over a unix socket
+(the JAX package's wire protocol) and ``client.DaemonClient`` asks it,
+answering in-process when no daemon is listening.
 """
 from repro_torch.service.api import SimulationService  # noqa: F401
+from repro_torch.service.client import (  # noqa: F401
+    DaemonClient, DaemonUnavailable, WireQuery,
+)
+from repro_torch.service.daemon import (  # noqa: F401
+    PROTOCOL_VERSION, SimulationDaemon, default_socket_path,
+)
 from repro_torch.service.resilience import (  # noqa: F401
     At, CircuitBreaker, FaultPlan, FaultSpec, InjectedFault, Prob,
     ResilienceConfig, RetryPolicy, fallback_chain, fault_plan, fault_point,

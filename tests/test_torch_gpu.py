@@ -4,7 +4,8 @@ language-model kernels (``rmsnorm.cu``, ``flash_attention.cu``,
 ``decode_attention.cu``) against their plain versions within the JAX
 package's kernel tolerances, flash decode also with a device kv_len replayed
 in a CUDA graph and on its split path; the reduced model on the card against
-the CPU, and ``decode_batch``'s graph against the eager loop.
+the CPU, and ``decode_batch``'s graph against the eager loop; the simulation
+daemon on the card answering a client process.
 
 A CUDA kernel has no interpret mode, so these tests carry the ``gpu`` marker
 and skip where there is no CUDA device. This file imports the port alone (no
@@ -644,3 +645,49 @@ def test_a_figure_bench_on_the_card_equals_the_oracle():
                     np.asarray(v), getattr(res, f)[k].cpu().numpy(),
                     err_msg=f)
     assert rows == pt.fig10_overhead_ratio(4, grid, device="cpu")
+
+
+_DAEMON_CLIENT = """
+import sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.core import one_cluster
+from repro_torch.service import DaemonClient
+c = DaemonClient(root=sys.argv[2], fallback=False)
+r = c.query(one_cluster(8, 1), W_list=[20000], lam_list=[3, 5], reps=8)
+assert c.n_daemon_answers == 1 and c.n_fallbacks == 0 and c._local is None
+print("KEY", r.key, flush=True)
+"""
+
+
+@pytest.mark.gpu
+def test_a_daemon_on_the_card_answers_a_client_process(tmp_path,
+                                                      _pinned_zip_clock):
+    """A port daemon on the card (no ``device``: the card) answers a client
+    process with one ``ws_sim`` launch, and its npz bytes equal library mode
+    on the card computing the same query cold."""
+    _need_card()
+    import subprocess
+    from repro_torch.core.topology import one_cluster
+    from repro_torch.service import SimulationDaemon, SimulationService
+    root = Path(__file__).resolve().parents[1]
+    d = SimulationDaemon(root=tmp_path / "store",
+                         coalesce_window_s=0.01).start()
+    try:
+        assert d.service.device.type == "cuda"
+        before = dict(ws_sim_cuda.launches_by_body)
+        out = subprocess.run([sys.executable, "-c", _DAEMON_CLIENT,
+                              str(root / "src"), str(tmp_path / "store")],
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr[-2000:]
+        torch.cuda.synchronize()
+        assert ws_sim_cuda.launches_by_body["ws_sim_divisible"] == \
+            before["ws_sim_divisible"] + 1
+        assert d.service.broker.n_dispatches == 1
+        key = out.stdout.split("KEY ", 1)[1].strip()
+    finally:
+        d.stop()
+    rl = SimulationService(root=tmp_path / "lib").query(
+        one_cluster(8, 1), W_list=[20000], lam_list=[3, 5], reps=8)
+    assert rl.key == key and not rl.from_cache
+    assert (tmp_path / "lib" / f"{key}.npz").read_bytes() == \
+        (tmp_path / "store" / f"{key}.npz").read_bytes()

@@ -1,6 +1,7 @@
 """Guards of the port's boundary: ``repro_torch``, ``chip_smoke.py``, the
-port's examples (``examples/*_torch.py``) and its figure benches
-(``benchmarks/paper_torch.py``) import neither ``jax`` nor the JAX package,
+port's examples (``examples/*_torch.py``) and its benches
+(``benchmarks/paper_torch.py``, ``benchmarks/daemon_torch.py``) import
+neither ``jax`` nor the JAX package,
 and no entry point carries on on the CPU unless it was asked to."""
 import ast
 import os
@@ -16,7 +17,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PACKAGE_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
 PORT_FILES = PACKAGE_FILES + [ROOT / "chip_smoke.py"] \
     + sorted((ROOT / "examples").glob("*_torch.py")) \
-    + [ROOT / "benchmarks" / "paper_torch.py"]
+    + [ROOT / "benchmarks" / "paper_torch.py",
+       ROOT / "benchmarks" / "daemon_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
 
 
@@ -65,11 +67,14 @@ def test_port_has_the_expected_modules():
                  "check/sanitizer.py", "sched/__init__.py",
                  "sched/planner.py", "sched/ws_scheduler.py",
                  "core/analysis.py", "core/gantt.py",
-                 "configs/ws_paper.py"):
+                 "configs/ws_paper.py", "service/wire.py",
+                 "service/daemon.py", "service/client.py",
+                 "check/protocol_lint.py", "check/__main__.py"):
         assert want in names, want
     for other in ("examples/quickstart_torch.py",
                   "examples/paper_sweep_torch.py",
-                  "benchmarks/paper_torch.py"):
+                  "benchmarks/paper_torch.py",
+                  "benchmarks/daemon_torch.py"):
         assert ROOT / other in PORT_FILES, other
     for src in ("ws_sim.cu", "ws_sim_core.cuh", "rmsnorm.cu",
                 "flash_attention.cu", "decode_attention.cu",
@@ -167,6 +172,30 @@ print("LEAKED", bad)
 """
 
 
+_CPU_DAEMON = """
+import sys, tempfile
+from pathlib import Path
+from repro_torch.check import protocol_lint
+from repro_torch.core import one_cluster
+from repro_torch.service import DaemonClient, SimulationDaemon
+with tempfile.TemporaryDirectory() as d:
+    dm = SimulationDaemon(root=Path(d), coalesce_window_s=0.01,
+                          device="cpu").start()
+    try:
+        c = DaemonClient(root=Path(d), fallback=False)
+        r = c.query(one_cluster(4, 2), W_list=[500], lam_list=[2], reps=3)
+        g = c.sweep(one_cluster(4, 2), W_list=[500], lam_list=[2], reps=3,
+                    chunk_size=2)
+    finally:
+        dm.stop()
+assert c._local is None and r.cells.n.tolist() == [3] and len(g) == 3
+assert protocol_lint.run() == []
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LEAKED", bad)
+"""
+
+
 def _run_port_alone(script: str, *args: str) -> None:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", script, *args], env=env,
@@ -191,6 +220,10 @@ def test_cpu_paper_surface_in_a_subprocess_loads_neither_jax_nor_repro():
     """The traced quickstart run, a figure bench, the segmented loop and the
     host scheduler on the CPU."""
     _run_port_alone(_CPU_PAPER, str(ROOT))
+
+
+def test_cpu_daemon_client_and_lint_in_a_subprocess_load_neither_jax_nor_repro():
+    _run_port_alone(_CPU_DAEMON)
 
 
 def _skip_if_cuda():
@@ -298,6 +331,28 @@ def test_no_silent_cpu_run_of_the_query_path(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         rz.fallback_chain("torch", model)
     assert not list(tmp_path.iterdir())
+
+
+def test_no_silent_cpu_run_of_the_daemon(tmp_path):
+    """Without CUDA and without ``device``, the daemon, its command line and
+    a client's library mode raise instead of running on the host."""
+    _skip_if_cuda()
+    from repro_torch.core import one_cluster
+    from repro_torch.service import DaemonClient, SimulationDaemon
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SimulationDaemon(root=tmp_path / "a")
+    c = DaemonClient(root=tmp_path / "b")        # nothing listening
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        c.query(one_cluster(4, 2), W_list=[500], lam_list=[2], reps=2)
+    assert c.n_fallbacks == 1
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.service.daemon",
+                          "--root", str(tmp_path / "c")], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and "device='cpu'" in out.stderr
+    assert "READY" not in out.stdout
+    assert not list(tmp_path.rglob("*.npz"))
+    assert not list(tmp_path.rglob("daemon.sock"))
 
 
 def test_no_silent_cpu_run_of_the_paper_surface():

@@ -50,7 +50,7 @@ def _model():
 
 def test_the_switch_and_its_name(monkeypatch):
     assert sz.ENV == jsz.ENV == "REPRO_WS_SANITIZE"
-    assert PASSES == ("sanitizer",) and sz.PASS == "sanitizer"
+    assert PASSES == ("protocol", "sanitizer") and sz.PASS == "sanitizer"
     monkeypatch.delenv(sz.ENV, raising=False)
     assert not sz.enabled()
     monkeypatch.setenv(sz.ENV, "1")
