@@ -58,6 +58,18 @@ killed at its first dispatch — two client threads fall back on the card with
 no exception, exit code 17 — then restarted, serving the question from the
 store and, after a graceful stop, leaving a history a new daemon loads; and
 ``benchmarks/daemon_torch.py``'s warm daemon against cold processes),
+``lint`` (the dispatch lint on the card with no finding — the reduced
+decode step reads nothing on the host and copies nothing back, one event-loop
+step reads once — then ``python -m repro_torch.check`` over its three passes,
+exit 0; and ``ws_sim_cuda(grid_chunk=128)`` on 300 rows of each body: 3
+launches, every leaf equal to the unchunked launch's), ``benches`` (one line
+per bench of ``benchmarks/run_torch.py`` at ``run.py``'s reps, each counted
+on its own — launches by body, kernel ms, wall, the bench's own numbers:
+``sim_throughput`` at 32 rows and again at 8192, ``model_throughput``, a few
+rows of each held to the numpy oracle; ``sched_planner``;
+``service_throughput`` with 0 warm dispatches; ``paired_comparison``;
+``obs_overhead``; ``sanitizer_overhead`` with 0 violations and a replayed
+dispatch; ``fault_recovery`` with 0 client errors at every rate),
 ``timing`` (one line per body: the kernel
 per chunk with ns per event on its longest row and its time before the
 redesign, the path's summed kernel time, its plain version and its bound),
@@ -134,6 +146,8 @@ from repro_torch.launch.serve import Request, decode_batch  # noqa: E402
 from repro_torch.launch.steps import (GraphedDecodeStep,  # noqa: E402
                                      build_prefill_step)
 from repro_torch.models import build_model as build_lm_model  # noqa: E402
+from repro_torch.check import dispatch_lint as dl  # noqa: E402
+from repro_torch.check import run_pass as run_check_pass  # noqa: E402
 from repro_torch.check import sanitizer as san  # noqa: E402
 from repro_torch.sched import plan_for_mesh  # noqa: E402
 from repro_torch.service import (DaemonClient, SimulationDaemon,  # noqa: E402
@@ -142,6 +156,7 @@ from repro_torch.service import resilience as rz  # noqa: E402
 from repro_torch.service import store as store_mod  # noqa: E402
 from repro_torch.service.estimator import fixed_reps_for_width  # noqa: E402
 from benchmarks import daemon_torch as dt  # noqa: E402
+from benchmarks import run_torch as rt  # noqa: E402
 from benchmarks import paper_torch as pt  # noqa: E402
 from examples import paper_sweep_torch as ps  # noqa: E402
 from examples import quickstart_torch as qs  # noqa: E402
@@ -2135,6 +2150,218 @@ def killed_mid_round(root: Path, add) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase lint: the port's checker suite on the card — the dispatch lint (the
+# twin of the JAX package's jaxpr lint), the command line over every pass —
+# and ws_sim_cuda(grid_chunk=) against the unchunked launch.
+# ---------------------------------------------------------------------------
+
+#: the JAX package's Pallas chunk, on a batch it does not divide
+GRID_CHUNK, GRID_G = 128, 300
+
+
+def grid_chunk_models() -> dict:
+    """One model a body for the grid_chunk step: (model, W, λ)."""
+    return {
+        "ws_sim_divisible": (sw.make_model(
+            "divisible", topology=T.one_cluster(64, 10),
+            max_events=dv.default_max_events(100_000, 64, 10)), 100_000, 10),
+        "ws_sim_dag": (sw.make_model(
+            "dag", topology=T.one_cluster(32, 5),
+            dag=gen.merge_sort(2000, 32), max_events=1 << 18), 0, 5),
+        "ws_sim_adaptive": (sw.make_model(
+            "adaptive", topology=T.one_cluster(32, 10), pool_cap=1 << 12,
+            max_events=dv.default_max_events(100_000, 32, 10)), 100_000, 10),
+    }
+
+
+def _syncs(ops) -> int:
+    return sum(op.name == dl.SYNC_OP for op in ops)
+
+
+def _to_host(ops) -> int:
+    return sum(op.to_host for op in ops)
+
+
+def phase_lint(tmp: Path) -> None:
+    """The checker suite and ``grid_chunk`` on the card (module docstring,
+    phase ``lint``)."""
+    t_phase = time.perf_counter()
+    dev = torch.device(DEV)
+    # 1. the dispatch lint on the card: no finding; a step of the event loop
+    # syncs once (its loop condition), the decode step never
+    t0 = time.perf_counter()
+    findings = run_check_pass("dispatch")
+    if findings:
+        raise AssertionError(f"dispatch lint on the card: {findings}")
+    dec = dl.decode_step_ops(dev)
+    steps = {name: dl.step_ops(model, dl.SIGNATURE_WIDTHS[0], dev)[1]
+             for name, model in dl.tiny_models()}
+    if _syncs(dec) or _to_host(dec):
+        raise AssertionError(f"decode_step on the card: {_syncs(dec)} syncs, "
+                             f"{_to_host(dec)} device->host copies")
+    for name, ops in steps.items():
+        if _syncs(ops) != dl.STEP_SYNCS or _to_host(ops):
+            raise AssertionError(f"one {name} step on the card: "
+                                 f"{_syncs(ops)} syncs, {_to_host(ops)} "
+                                 "device->host copies")
+    say("lint", step="dispatch", findings=0, decode_step_ops=len(dec),
+        decode_step_syncs=_syncs(dec), decode_step_device_to_host=0,
+        advance_ops={n: len(o) for n, o in steps.items()},
+        advance_syncs={n: _syncs(o) for n, o in steps.items()},
+        advance_device_to_host={n: _to_host(o) for n, o in steps.items()},
+        seconds=time.perf_counter() - t0)
+    # 2. python -m repro_torch.check: every pass, on the card
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    report = tmp / "findings.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.check", "--json", str(report)],
+        env=dict(os.environ, PYTHONPATH=str(root / "src")), cwd=root,
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m repro_torch.check exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    doc = json.loads(report.read_text())
+    if tuple(doc["passes"]) != ("dispatch", "protocol", "sanitizer") \
+            or doc["findings"]:
+        raise AssertionError(f"python -m repro_torch.check: {doc}")
+    say("lint", step="cli", exit_code=0, passes=doc["passes"], findings=0,
+        lines=[l for l in proc.stdout.splitlines() if l.startswith("check")],
+        seconds=time.perf_counter() - t0)
+    # 3. ws_sim_cuda(grid_chunk=128) on 300 rows: ceil(300 / 128) launches,
+    # every leaf equal to the unchunked launch's
+    want = -(-GRID_G // GRID_CHUNK)
+    for body, (model, W, lam) in grid_chunk_models().items():
+        scn = sw.eng.batch_scenarios(
+            W, np.arange(GRID_G, dtype=np.uint32) + 1, lam=lam, device=DEV)
+        whole = ws.ws_sim_cuda(model, scn)
+        torch.cuda.synchronize()
+        got, launches, kernel_ms, wall = counted(
+            lambda: ws.ws_sim_cuda(model, scn, grid_chunk=GRID_CHUNK))
+        if launches != {**dict.fromkeys(BODIES, 0), body: want}:
+            raise AssertionError(f"grid_chunk {body}: launched {launches}, "
+                                 f"expected {want} of {body}")
+        bad = [f for f in whole._fields
+               if not torch.equal(getattr(whole, f), getattr(got, f))]
+        if bad:
+            raise AssertionError(f"grid_chunk {body}: leaves {bad} differ "
+                                 "from the unchunked launch")
+        say("lint", step="grid_chunk", body=body, p=model.p, G=GRID_G,
+            grid_chunk=GRID_CHUNK, launches=launches, bit_identical=True,
+            max_abs_err=max_abs_diff(whole, got), kernel_ms=kernel_ms,
+            wall_seconds=wall, hazards=ws.grid_shape_hazards(GRID_CHUNK))
+    say("lint", step="done", seconds=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------------------------
+# Phase benches: the simulator benches of benchmarks/run.py on the card
+# (benchmarks/run_torch.py), each counted on its own.
+# ---------------------------------------------------------------------------
+
+#: run.py's default reps (the throughput benches take at least 32)
+BENCH_REPS = 16
+#: a batch that fills the card: one warp a row, 62 rows a multiprocessor of
+#: the H100's 132
+FILL_ROWS = 8192
+
+
+def oracle_picks(cells: Cells, per_cell: int) -> list:
+    """(cell, row) pairs to hold against the serial twin: the first, middle
+    and last rows of each cell, ``per_cell`` of them, skipping adaptive rows
+    whose task pool filled (the twin models no ``pool_cap``)."""
+    picks = []
+    for c, (cfg, scn, res) in enumerate(cells.cells):
+        model = sw.as_model(cfg)
+        G = int(scn.W.shape[0])
+        rows = [k for k in dict.fromkeys((0, G // 2, G - 1))
+                if not isinstance(model, ad.AdaptiveModel)
+                or int(res.n_created[k]) < model.cfg.pool_cap]
+        if not rows:
+            raise AssertionError(f"cell {c}: every picked row filled its "
+                                 "task pool")
+        picks += [(c, k) for k in rows[:per_cell]]
+    return picks
+
+
+def bench_steps(out: Path) -> tuple:
+    """(name, fn(cells), rows a cell held to the oracle) a bench."""
+    tput = max(BENCH_REPS, 32)
+    return (
+        ("sim_throughput", lambda c: rt.sim_throughput(
+            tput, on_cell=c, out=out), 3),
+        ("sim_throughput_fill", lambda c: rt.sim_throughput(
+            FILL_ROWS, on_cell=c), 3),
+        ("model_throughput", lambda c: rt.model_throughput(
+            tput, on_cell=c, out=out), 2),
+        ("sched_planner", lambda c: rt.sched_planner(BENCH_REPS, out=out), 0),
+        ("service_throughput", lambda c: rt.service_throughput(
+            BENCH_REPS, out=out), 0),
+        ("paired_comparison", lambda c: rt.paired_comparison(
+            BENCH_REPS, out=out), 0),
+        ("obs_overhead", lambda c: rt.obs_overhead(BENCH_REPS, out=out), 0),
+        ("sanitizer_overhead", lambda c: rt.sanitizer_overhead(
+            BENCH_REPS, out=out), 0),
+        ("fault_recovery", lambda c: rt.fault_recovery(BENCH_REPS, out=out),
+         0),
+    )
+
+
+def check_bench(name: str, value, launches: dict) -> None:
+    """What each bench must show on the card."""
+    n = sum(launches.values())
+    if name.startswith("sim_throughput"):
+        ok = launches[BODIES[0]] == n == 2          # warm-up + timed
+    elif name == "model_throughput":
+        ok = launches == dict.fromkeys(BODIES, 2)
+    elif name == "sched_planner":
+        ok = n == launches[BODIES[0]] == value[0]["n_dispatches"] >= 1
+    elif name == "service_throughput":
+        ok = value[0]["dispatches_warm"] == 0 and n >= 1
+    elif name == "sanitizer_overhead":
+        ok = value["violations_total"] == 0 \
+            and value["n_replayed_dispatches"] >= 1
+    elif name == "fault_recovery":
+        ok = all(r["client_errors"] == 0 for r in value["rates"].values()) \
+            and n >= 1
+    else:
+        ok = n >= 1
+    if not ok:
+        raise AssertionError(f"bench {name}: {value}, launches {launches}")
+
+
+def phase_benches(out: Path) -> dict:
+    """``benchmarks/run_torch.py``'s benches on the card (module docstring,
+    phase ``benches``). Returns the ``ws_sim`` launches of the phase by
+    body."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(BODIES, 0)
+    for name, fn, per_cell in bench_steps(out):
+        cells = Cells()
+        (value, text), launches, kernel_ms, wall = counted(
+            lambda: quiet(lambda: fn(cells)))
+        check_bench(name, value, launches)
+        for b, k in launches.items():
+            total[b] += k
+        held, host_s = 0, 0.0
+        if per_cell:
+            picks = oracle_picks(cells, per_cell)
+            host_s = cells.hold(picks, name)
+            held = len(picks)
+        say("benches", step=name, launches=launches, kernel_ms=kernel_ms,
+            wall_seconds=wall, rows_held_to_oracle=held,
+            oracle_host_seconds=host_s,
+            csv=[l for l in text.splitlines() if not l.startswith("{")],
+            result=value)
+    for body in BODIES:
+        if not total[body]:
+            raise AssertionError(f"phase benches launched no {body}")
+    say("benches", step="done", launches=total, card=card_line(),
+        seconds=time.perf_counter() - t_phase)
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Language-model serving path: qwen3-1.7b at full width through the kernels
 # rms_norm, flash_attention and flash_decode.
 # ---------------------------------------------------------------------------
@@ -2944,6 +3171,12 @@ def main():
     # mode, a daemon killed mid-round, the daemon bench
     with tempfile.TemporaryDirectory(prefix="ws_daemon_") as tmp:
         daemon = phase_daemon(Path(tmp))
+    # 4e. the checker suite on the card and grid_chunk; the simulator benches
+    # of benchmarks/run.py (benchmarks/run_torch.py)
+    with tempfile.TemporaryDirectory(prefix="ws_lint_") as tmp:
+        phase_lint(Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="ws_benches_") as tmp:
+        benches = phase_benches(Path(tmp))
     # 5. times at a main-path shape
     entries = [time_body(path, main_out[path],
                          reps=5 if path == "divisible" else 3)
@@ -2952,6 +3185,7 @@ def main():
         e["launches_query_path"] = query["launches"][e["name"]]
         e["launches_paper_path"] = paper[e["name"]]
         e["launches_daemon_path"] = daemon[e["name"]]
+        e["launches_bench_path"] = benches[e["name"]]
     # 6-8. the language-model serving path: its kernels against their plain
     # versions, its two main paths counted, the kernels' times
     phase_lm_kernels()

@@ -1,9 +1,14 @@
 """repro_torch.check — the port's invariant checker suite.
 
-Two passes, one CLI (``python -m repro_torch.check``), one baseline
+Three passes, one CLI (``python -m repro_torch.check``), one baseline
 (``artifacts/check/baseline_torch.json``, absent while there is nothing to
 baseline: an absent file reads as empty):
 
+* ``dispatch`` — the twin of the JAX package's jaxpr lint: the aten
+  operations of one event step and of the captured decode step, recorded
+  through a dispatch mode, scanned for host syncs, float64 and branches on
+  the batch width; the model's hashability and the kernel's launch key
+  (``dispatch_lint.py``).
 * ``protocol`` — AST lint over ``src/repro_torch/service/`` and
   ``src/repro_torch/core/``: lock discipline, heartbeat-before-dispatch,
   tmp+``os.replace``-only store writes, NON_RECOVERABLE never retried,
@@ -14,8 +19,6 @@ baseline: an absent file reads as empty):
   accounting and a bitwise oracle replay of sampled dispatches
   (``backend.result``), the broker's event history (``broker.observe``)
   and the segmented loop (``engine.segment``).
-
-The JAX package's third pass, the jaxpr lint, has no counterpart yet.
 
 Naming note: this package is ``repro_torch.check``; the paper's
 makespan-bound analysis lives in :mod:`repro_torch.core.analysis`.
@@ -33,7 +36,7 @@ import json
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Tuple
 
-PASSES = ("protocol", "sanitizer")
+PASSES = ("dispatch", "protocol", "sanitizer")
 
 #: Default baseline, relative to the repo root (the JAX package's is
 #: ``artifacts/check/baseline.json``).
@@ -123,7 +126,11 @@ def split_against_baseline(
 
 def run_pass(name: str, device=None) -> List[Finding]:
     """Run one pass by name (lazy imports keep this package import-light).
-    ``device`` is where the sanitizer's workload runs (None: the card)."""
+    ``device`` is where the dispatch lint's and the sanitizer's workloads
+    run (None: the card)."""
+    if name == "dispatch":
+        from repro_torch.check import dispatch_lint
+        return dispatch_lint.run(device=device)
     if name == "protocol":
         from repro_torch.check import protocol_lint
         return protocol_lint.run()

@@ -7,9 +7,9 @@ annotations on CI, while baselined ones only warn.
 
 Usage::
 
-    python -m repro_torch.check                        # both passes, card
-    python -m repro_torch.check --pass protocol        # one pass
-    python -m repro_torch.check --device cpu           # sanitizer on host
+    python -m repro_torch.check                        # every pass, card
+    python -m repro_torch.check --pass dispatch        # one pass
+    python -m repro_torch.check --device cpu           # workloads on host
     python -m repro_torch.check --json findings.json   # machine-readable
     python -m repro_torch.check --write-baseline       # accept findings
 """
@@ -42,8 +42,9 @@ def main(argv=None) -> int:
     ap.add_argument("--strict", action="store_true",
                     help="exit non-zero on baselined findings too")
     ap.add_argument("--device", default=None,
-                    help="where the sanitizer's workload runs (default: "
-                         "the card; 'cpu' asks for the host)")
+                    help="where the dispatch lint's and the sanitizer's "
+                         "workloads run (default: the card; 'cpu' asks for "
+                         "the host)")
     args = ap.parse_args(argv)
 
     passes = tuple(args.passes) if args.passes else PASSES

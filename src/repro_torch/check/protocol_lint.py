@@ -70,9 +70,10 @@ from __future__ import annotations
 
 import ast
 from pathlib import Path
-from typing import Iterable, List, Optional, Tuple
+from typing import Iterable, List, Optional
 
 from repro_torch.check import Finding, repo_root
+from repro_torch.check.dispatch_lint import tiny_models
 
 PASS = "protocol"
 
@@ -428,23 +429,6 @@ def lint_paths(paths: Iterable[Path], root: Path) -> List[Finding]:
         rel = str(p.relative_to(root)) if p.is_relative_to(root) else str(p)
         findings.extend(lint_source(p.read_text(), rel))
     return findings
-
-
-def tiny_models() -> List[Tuple[str, object]]:
-    """One tiny configured model per registered task-model kind (the JAX
-    package keeps this list in its jaxpr lint, which the port has not)."""
-    from repro_torch.core import dag_gen, sweep
-    from repro_torch.core.topology import one_cluster
-
-    topo = one_cluster(4, 1)
-    return [
-        ("divisible", sweep.make_model("divisible", topology=topo,
-                                       max_events=256)),
-        ("dag", sweep.make_model("dag", topology=topo,
-                                 dag=dag_gen.binary_tree(3), max_events=256)),
-        ("adaptive", sweep.make_model("adaptive", topology=topo,
-                                      max_events=256)),
-    ]
 
 
 def purity_findings() -> List[Finding]:

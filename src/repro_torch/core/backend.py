@@ -418,8 +418,8 @@ class TorchBackend(ExecutionBackend):
 
 class CudaBackend(ExecutionBackend):
     """The hand-written Hopper kernel: one warp per scenario, a body per
-    task model, the processors' state in registers up to p = 256 and in
-    shared memory above (``kernels.ws_sim.variant``). One launch per row
+    task model, the processors' event times in registers at K = 1-32 slots
+    a lane for p up to 1024 (``kernels.ws_sim.variant``). One launch per row
     chunk."""
 
     name = "cuda"

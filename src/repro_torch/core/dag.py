@@ -114,8 +114,9 @@ class DagModel(eng.TaskModel):
         core.stolen.fill_(-1)
         cur = torch.full((G, p), -1, dtype=I32, device=dev)
         cur[:, 0] = src
-        pred = torch.as_tensor(np.asarray(dag.pred_count, np.int32),
-                               device=dev)
+        # a copy: the loop decrements it in place, and a one-row batch's
+        # contiguous() below would otherwise alias the DAG's own array
+        pred = torch.tensor(np.asarray(dag.pred_count, np.int32), device=dev)
 
         def vec():
             return torch.zeros((G, p), dtype=I32, device=dev)

@@ -19,7 +19,9 @@ counts with their divisors (:func:`local_first_table`).
 
 :func:`ws_sim_cuda` launches the kernel for tensors on a CUDA device and
 raises if it cannot; only for tensors that lie on the CPU does it run the
-plain version.
+plain version. ``ws_sim_cuda(..., grid_chunk=c)`` makes one launch per
+chunk of c rows, and :func:`grid_shape_hazards` states the JAX package's
+rules for such chunks.
 ``ws_sim_cuda.launches`` counts kernel launches, and nothing else;
 ``launches_by_body`` splits that count by kernel body and
 ``launches_by_variant`` by variant.
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Optional
 
 import numpy as np
 import torch
@@ -222,7 +225,7 @@ def _as_model(model):
     return model
 
 
-def ws_sim_cuda(model, scn: eng.Scenario):
+def ws_sim_cuda(model, scn: eng.Scenario, grid_chunk: Optional[int] = None):
     """Batched simulation; ``scn`` leaves have leading batch dim G.
 
     ``model`` is a :class:`DivisibleModel`, :class:`DagModel` or
@@ -231,16 +234,68 @@ def ws_sim_cuda(model, scn: eng.Scenario):
     ``scn``, bit-identical to ``engine.simulate_batch``. The kernel variant
     of :func:`variant` is launched on the current stream of that device and
     not waited for.
+
+    ``grid_chunk`` splits the G rows into fixed-size chunks, one launch
+    each (the JAX package's ``ws_sim_pallas(grid_chunk=)``): the batch is
+    padded up to a chunk multiple with copies of row 0 whose event budget is
+    zero, the chunks' results are concatenated in order and the padded rows
+    dropped. Rows are independent, so every leaf is bit-identical to the
+    unchunked call. On CPU tensors each chunk runs the plain version.
     """
     model = _as_model(model)
     p = model.p
     if p > MAX_P or p < 2:
         raise ValueError(f"ws_sim_cuda supports 2 <= p <= {MAX_P}, got p={p}")
     _check_model(model)
-    _check_scenario(scn)
+    G = _check_scenario(scn)
+    if grid_chunk is not None and G > 0:
+        c = max(int(grid_chunk), 1)
+        pad = (-G) % c
+        if pad:
+            scn = eng.Scenario(*(torch.cat([x, x[:1].expand(pad)])
+                                 for x in scn))
+            scn.max_events[G:] = 0
+        res = eng.cat_results([ws_sim_cuda(model, part)
+                               for part in eng.split_rows(scn, c)])
+        return type(res)(*(x[:G] for x in res)) if pad else res
     if scn.W.device.type == "cpu":
         return ws_sim_ref(model, scn)
     return _launch(model, scn, variant(p)[1])
+
+
+def grid_shape_hazards(grid_chunk: Optional[int],
+                       G: Optional[int] = None) -> list:
+    """Shape hazards of a planned ``ws_sim_cuda`` launch plan, by the JAX
+    package's rules (``grid_shape_hazards`` of its ``kernels/ws_sim.py``):
+    the same inputs give a hazard in the same places, so the two packages'
+    lints agree. Returns human-readable hazard strings (empty list =
+    clean) for a caller that plans ``ws_sim_cuda(grid_chunk=)``; no backend
+    of the port chunks, so the dispatch lint has no chunk to check.
+
+    On CUDA the grid is a launch parameter: the kernel is specialised (one
+    ``nvcc`` build, one instantiation) only on what :func:`_lib` and
+    :func:`variant` key it on — the source, its defines, the body and the
+    slots a lane K — never on G, so a width that is not a power of two
+    costs no new build. What it costs here is the broker's pow2 padding: a
+    chunk that does not divide a pow2 batch leaves a ragged last launch
+    (and, with a chunk of 0, no launch plan at all).
+    """
+    hazards = []
+    if grid_chunk is not None:
+        c = int(grid_chunk)
+        if c <= 0:
+            hazards.append(f"grid_chunk={c} must be a positive power of two")
+        elif c & (c - 1):
+            hazards.append(
+                f"grid_chunk={c} is not a power of two: pow2-padded broker "
+                f"batches will not divide evenly, so every distinct batch "
+                f"size launches a ragged last chunk of its own width")
+    elif G is not None and G > 1 and (int(G) & (int(G) - 1)):
+        hazards.append(
+            f"unchunked grid G={int(G)} is not a power of two: a batch the "
+            f"broker did not pad, so each distinct G is a launch shape of "
+            f"its own")
+    return hazards
 
 
 def _launch(model, scn: eng.Scenario, k: int, probe=None, defines=()):

@@ -249,7 +249,7 @@ def test_baseline_gate_roundtrip(tmp_path):
 
 
 def test_passes_and_unknown_pass():
-    assert PASSES == ("protocol", "sanitizer")
+    assert PASSES == ("dispatch", "protocol", "sanitizer")
     with pytest.raises(ValueError, match="unknown check pass"):
         run_pass("jaxpr")
 

@@ -5,7 +5,9 @@ language-model kernels (``rmsnorm.cu``, ``flash_attention.cu``,
 package's kernel tolerances, flash decode also with a device kv_len replayed
 in a CUDA graph and on its split path; the reduced model on the card against
 the CPU, and ``decode_batch``'s graph against the eager loop; the simulation
-daemon on the card answering a client process.
+daemon on the card answering a client process; ``ws_sim_cuda(grid_chunk=)``
+against the unchunked launch, and the dispatch lint's host-sync counts of the
+decode step and of an event-loop step on the card.
 
 A CUDA kernel has no interpret mode, so these tests carry the ``gpu`` marker
 and skip where there is no CUDA device. This file imports the port alone (no
@@ -691,3 +693,51 @@ def test_a_daemon_on_the_card_answers_a_client_process(tmp_path,
     assert rl.key == key and not rl.from_cache
     assert (tmp_path / "lib" / f"{key}.npz").read_bytes() == \
         (tmp_path / "store" / f"{key}.npz").read_bytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [1, 3, 4, 128])
+def test_grid_chunk_on_the_card(chunk):
+    """``ws_sim_cuda(grid_chunk=c)`` makes ceil(G / c) launches of each body
+    and every leaf equals the unchunked launch's."""
+    _need_card()
+    topo = PT.one_cluster(8, 3)
+    models = {
+        "ws_sim_divisible": (pdv.EngineConfig(topology=topo,
+                                              max_events=1 << 16), 3000),
+        "ws_sim_dag": (pdg.DagEngineConfig(topology=topo,
+                                           dag=pgen.merge_sort(300, 16),
+                                           max_events=1 << 16), 0),
+        "ws_sim_adaptive": (pad.AdaptiveEngineConfig(topology=topo,
+                                                     max_events=1 << 16),
+                            3000),
+    }
+    G = 10
+    for body, (cfg, W) in models.items():
+        scn = pdv.batch_scenarios(W, np.arange(G) + 5, lam=3, device="cuda")
+        whole = ws_sim_cuda(cfg, scn)
+        before = ws_sim_cuda.launches_by_body[body]
+        got = ws_sim_cuda(cfg, scn, grid_chunk=chunk)
+        torch.cuda.synchronize()
+        assert ws_sim_cuda.launches_by_body[body] == before - (-G // chunk)
+        for f in whole._fields:
+            a, b = getattr(whole, f), getattr(got, f)
+            assert a.dtype == b.dtype and torch.equal(a, b), f"{body}: {f}"
+
+
+@pytest.mark.gpu
+def test_the_decode_step_copies_nothing_to_the_host():
+    """The body the decode graph captures, on the card: no read of a device
+    value on the host and no device-to-host copy; one event-loop step reads
+    one (its loop condition) and copies nothing."""
+    _need_card()
+    from repro_torch.check import dispatch_lint as dl
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ops = dl.decode_step_ops(dev)
+    assert ops
+    assert not [op.name for op in ops if op.name == dl.SYNC_OP or op.to_host]
+    for name, model in dl.tiny_models():
+        _, ops = dl.step_ops(model, 4, dev)
+        assert sum(op.name == dl.SYNC_OP for op in ops) == 1, name
+        assert not [op.name for op in ops if op.to_host], name
+    assert dl.run(device=dev) == []

@@ -1,6 +1,7 @@
 """Guards of the port's boundary: ``repro_torch``, ``chip_smoke.py``, the
 port's examples (``examples/*_torch.py``) and its benches
-(``benchmarks/paper_torch.py``, ``benchmarks/daemon_torch.py``) import
+(``benchmarks/paper_torch.py``, ``benchmarks/daemon_torch.py``,
+``benchmarks/run_torch.py``, ``benchmarks/smoke_ab.py``) import
 neither ``jax`` nor the JAX package,
 and no entry point carries on on the CPU unless it was asked to."""
 import ast
@@ -18,7 +19,9 @@ PACKAGE_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
 PORT_FILES = PACKAGE_FILES + [ROOT / "chip_smoke.py"] \
     + sorted((ROOT / "examples").glob("*_torch.py")) \
     + [ROOT / "benchmarks" / "paper_torch.py",
-       ROOT / "benchmarks" / "daemon_torch.py"]
+       ROOT / "benchmarks" / "daemon_torch.py",
+       ROOT / "benchmarks" / "run_torch.py",
+       ROOT / "benchmarks" / "smoke_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
 
 
@@ -69,12 +72,15 @@ def test_port_has_the_expected_modules():
                  "core/analysis.py", "core/gantt.py",
                  "configs/ws_paper.py", "service/wire.py",
                  "service/daemon.py", "service/client.py",
-                 "check/protocol_lint.py", "check/__main__.py"):
+                 "check/protocol_lint.py", "check/__main__.py",
+                 "check/dispatch_lint.py"):
         assert want in names, want
     for other in ("examples/quickstart_torch.py",
                   "examples/paper_sweep_torch.py",
                   "benchmarks/paper_torch.py",
-                  "benchmarks/daemon_torch.py"):
+                  "benchmarks/daemon_torch.py",
+                  "benchmarks/run_torch.py",
+                  "benchmarks/smoke_ab.py"):
         assert ROOT / other in PORT_FILES, other
     for src in ("ws_sim.cu", "ws_sim_core.cuh", "rmsnorm.cu",
                 "flash_attention.cu", "decode_attention.cu",
@@ -378,6 +384,27 @@ def test_no_silent_cpu_run_of_the_paper_surface():
                  lambda: ps.all_task_models(2),
                  lambda: ps.execution_backends(2),
                  lambda: serve.main([])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_no_silent_cpu_run_of_the_simulator_benches_and_the_lint():
+    """The benches of ``benchmarks/run_torch.py`` and the dispatch lint
+    raise without a CUDA device unless given ``device="cpu"``."""
+    _skip_if_cuda()
+    sys.path.insert(0, str(ROOT))
+    try:
+        from benchmarks import run_torch as rt
+    finally:
+        sys.path.remove(str(ROOT))
+    from repro_torch.check import dispatch_lint, run_pass
+    for call in (lambda: rt.sim_throughput(2), lambda: rt.model_throughput(2),
+                 lambda: rt.sched_planner(2),
+                 lambda: rt.service_throughput(2),
+                 lambda: rt.paired_comparison(2), lambda: rt.obs_overhead(2),
+                 lambda: rt.sanitizer_overhead(2),
+                 lambda: rt.fault_recovery(2), lambda: dispatch_lint.run(),
+                 lambda: run_pass("dispatch")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
