@@ -12,7 +12,8 @@ proof runs can be told apart from the host's spread within one machine::
 
 Phases run in the order given: ``paths`` (the store-backed main-path
 sweeps), ``query`` (the query path; needs ``paths`` before it), ``lint``,
-``benches`` and ``lm`` (the language-model main path). Each run first
+``benches``, ``lm`` (the language-model main path) and ``lm_moe``
+(mixtral-8x7b at full width). Each run first
 builds its checkout's kernels (cached in that checkout's ``build/``). A
 checkout's ``chip_smoke.py`` must define the phases its arm names. Needs a
 card; ``--out`` keeps each run's full output.
@@ -52,6 +53,8 @@ with tempfile.TemporaryDirectory(prefix="smoke_ab_") as tmp:
             getattr(cs, "phase_" + ph)(tmp / ph)
         elif ph == "lm":
             cs.phase_lm_main_path()
+        elif ph == "lm_moe":
+            cs.phase_lm_moe()
         else:
             raise SystemExit("unknown phase " + ph)
         print(json.dumps({"phase": "smoke_ab", "ran": ph,
@@ -74,9 +77,11 @@ def summarize(lines: list) -> dict:
         if d.get("phase") == "smoke_ab":
             out["phase_seconds"][d["ran"]] = d["seconds"]
         elif d.get("path") == "serve.decode_batch":
-            out["decode"] = {k: d[k] for k in DECODE_KEYS}
+            key = "moe_decode" if d["phase"] == "lm_moe" else "decode"
+            out[key] = {k: d[k] for k in DECODE_KEYS}
         elif d.get("path") == "steps.build_prefill_step":
-            out["prefill_wall_seconds"] = d["wall_seconds"]
+            key = "moe_prefill" if d["phase"] == "lm_moe" else "prefill"
+            out[f"{key}_wall_seconds"] = d["wall_seconds"]
         elif d.get("step") == "parity_and_rate":
             out["query_per_second"] = d["queries_per_second"]
             out["query_per_second_without_replay"] = \

@@ -17,7 +17,10 @@ the device, one split and several) against their plain versions,
 ``serve.decode_batch`` (each step after the first a replay of one CUDA
 graph; its tokens equal to an eager loop's) and ``steps.build_prefill_step``
 with their launch counts (per kernel variant too), and the float32 parity
-of forward and sequential prefill.
+of forward and sequential prefill. Then ``mixtral-8x7b`` at full width with
+its depth cut to 4 of 32 layers: serving and prefill through the MoE layer
+with its work-stealing overflow rebalance, the float32 parity, and one MoE
+layer on the card against the CPU's plain path.
 
 Phases, one JSON line each: ``build`` (seconds, ptxas's registers and spills,
 the count of ``HGMMA`` instructions in each library's SASS, and the
@@ -74,10 +77,17 @@ dispatch; ``fault_recovery`` with 0 client errors at every rate),
 per chunk with ns per event on its longest row and its time before the
 redesign, the path's summed kernel time, its plain version and its bound),
 ``lm_kernels`` (one line
-per language-model kernel: every case's max error beside its tolerance),
+per language-model kernel: every case's max error beside its tolerance;
+then ``lm_grad``, one line a kernel: the gradient through its wrapper
+against the plain version's),
 ``lm_main_path`` (one line per path: tokens per second, launch counts;
 for ``decode_batch`` also the graph's warm-up and capture seconds and ms
 per replayed step, beside the eager loop's wall), ``lm_parity``,
+``lm_moe`` (mixtral-8x7b at full width, 4 layers: ``decode_batch`` with the
+same checks and the step's byte bound, the prefill at 4 x 2048, the
+profile of a decode step, the float32 parity at 2 layers, one MoE layer at
+T = 64 against the CPU: routing equal, ``stolen`` > 0, near-ties
+reported),
 ``lm_timing`` (one line per kernel and shape: the kernel, its
 plain version and one PyTorch call as a yardstick, each as device time from
 a replayed CUDA graph, its bound, the rate it reached and its share of the
@@ -146,6 +156,7 @@ from repro_torch.launch.serve import Request, decode_batch  # noqa: E402
 from repro_torch.launch.steps import (GraphedDecodeStep,  # noqa: E402
                                      build_prefill_step)
 from repro_torch.models import build_model as build_lm_model  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.check import dispatch_lint as dl  # noqa: E402
 from repro_torch.check import run_pass as run_check_pass  # noqa: E402
 from repro_torch.check import sanitizer as san  # noqa: E402
@@ -160,6 +171,7 @@ from benchmarks import run_torch as rt  # noqa: E402
 from benchmarks import paper_torch as pt  # noqa: E402
 from examples import paper_sweep_torch as ps  # noqa: E402
 from examples import quickstart_torch as qs  # noqa: E402
+from examples import serve_lm_torch  # noqa: E402
 
 DEV = "cuda"
 # float32 products in full float32 (these are PyTorch's defaults for a matrix
@@ -1673,21 +1685,41 @@ def phase_paper() -> dict:
         sanitizer_probes=s["n_probes"], csv=csv.strip().splitlines()[-1],
         card=card_line())
 
-    # 6. serve's command line at full width: plan, schedule, decode
+    # 6. serve's command line at full width: plan, schedule, decode; then
+    # the MoE example's command line (examples/serve_lm_torch.py) at reduced
+    add(serve_main_step(["--no-reduced"], get_lm_config(LM_ARCH)))
+    add(serve_main_step(serve_lm_torch.ARGV,
+                        get_lm_config(MOE_ARCH).reduced()))
+    for body in BODIES:
+        if not total[body]:
+            raise AssertionError(f"phase paper launched no {body}")
+    seconds = time.perf_counter() - t_phase
+    say("paper", step="done", launches=total, seconds=seconds)
+    return total
+
+
+def serve_main_step(argv: list, cfg) -> dict:
+    """``serve.main(argv)`` counted on its own: the planner's launches equal
+    its dispatches, and the decode's every step runs norm1 (+ q_norm and
+    k_norm with qk-norm) and norm2 a layer and the final norm, and one flash
+    decode a layer; the RMSNorm variant follows the width. Returns the
+    planner's launches by body."""
     reset_all_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run, text = quiet(lambda: serve.main(["--no-reduced"]))
+    run, text = quiet(lambda: serve.main(argv))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     planner_launches = dict(ws.ws_sim_cuda.launches_by_body)
-    L = get_lm_config(LM_ARCH).n_layers
+    L = cfg.n_layers
     steps = SERVE_PROMPT + SERVE_NEW
+    norms = steps * ((4 if cfg.qk_norm else 2) * L + 1)
+    rms_variant = ("row_in_registers" if cfg.d_model in rn.REG_WIDTHS
+                   else "generic")
     lm_counts, lm_variants = lm_counts_since_reset(
-        {"rms_norm": {"row_in_registers": steps * (4 * L + 1)},
+        {"rms_norm": {rms_variant: norms},
          "flash_decode": {"single": steps * L}},
-        rms_norm=steps * (4 * L + 1), flash_decode=steps * L,
-        **planner_launches)
+        rms_norm=norms, flash_decode=steps * L, **planner_launches)
     st = run.stats
     if st.completed != SERVE_REQUESTS or \
             run.tokens.shape != (SERVE_REQUESTS, SERVE_NEW) or \
@@ -1696,9 +1728,9 @@ def phase_paper() -> dict:
                              f"{run.tokens.shape}, planner launches "
                              f"{planner_launches} for "
                              f"{run.decision.n_dispatches} dispatches")
-    add(planner_launches)
     d = run.decision
-    say("paper", step="serve_main", argv=["--no-reduced"], arch=LM_ARCH,
+    say("paper", step="serve_main", argv=argv, arch=cfg.name,
+        d_model=cfg.d_model, n_layers=L,
         decision=dict(strategy=d.strategy_name, remote_prob=d.remote_prob,
                       theta_static=d.theta_static, theta_comm=d.theta_comm,
                       mwt=d.mwt, expected_makespan=d.expected_makespan,
@@ -1717,12 +1749,7 @@ def phase_paper() -> dict:
         launches=lm_counts, launches_by_variant=lm_variants,
         wall_seconds=wall, printed=text.strip().splitlines(),
         card=card_line())
-    for body in BODIES:
-        if not total[body]:
-            raise AssertionError(f"phase paper launched no {body}")
-    seconds = time.perf_counter() - t_phase
-    say("paper", step="done", launches=total, seconds=seconds)
-    return total
+    return planner_launches
 
 
 # ---------------------------------------------------------------------------
@@ -2193,19 +2220,23 @@ def phase_lint(tmp: Path) -> None:
     findings = run_check_pass("dispatch")
     if findings:
         raise AssertionError(f"dispatch lint on the card: {findings}")
-    dec = dl.decode_step_ops(dev)
+    decs = {arch: dl.decode_step_ops(dev, arch) for arch in dl.DECODE_ARCHS}
     steps = {name: dl.step_ops(model, dl.SIGNATURE_WIDTHS[0], dev)[1]
              for name, model in dl.tiny_models()}
-    if _syncs(dec) or _to_host(dec):
-        raise AssertionError(f"decode_step on the card: {_syncs(dec)} syncs, "
-                             f"{_to_host(dec)} device->host copies")
+    for arch, dec in decs.items():
+        if not dec or _syncs(dec) or _to_host(dec):
+            raise AssertionError(f"{arch} decode_step on the card: "
+                                 f"{_syncs(dec)} syncs, {_to_host(dec)} "
+                                 f"device->host copies of {len(dec)} ops")
     for name, ops in steps.items():
         if _syncs(ops) != dl.STEP_SYNCS or _to_host(ops):
             raise AssertionError(f"one {name} step on the card: "
                                  f"{_syncs(ops)} syncs, {_to_host(ops)} "
                                  "device->host copies")
-    say("lint", step="dispatch", findings=0, decode_step_ops=len(dec),
-        decode_step_syncs=_syncs(dec), decode_step_device_to_host=0,
+    say("lint", step="dispatch", findings=0,
+        decode_step_ops={a: len(d) for a, d in decs.items()},
+        decode_step_syncs={a: _syncs(d) for a, d in decs.items()},
+        decode_step_device_to_host={a: 0 for a in decs},
         advance_ops={n: len(o) for n, o in steps.items()},
         advance_syncs={n: _syncs(o) for n, o in steps.items()},
         advance_device_to_host={n: _to_host(o) for n, o in steps.items()},
@@ -2400,23 +2431,26 @@ LM_WORST = dict.fromkeys(LM_KERNELS, 0.0)
 
 #: each kernel's device time at the same shapes before its redesign (this
 #: script's phase lm_timing then, kept in PERF.md's kernel table; NVIDIA H100
-#: 80GB HBM3, 700.00 W), keyed by kernel and shape
+#: 80GB HBM3, 700.00 W), keyed by kernel and shape: (rows, D) of RMSNorm,
+#: (B, S or Smax, H, KV) of the attention kernels
 EARLIER_MS = {("rms_norm", (8192, 2048)): 0.09501952171325684,
               ("rms_norm", (131072, 128)): 0.03481791973114014,
               ("rms_norm", (24, 2048)): 0.007502400279045105,
-              ("flash_attention", (4, 2048)): 5.592787170410157,
-              ("flash_decode", (24, 24)): 0.0036075198650360107,
-              ("flash_decode", (24, 2048)): 0.1580076789855957,
+              ("flash_attention", (4, 2048, 16, 8)): 5.592787170410157,
+              ("flash_decode", (24, 24, 16, 8)): 0.0036075198650360107,
+              ("flash_decode", (24, 2048, 16, 8)): 0.1580076789855957,
               # the first kernel at the reference's decode_32k length, timed
               # by benchmarks/flash_decode_bench.py run in the tree before
               # its redesign (NVIDIA H100 80GB HBM3, 700.00 W)
-              ("flash_decode", (1, 32768)): 2.169217987060547}
+              ("flash_decode", (1, 32768, 16, 8)): 2.169217987060547}
 
 
-def lm_compare(kernel: str, got, want, tol: float, what: str) -> dict:
+def lm_compare(kernel: str, got, want, tol: float, what: str,
+               kernel_output: bool = True) -> dict:
     """``got`` against ``want`` as ``assert_allclose(atol=tol, rtol=tol)``;
     returns the case's line (max abs error, the worst share of the allowed
-    error) or raises."""
+    error) or raises. A kernel's output against its plain version's
+    (``kernel_output``) also enters the kernel's worst error."""
     g, w = got.float(), want.float()
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{kernel} {what}: {tuple(got.shape)} "
@@ -2427,7 +2461,8 @@ def lm_compare(kernel: str, got, want, tol: float, what: str) -> dict:
     err = (g - w).abs()
     share = float((err / (tol + tol * w.abs())).max())
     max_err = float(err.max())
-    LM_WORST[kernel] = max(LM_WORST[kernel], max_err)
+    if kernel_output:
+        LM_WORST[kernel] = max(LM_WORST[kernel], max_err)
     if share > 1.0:
         raise AssertionError(f"{kernel} {what}: max abs error {max_err} "
                              f"exceeds the tolerance {tol} (x{share:.3f})")
@@ -2484,13 +2519,15 @@ def lm_rms_cases(gen, dtype):
 
 
 def lm_attention_cases(gen, dtype):
-    """(B, Sq, Skv, H, KV, hd, causal, window, q_offset): the prefill shape,
+    """(B, Sq, Skv, H, KV, hd, causal, window, q_offset): the prefill shapes
+    of qwen3-1.7b and of mixtral-8x7b (H 32 / KV 8, window 4096),
     tests/test_kernels.py's shapes (Sq = 100 and 192: ragged q and kv
     tiles; windows; non-causal), a q_offset, a window at hd 128; then
     ragged Sq / Skv of 33, 100 and 2047 (partial tiles of the tensor-core
     kernel's 128 rows), q_offsets with Skv > Sq, windows, non-causal, G =
     H / KV of 1, 2 and 4, at every head dim."""
     cases = ((PREFILL_B, PREFILL_S, PREFILL_S, 16, 8, 128, True, 0, 0),
+             (PREFILL_B, PREFILL_S, PREFILL_S, 32, 8, 128, True, 4096, 0),
              (2, 128, 128, 4, 2, 64, True, 0, 0),
              (1, 256, 256, 4, 4, 32, True, 64, 0),
              (2, 100, 100, 2, 1, 16, True, 0, 0),
@@ -2534,7 +2571,8 @@ def lm_attention_cases(gen, dtype):
 
 def lm_decode_cases(gen, dtype):
     """(B, Smax, kv_len, H, KV, hd, window): every kv_len of the serving
-    path (Smax = 24), a long cache, tests/test_kernels.py's shapes
+    path (Smax = 24) at qwen3-1.7b's heads, and at mixtral-8x7b's with
+    kv_len both as an int and on the device, a long cache, tests/test_kernels.py's shapes
     (kv_len < Smax, a window), kv_len = 1; each with q of the cache's type
     and with a float32 q (the prefill default: bf16 cache, f32 q), kv_len
     as an int. Then kv_len as an int32 on the device (as the serving path
@@ -2545,6 +2583,11 @@ def lm_decode_cases(gen, dtype):
     step of its largest value (``lm_within_a_bf16_step``)."""
     cases = [(SERVE_REQUESTS, SERVE_PROMPT + SERVE_NEW, n, 16, 8, 128, 0,
               False) for n in range(1, SERVE_PROMPT + SERVE_NEW + 1)]
+    # mixtral-8x7b's serving shapes (H 32 / KV 8: G = 4 at hd 128), kv_len
+    # as an int and on the device
+    cases += [(SERVE_REQUESTS, SERVE_PROMPT + SERVE_NEW, n, *MOE_HEADS, 128,
+               0, on_device) for on_device in (False, True)
+              for n in range(1, SERVE_PROMPT + SERVE_NEW + 1)]
     cases += [(SERVE_REQUESTS, 2048, 2048, 16, 8, 128, 0, False),
               (2, 256, 200, 4, 2, 64, 0, False),
               (1, 512, 512, 8, 8, 32, 0, False),
@@ -2607,7 +2650,70 @@ def phase_lm_kernels():
             if scaled else None,
             every_case=[(c["case"], c["max_abs_err"], c["tol"],
                          c.get("scaled_limit")) for c in cases])
+    for line in lm_grad_cases(gen):
+        say("lm_grad", **line)
     say("lm_kernels_done", seconds=round(time.perf_counter() - t0, 3))
+
+
+def lm_grad_cases(gen) -> list:
+    """The gradient through each wrapper on the card (grad mode on, float32
+    inputs that require a gradient: ``_lm.KernelWithPlainBackward``): the
+    forward launches the kernel once, and every input's gradient exists
+    and equals the plain version's on the same tensors, at the kernel's
+    float32 tolerance (attention 2e-5, RMSNorm 1e-6, decode 2e-5), and the
+    forward's output equals the plain version's. The loss is the output
+    weighed by a ramp, so the same gradient reaches both backwards."""
+    f32 = torch.float32
+    kv = torch.tensor([1500], dtype=torch.int32, device=DEV)
+    cases = {
+        "rms_norm": ([lm_randn(gen, (24, 4096), f32, 3.0),
+                      lm_randn(gen, (4096,), f32)],
+                     lambda x, s: ops.rms_norm(x, s, 1e-6),
+                     lambda x, s: rn.rms_norm_ref(x, s, 1e-6),
+                     LM_TOL[("rms_norm", f32)]),
+        "flash_attention": ([lm_randn(gen, (1, 256, 32, 128), f32),
+                             lm_randn(gen, (1, 256, 8, 128), f32),
+                             lm_randn(gen, (1, 256, 8, 128), f32)],
+                            lambda q, k, v: ops.flash_attention(
+                                q, k, v, window=100),
+                            lambda q, k, v: fa.flash_attention_ref(
+                                q, k, v, window=100),
+                            LM_TOL[("attention", f32)]),
+        "flash_decode": ([lm_randn(gen, (24, 1, 32, 128), f32),
+                          lm_randn(gen, (24, 2048, 8, 128), f32),
+                          lm_randn(gen, (24, 2048, 8, 128), f32)],
+                         lambda q, k, v: ops.flash_decode(q, k, v, kv),
+                         lambda q, k, v: fd.decode_attention_ref(q, k, v,
+                                                                 kv),
+                         LM_TOL[("attention", f32)]),
+    }
+    lines = []
+    for kernel, (ins, run, plain, tol) in cases.items():
+        def grads(fn):
+            leaves = [t.clone().requires_grad_(True) for t in ins]
+            out = fn(*leaves)
+            w = torch.linspace(-1, 1, out.numel(), device=DEV)
+            (out * w.reshape(out.shape)).sum().backward()
+            return out.detach(), [t.grad for t in leaves]
+        before = ops.launch_counts()[kernel]
+        out, got = grads(run)
+        torch.cuda.synchronize()
+        launched = ops.launch_counts()[kernel] - before
+        want_out, want = grads(plain)
+        if launched != 1 or any(g is None for g in got):
+            raise AssertionError(f"{kernel} gradient: {launched} launches, "
+                                 f"gradients {[g is None for g in got]}")
+        errs = [lm_compare(kernel, out, want_out, tol, "grad forward")]
+        errs += [lm_compare(kernel, g, w, tol, f"grad of input {i}",
+                            kernel_output=False)
+                 for i, (g, w) in enumerate(zip(got, want))]
+        lines.append(dict(kernel=kernel, launches=launched, tol=tol,
+                          shapes=[list(t.shape) for t in ins],
+                          max_abs_err=[e["max_abs_err"] for e in errs],
+                          worst_share_of_tol=max(e["share_of_tol"]
+                                                 for e in errs),
+                          gradients_none=0))
+    return lines
 
 
 def tree_to(tree, dtype):
@@ -2768,7 +2874,7 @@ def phase_lm_main_path() -> dict:
     del params
     tk = torch.as_tensor(rng.integers(0, cfg.vocab_size, (PARITY_B, PARITY_S)),
                          dtype=torch.int64, device=DEV)
-    fwd = model32.forward(params32, {"tokens": tk})[:, -1]
+    fwd = model32.forward(params32, {"tokens": tk})[0][:, -1]
     _cache, dec = model32.prefill(params32, {"tokens": tk}, max_seq=PARITY_S,
                                   dtype=torch.float32)
     diff = float((fwd - dec[:, 0]).abs().max())
@@ -2781,6 +2887,307 @@ def phase_lm_main_path() -> dict:
         max_abs_logit=float(fwd.abs().max()))
     del params32
     return dict(serve=serve, prefill=prefill)
+
+
+# ---------------------------------------------------------------------------
+# Phase lm_moe: mixtral-8x7b at full width (depth cut to what one card holds)
+# through the MoE layer with its work-stealing overflow rebalance.
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "mixtral-8x7b"
+MOE_SEED = 0
+#: layers served at full width: 4 of 32 (bf16: 6.07 B parameters, 12.1 GB;
+#: all 32 are 46.7 B, 93.4 GB, above the card's 80 GB)
+MOE_REPEATS = 4
+#: layers of the float32 parity check (3.16 B parameters, 12.7 GB)
+MOE_PARITY_REPEATS = 2
+#: tokens of the MoE layer held against the port's CPU plain path, and the
+#: weight of a direction shared by every token (it skews the routing, so
+#: that experts overflow and idle ones steal)
+MOE_LAYER_T, MOE_SKEW = 64, 1.0
+#: the routing groups held against the CPU, as (tokens, y compared too):
+#: the decode step's (24 tokens, capacity 8), MOE_LAYER_T tokens (capacity
+#: 20) and the production prefill's (4 x 2048 tokens, capacity 2560;
+#: routing only, since the CPU's expert products at 2560 slots would take
+#: minutes)
+MOE_GROUPS = ((SERVE_REQUESTS, True), (MOE_LAYER_T, True),
+              (PREFILL_B * PREFILL_S, False))
+#: (query heads, KV heads) of mixtral-8x7b
+MOE_HEADS = (32, 8)
+
+
+def moe_cfg(repeats: int, **over):
+    return dataclasses.replace(get_lm_config(MOE_ARCH), repeats=repeats,
+                               **over)
+
+
+def step_weight_bytes(params, batch: int) -> int:
+    """Bytes a decode step must read: every weight once (the expert GEMMs
+    run every expert's C slots, so all experts' weights are read), of an
+    untied embedding table only the batch's rows."""
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, dict) else (v,)
+    total = sum(t.numel() * t.element_size() for t in leaves(params))
+    emb = params["tok_embed"]
+    if "lm_head" in params:
+        total -= (emb.shape[0] - batch) * emb.shape[1] * emb.element_size()
+    return total
+
+
+def phase_lm_moe() -> dict:
+    """mixtral-8x7b at full width, ``MOE_REPEATS`` layers, bf16 random
+    weights from a seed on the card: (1) serving through decode_batch's
+    graph, tokens equal to the eager loop's; (2) the production prefill;
+    each counted on its own; (3) the float32 parity of forward and
+    sequential prefill at ``MOE_PARITY_REPEATS`` layers; (4) one MoE layer
+    on the card against the port's CPU plain path, routing equal; (5)
+    where a decode step's time goes."""
+    t_phase = time.perf_counter()
+    cfg = moe_cfg(MOE_REPEATS)
+    model = build_lm_model(cfg)                       # device=None: the card
+    t0 = time.perf_counter()
+    params = model.init_params(
+        torch.Generator(device=DEV).manual_seed(MOE_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(MOE_SEED)
+    reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab_size,
+                                               SERVE_PROMPT).astype(np.int32),
+                    max_new=SERVE_NEW) for i in range(SERVE_REQUESTS)]
+    decode_batch(model, params, reqs)                       # warm (cuBLAS)
+    # ---- (1) serving: every count at 0 just before -------------------------
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = decode_batch(model, params, reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    graph = decode_batch.last_graph
+    steps = SERVE_PROMPT + SERVE_NEW
+    L = cfg.n_layers
+    # a step: norm1 and norm2 a layer (no qk-norm) and the final norm, one
+    # flash decode a layer; width 4096 has a register kernel, 24 rows one
+    # split
+    serve_counts, serve_variants = lm_counts_since_reset(
+        {"rms_norm": {"row_in_registers": steps * (2 * L + 1)},
+         "flash_decode": {"single": steps * L}},
+        rms_norm=steps * (2 * L + 1), flash_decode=steps * L)
+    if graph is None or graph["replays"] != steps - 1:
+        raise AssertionError(f"{MOE_ARCH} decode_batch replayed {graph}, "
+                             f"expected {steps - 1} replays")
+    if tokens.shape != (SERVE_REQUESTS, SERVE_NEW) or tokens.min() < 0 \
+            or tokens.max() >= cfg.padded_vocab:
+        raise AssertionError(f"{MOE_ARCH} decode_batch returned "
+                             f"{tokens.shape} in [{tokens.min()}, "
+                             f"{tokens.max()}]")
+    eager_tokens, eager_s = eager_serve(model, params, reqs)
+    if not np.array_equal(tokens, eager_tokens):
+        raise AssertionError(f"{MOE_ARCH} decode_batch's tokens differ from "
+                             f"the eager loop's in "
+                             f"{int((tokens != eager_tokens).sum())} places")
+    replayed_s = serve_s - graph["warmup_seconds"] - graph["capture_seconds"]
+    weight_bytes = step_weight_bytes(params, SERVE_REQUESTS)
+    serve = dict(requests=SERVE_REQUESTS, prompt=SERVE_PROMPT,
+                 new_tokens=SERVE_NEW, decode_steps=steps,
+                 wall_seconds=serve_s,
+                 tokens_per_second=SERVE_REQUESTS * SERVE_NEW / serve_s,
+                 warmup_seconds=graph["warmup_seconds"],
+                 capture_seconds=graph["capture_seconds"],
+                 replays=graph["replays"],
+                 ms_per_replayed_step=replayed_s / graph["replays"] * 1e3,
+                 step_bytes=weight_bytes,
+                 step_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+                 eager_loop_wall_seconds=eager_s,
+                 eager_loop_ms_per_step=eager_s / steps * 1e3,
+                 tokens_equal_the_eager_loop=True,
+                 launches=serve_counts, launches_by_variant=serve_variants,
+                 launches_per_replay=graph["launches_per_replay"][0],
+                 sample=tokens[0].tolist())
+    say("lm_moe", path="serve.decode_batch", arch=MOE_ARCH, repeats=L,
+        params=model.param_count(), param_dtype=cfg.param_dtype,
+        capacity_factor=cfg.capacity_factor, ws_rebalance=cfg.ws_rebalance,
+        init_seconds=init_s, card=card_line(), **serve)
+    # ---- (2) production prefill --------------------------------------------
+    step = build_prefill_step(model)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S)),
+        dtype=torch.int64, device=DEV)}
+    step(params, batch)                                     # warm
+    reset_all_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_counts, prefill_variants = lm_counts_since_reset(
+        {"rms_norm": {"row_in_registers": 2 * L + 1},
+         "flash_attention": {"tc_bf16": L}},
+        rms_norm=2 * L + 1, flash_attention=L)
+    if logits.shape != (PREFILL_B, 1, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{MOE_ARCH} prefill logits "
+                             f"{tuple(logits.shape)} or not finite")
+    prefill = dict(batch=PREFILL_B, seq=PREFILL_S, wall_seconds=prefill_s,
+                   tokens_per_second=PREFILL_B * PREFILL_S / prefill_s,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   capacity=moe_mod.capacity(PREFILL_B * PREFILL_S,
+                                             cfg.experts_per_tok,
+                                             cfg.capacity_factor,
+                                             cfg.n_experts),
+                   launches=prefill_counts,
+                   launches_by_variant=prefill_variants)
+    say("lm_moe", path="steps.build_prefill_step", arch=MOE_ARCH, repeats=L,
+        card=card_line(), **prefill)
+    # ---- (5) where a decode step's time goes (the served weights) ----------
+    tok = torch.as_tensor(rng.integers(1, cfg.vocab_size,
+                                       (SERVE_REQUESTS, 1)),
+                          dtype=torch.int64, device=DEV)
+    for window, profile in lm_profile_decode_steps(model, params,
+                                                   tok).items():
+        say("lm_profile", what=f"decode steps, serving path, {window}",
+            arch=MOE_ARCH, repeats=L, card=card_line(), **profile)
+    layer0 = {k: v[0].float() for k, v in
+              params["layers"]["slot0"]["ffn"].items()}
+    parity_params = {k: (tree_to(_first(v, MOE_PARITY_REPEATS), torch.float32)
+                         if k == "layers" else v.float())
+                     for k, v in params.items()}
+    del params, model, step
+    torch.cuda.empty_cache()
+    # ---- (3) float32 parity at full width ----------------------------------
+    cfg32 = moe_cfg(MOE_PARITY_REPEATS, param_dtype="float32",
+                    capacity_factor=64.0, ws_rebalance=False)
+    model32 = build_lm_model(cfg32)
+    tk = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                      (PARITY_B, PARITY_S)),
+                         dtype=torch.int64, device=DEV)
+    fwd, aux = model32.forward(parity_params, {"tokens": tk})
+    fwd = fwd[:, -1]
+    _cache, dec = model32.prefill(parity_params, {"tokens": tk},
+                                  max_seq=PARITY_S, dtype=torch.float32)
+    diff = float((fwd - dec[:, 0]).abs().max())
+    tol = 1e-3 * float(fwd.abs().max()) + 1e-3
+    if not diff < tol or not bool(torch.isfinite(fwd).all()):
+        raise AssertionError(f"{MOE_ARCH} float32 forward and sequential "
+                             f"prefill differ by {diff} (tolerance {tol})")
+    say("lm_moe", path="parity", arch=MOE_ARCH, repeats=cfg32.n_layers,
+        param_dtype="float32", capacity_factor=cfg32.capacity_factor,
+        ws_rebalance=False, batch=PARITY_B, seq=PARITY_S, max_abs_diff=diff,
+        tol=tol, max_abs_logit=float(fwd.abs().max()), moe_aux=float(aux))
+    del parity_params, model32
+    torch.cuda.empty_cache()
+    # ---- (4) one MoE layer on the card against the CPU plain path ----------
+    moe_layer_against_the_cpu(cfg, layer0, rng)
+    say("lm_moe", path="done", seconds=time.perf_counter() - t_phase)
+    return dict(serve=serve, prefill=prefill)
+
+
+def _first(tree, n: int):
+    """The first ``n`` layers of a tree stacked over repeats (views)."""
+    return {k: _first(v, n) if isinstance(v, dict) else v[:n]
+            for k, v in tree.items()}
+
+
+def moe_layer_against_the_cpu(cfg, layer: dict, rng) -> None:
+    """One full-width MoE layer (float32 weights, the config's capacity
+    factor, the rebalance on) on the card against the port's CPU plain path
+    (which the CPU tests hold to the JAX package), at each group of
+    ``MOE_GROUPS``: the group the decode step routes, ``MOE_LAYER_T``
+    skewed tokens (``stolen`` > 0), and the production prefill's."""
+    cpu = {n: w.cpu() for n, w in layer.items()}
+    for T, with_y in MOE_GROUPS:
+        line, faults = moe_group_against_the_cpu(cfg, layer, cpu, T, with_y,
+                                                 rng)
+        say("lm_moe", **line)
+        if T == MOE_LAYER_T and not line["stolen"] > 0:
+            faults.append(f"stolen {line['stolen']}, expected > 0")
+        if faults:
+            raise AssertionError(f"MoE layer on the card, {T} tokens: "
+                                 f"{'; '.join(faults)}")
+
+
+def moe_group_against_the_cpu(cfg, layer: dict, cpu: dict, T: int,
+                              with_y: bool, rng):
+    """One routing group of ``T`` float32 tokens on the card and on the CPU.
+    Returns (the case's line, its faults):
+
+    * the top-k experts are equal on every token whose adjacent top-(k+1)
+      router probabilities are at least 1e-6 apart; a token below that is a
+      near-tie, where two float32 router products may order two experts
+      differently: it is reported, and excused on that token alone;
+    * the integer half of the routing (slots, keep masks, stolen masks,
+      load: ``moe._slots``) on the card equals the CPU's run on the card's
+      own choice of experts, exactly, and so do ``dropped`` and ``stolen``:
+      no near-tie excuses a difference there;
+    * with ``with_y``, the layer's y (``moe_apply``) within 1e-4 * max|y|
+      (float32 products summed in other orders) on every token whose
+      experts and keep masks are equal on both sides: all of them unless a
+      near-tie moved one."""
+    E, k, D = cfg.n_experts, cfg.experts_per_tok, cfg.d_model
+    x = torch.as_tensor(rng.standard_normal((1, T, D))
+                        + MOE_SKEW * rng.standard_normal(D),
+                        dtype=torch.float32)
+    C = moe_mod.capacity(T, k, cfg.capacity_factor, E)
+    t0 = time.perf_counter()
+    r_gpu = moe_mod._route(x[0].to(DEV), layer["router"], E, k, C, True)
+    card_fractions = [float(v) for v in moe_mod._route_stats(r_gpu, E)[1:]]
+    r_gpu = moe_mod._Route(*(t.cpu() for t in r_gpu))
+    r_cpu = moe_mod._route(x[0], cpu["router"], E, k, C, True)
+    on_card_choice = moe_mod._slots(r_gpu.expert_idx, E, C, True)
+    probs = torch.softmax(x[0].double() @ cpu["router"].double(), dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True).values[:, :k + 1]
+    gaps = (top[:, :-1] - top[:, 1:]).min(dim=-1).values
+    tie = gaps < 1e-6
+    apart = (r_gpu.expert_idx != r_cpu.expert_idx).any(dim=-1)
+    faults = []
+    if bool((apart & ~tie).any()):
+        faults.append(f"top-k experts differ on tokens "
+                      f"{torch.nonzero(apart & ~tie)[:, 0].tolist()} with "
+                      f"no near-tie")
+    names = ("flat_e", "slot_c", "keep", "steal", "load")
+    differ = [n for n, want in zip(names, on_card_choice)
+              if not torch.equal(getattr(r_gpu, n), want)]
+    keep, steal = on_card_choice[2], on_card_choice[3]
+    if card_fractions != [float((~keep).float().mean()),
+                          float(steal.float().mean())]:
+        differ.append("dropped/stolen")
+    if differ:
+        faults.append(f"the integer routing on the card differs from the "
+                      f"CPU's on the card's experts in {differ}")
+    same = ((r_gpu.flat_e == r_cpu.flat_e) & (r_gpu.keep == r_cpu.keep)) \
+        .reshape(T, k).all(dim=-1)
+    if not bool(apart.any()) and not bool(same.all()):
+        faults.append("assignments differ with the same top-k experts")
+    dropped, stolen = card_fractions
+    line = dict(path="moe_layer_vs_cpu", arch=MOE_ARCH, tokens=T, d_model=D,
+                d_ff=cfg.expert_d_ff, experts=E, top_k=k, capacity=C,
+                capacity_factor=cfg.capacity_factor, ws_rebalance=True,
+                skew=MOE_SKEW, stolen=stolen, dropped=dropped,
+                load=r_gpu.load.tolist(), integer_routing_differs_in=differ,
+                tokens_with_other_experts=int(apart.sum()),
+                smallest_top_gap=float(gaps.min()),
+                tokens_with_a_gap_below_1e_6=int(tie.sum()),
+                routing_equals_the_cpus=not differ and not bool(apart.any()),
+                gates_max_abs_err=float(((r_gpu.gates - r_cpu.gates).abs()
+                                         * same.repeat_interleave(k)).max()),
+                route_seconds=time.perf_counter() - t0)
+    if T <= 64:
+        line["top_gap_by_token"] = [float(g) for g in gaps]
+    if with_y:
+        kw = dict(n_experts=E, top_k=k, capacity_factor=cfg.capacity_factor,
+                  ws_rebalance=True)
+        y_gpu, aux_gpu, _st = moe_mod.moe_apply(layer, x.to(DEV), **kw)
+        y_gpu = y_gpu.cpu()
+        y_cpu, aux_cpu, _st = moe_mod.moe_apply(cpu, x, **kw)
+        y_err = float(((y_gpu - y_cpu)[0].abs() * same[:, None]).max())
+        y_tol = 1e-4 * float(y_cpu.abs().max())
+        line.update(y_max_abs_err=y_err, y_tol=y_tol,
+                    y_tokens_compared=int(same.sum()),
+                    aux_gpu=float(aux_gpu), aux_cpu=float(aux_cpu))
+        if not y_err <= y_tol:
+            faults.append(f"y error {y_err} (tolerance {y_tol})")
+    return line, faults
 
 
 def eager_ms(fn, reps: int) -> float:
@@ -2888,8 +3295,12 @@ def lm_time_rms(gen, R: int, D: int, reps: int) -> dict:
     return {**row, **lm_rates(row, "rms_norm", (R, D), variant)}
 
 
-def lm_time_attention(gen, B: int, S: int, reps: int) -> dict:
-    dt, H, KV, hd = torch.bfloat16, 16, 8, 128
+def lm_time_attention(gen, B: int, S: int, reps: int, H: int = 16,
+                      KV: int = 8) -> dict:
+    """Causal attention of B x S tokens; qwen3-1.7b's heads unless given
+    (mixtral-8x7b: 32 and 8; its window of 4096 masks nothing at S =
+    2048)."""
+    dt, hd = torch.bfloat16, 128
     q = lm_randn(gen, (B, S, H, hd), dt)
     k, v = lm_randn(gen, (B, S, KV, hd), dt), lm_randn(gen, (B, S, KV, hd), dt)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -2905,14 +3316,15 @@ def lm_time_attention(gen, B: int, S: int, reps: int) -> dict:
                        qt, kt, vt, is_causal=True, enable_gqa=True),
                    reps, 2),
                bound_ms=bound, bound_by=by, bound_detail=detail)
-    return {**row, **lm_rates(row, "flash_attention", (B, S),
+    return {**row, **lm_rates(row, "flash_attention", (B, S, H, KV),
                               ATTN_VARIANT[dt])}
 
 
-def lm_time_decode(gen, B: int, Smax: int, kv_len: int, reps: int) -> dict:
+def lm_time_decode(gen, B: int, Smax: int, kv_len: int, reps: int,
+                   H: int = 16, KV: int = 8) -> dict:
     """The kernel with kv_len on the device, as the serving path passes
-    it."""
-    dt, H, KV, hd = torch.bfloat16, 16, 8, 128
+    it; qwen3-1.7b's heads unless given (mixtral-8x7b: 32 and 8)."""
+    dt, hd = torch.bfloat16, 128
     q = lm_randn(gen, (B, 1, H, hd), dt)
     kc, vc = (lm_randn(gen, (B, Smax, KV, hd), dt) for _ in range(2))
     kv = torch.tensor(kv_len, dtype=torch.int32, device=DEV)
@@ -2932,7 +3344,7 @@ def lm_time_decode(gen, B: int, Smax: int, kv_len: int, reps: int) -> dict:
                    lambda: torch.nn.functional.scaled_dot_product_attention(
                        qt, kt, vt, enable_gqa=True), reps, reps),
                bound_ms=bound, bound_by=by, bound_detail=detail)
-    return {**row, **lm_rates(row, "flash_decode", (B, Smax),
+    return {**row, **lm_rates(row, "flash_decode", (B, Smax, H, KV),
                               fd.VARIANTS[splits > 1])}
 
 
@@ -3008,17 +3420,12 @@ def profile_window(run_steps) -> dict:
                      for n_, ms, c in rows[:12]])
 
 
-def lm_profile_decode_steps() -> dict:
+def lm_profile_decode_steps(model, params, tok) -> dict:
     """Where a decode step's time goes (full width, bf16, the batch of
-    phase lm_main_path): a window of eager steps, every launch from Python,
-    and a window of replays of the step's CUDA graph, as decode_batch runs
-    them."""
-    cfg = get_lm_config(LM_ARCH)
-    model = build_lm_model(cfg)
-    params = model.init_params(
-        torch.Generator(device=DEV).manual_seed(LM_SEED))
-    B, S = SERVE_REQUESTS, SERVE_PROMPT + SERVE_NEW
-    tok = torch.zeros((B, 1), dtype=torch.int64, device=DEV)
+    phase lm_main_path, tokens ``tok`` (B, 1) at every step): a window of
+    eager steps, every launch from Python, and a window of replays of the
+    step's CUDA graph, as decode_batch runs them."""
+    B, S = tok.shape[0], SERVE_PROMPT + SERVE_NEW
     out = {}
     for name, make in (("eager", lambda: model.decode_step),
                        ("graph_replay", lambda: GraphedDecodeStep(model))):
@@ -3033,22 +3440,40 @@ def lm_profile_decode_steps() -> dict:
             return logits
         out[name] = profile_window(run_steps)
         del step, cache
-    del params
     return out
 
 
+#: the counted runs of the LM phases, as (key of their dicts, path in the
+#: kernels line)
+LM_PATHS = (("serve", "serve.decode_batch"),
+            ("prefill", "steps.build_prefill_step"),
+            ("moe_serve", f"serve.decode_batch {MOE_ARCH}"),
+            ("moe_prefill", f"steps.build_prefill_step {MOE_ARCH}"))
+
+
 def phase_lm_timing(main: dict) -> list:
+    """Each kernel at the main paths' shapes (qwen3-1.7b's first, then
+    mixtral-8x7b's), the fixed cost of a launch in a graph, qwen3-1.7b's
+    decode profile; returns the kernels line's LM entries. ``main``: the
+    counted runs of phases lm_main_path and lm_moe (``LM_PATHS``)."""
     gen = torch.Generator(device=DEV).manual_seed(LM_SEED + 1)
     serve_kv = SERVE_PROMPT + SERVE_NEW
+    H, KV = MOE_HEADS
     shapes = {
         "rms_norm": [lm_time_rms(gen, PREFILL_B * PREFILL_S, 2048, 50),
                      lm_time_rms(gen, PREFILL_B * PREFILL_S * 16, 128, 50),
-                     lm_time_rms(gen, SERVE_REQUESTS, 2048, 200)],
-        "flash_attention": [lm_time_attention(gen, PREFILL_B, PREFILL_S, 10)],
+                     lm_time_rms(gen, SERVE_REQUESTS, 2048, 200),
+                     lm_time_rms(gen, PREFILL_B * PREFILL_S, 4096, 50),
+                     lm_time_rms(gen, SERVE_REQUESTS, 4096, 200)],
+        "flash_attention": [lm_time_attention(gen, PREFILL_B, PREFILL_S, 10),
+                            lm_time_attention(gen, PREFILL_B, PREFILL_S, 10,
+                                              H, KV)],
         "flash_decode": [lm_time_decode(gen, SERVE_REQUESTS, serve_kv,
                                         serve_kv, 200),
                          lm_time_decode(gen, SERVE_REQUESTS, 2048, 2048, 50),
-                         lm_time_decode(gen, 1, 32768, 32768, 50)],
+                         lm_time_decode(gen, 1, 32768, 32768, 50),
+                         lm_time_decode(gen, SERVE_REQUESTS, serve_kv,
+                                        serve_kv, 200, H, KV)],
     }
     for kernel, rows in shapes.items():
         for r in rows:
@@ -3058,25 +3483,27 @@ def phase_lm_timing(main: dict) -> list:
     one = torch.zeros(1, device=DEV)
     say("lm_timing", kernel="one-element fill (Tensor.fill_)",
         ms=graph_ms(lambda: one.fill_(1.0), 200), card=card_line())
-    for window, profile in lm_profile_decode_steps().items():
+    model = build_lm_model(get_lm_config(LM_ARCH))
+    params = model.init_params(
+        torch.Generator(device=DEV).manual_seed(LM_SEED))
+    tok = torch.zeros((SERVE_REQUESTS, 1), dtype=torch.int64, device=DEV)
+    for window, profile in lm_profile_decode_steps(model, params,
+                                                   tok).items():
         say("lm_profile", what=f"decode steps, serving path, {window}",
-            card=card_line(), **profile)
-    launches = {k: main["serve"]["launches"][k] + main["prefill"]["launches"][k]
-                for k in LM_KERNELS}
+            arch=LM_ARCH, card=card_line(), **profile)
+    del model, params
     entries = []
     for kernel, rows in shapes.items():
         head = rows[0]          # the main path's shape (prefill; decode: a)
+        by_path = {path: main[key]["launches"][kernel]
+                   for key, path in LM_PATHS}
         entries.append({
             "name": kernel, "route": "cuda", "source": LM_SOURCES[kernel],
-            "replaces": LM_REPLACES[kernel], "launches": launches[kernel],
-            "launches_by_path": {
-                "serve.decode_batch": main["serve"]["launches"][kernel],
-                "steps.build_prefill_step":
-                    main["prefill"]["launches"][kernel]},
+            "replaces": LM_REPLACES[kernel],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "launches_by_variant": {
                 path: main[key]["launches_by_variant"].get(kernel)
-                for key, path in (("serve", "serve.decode_batch"),
-                                  ("prefill", "steps.build_prefill_step"))},
+                for key, path in LM_PATHS},
             "max_abs_err": LM_WORST[kernel], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -3190,6 +3617,9 @@ def main():
     # versions, its two main paths counted, the kernels' times
     phase_lm_kernels()
     lm_main = phase_lm_main_path()
+    # 6b. mixtral-8x7b at full width through the MoE layer
+    lm_moe = phase_lm_moe()
+    lm_main.update(moe_serve=lm_moe["serve"], moe_prefill=lm_moe["prefill"])
     entries += phase_lm_timing(lm_main)
     say("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": entries}), flush=True)

@@ -8,7 +8,8 @@ outputs and whether it copied a CUDA tensor to the host, while
 ``engine.advance(model, loop, max_steps=1)`` runs one step of the batched
 event loop for each task model on a tiny one-cluster topology, and while
 ``Model.decode_step`` runs the body that ``launch/steps.py::
-GraphedDecodeStep`` captures. On the card the ``ws_sim_cuda`` launch is
+GraphedDecodeStep`` captures, for each architecture of
+:data:`DECODE_ARCHS` (a dense one and a MoE one). On the card the ``ws_sim_cuda`` launch is
 recorded too (the kernel itself is a ``ctypes`` call, outside aten).
 
 ``retrace.static_args``
@@ -79,11 +80,23 @@ STEP_SYNCS = 1
 HOST_SYNC_CALLS = ("item", "tolist", "numpy", "cpu")
 
 #: (file under src/repro_torch, function) whose bodies must not sync: the
-#: event step, the kernel launcher and the captured decode step
+#: event step, the kernel launcher, the captured decode step and the MoE
+#: layer it runs
 SYNC_FREE = (("core/engine.py", "advance"),
              ("kernels/ws_sim.py", "_launch"),
              ("kernels/ws_sim.py", "_params"),
-             ("models/model.py", "decode_step"))
+             ("models/model.py", "decode_step"),
+             ("models/moe.py", "moe_apply"),
+             ("models/moe.py", "moe_output"),
+             ("models/moe.py", "_moe"),
+             ("models/moe.py", "_route_group"),
+             ("models/moe.py", "_route"),
+             ("models/moe.py", "_top_k"),
+             ("models/moe.py", "_slots"),
+             ("models/moe.py", "_route_stats"))
+
+#: the architectures whose reduced decode step the lint records
+DECODE_ARCHS = ("qwen3-1.7b", "mixtral-8x7b")
 
 
 def tiny_models() -> List[Tuple[str, object]]:
@@ -347,14 +360,14 @@ def host_sync_source_findings(root: Optional[Path] = None) -> List[Finding]:
     return out
 
 
-def decode_step_ops(device) -> List[Op]:
-    """``Model.decode_step`` of the reduced ``qwen3-1.7b`` (random weights
-    from a seed) with the position as a device int32 tensor, as the
-    captured graph runs it; returns the recorded operations."""
+def decode_step_ops(device, arch: str = DECODE_ARCHS[0]) -> List[Op]:
+    """``Model.decode_step`` of the reduced ``arch`` (random weights from a
+    seed) with the position as a device int32 tensor, as the captured graph
+    runs it; returns the recorded operations."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    model = build_model(get_config("qwen3-1.7b").reduced(), device=device)
+    model = build_model(get_config(arch).reduced(), device=device)
     params = model.init_params(
         torch.Generator(device=model.device).manual_seed(0))
     cache = model.init_cache(2, 16)
@@ -400,14 +413,16 @@ def run(root: Optional[Path] = None, device=None) -> List[Finding]:
         findings.extend(core_state_findings(name, model, dev))
         if dev.type == "cuda":
             findings.extend(launch_findings(name, model, dev))
-    findings.extend(scan_ops(decode_step_ops(dev), "models.model.decode_step",
-                             "qwen3-1.7b"))
+    for arch in DECODE_ARCHS:
+        findings.extend(scan_ops(decode_step_ops(dev, arch),
+                                 "models.model.decode_step", arch))
     findings.extend(host_sync_source_findings(root))
     return findings
 
 
 __all__ = ["PASS", "SYNC_OP", "SIGNATURE_WIDTHS", "STEP_SYNCS",
-           "HOST_SYNC_CALLS", "SYNC_FREE", "tiny_models", "Op", "OpRecorder",
+           "HOST_SYNC_CALLS", "SYNC_FREE", "DECODE_ARCHS", "tiny_models",
+           "Op", "OpRecorder",
            "record_ops", "signature", "scan_ops", "static_arg_findings",
            "step_ops", "signature_findings", "launch_key",
            "shape_branch_findings", "state_dtype_findings",

@@ -122,19 +122,20 @@ class ArchConfig:
 #: the architectures this port runs; the JAX package knows more
 _REGISTRY: Dict[str, str] = {
     "qwen3-1.7b": "repro_torch.configs.qwen3_1p7b",
+    "deepseek-67b": "repro_torch.configs.deepseek_67b",
+    "phi3-mini-3.8b": "repro_torch.configs.phi3_mini_3p8b",
+    "command-r-35b": "repro_torch.configs.command_r_35b",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe_42b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
 }
 
 #: the JAX package's other architectures, and what they wait for in the port
 _NOT_YET = {
-    "deepseek-67b": "a later slice (dense at 67B needs mesh/sharding)",
-    "phi3-mini-3.8b": "a later slice of the language-model substrate",
-    "command-r-35b": "a later slice (parallel block, mesh/sharding)",
-    "phi3.5-moe-42b-a6.6b": "the MoE slice (models/moe.py)",
-    "mixtral-8x7b": "the MoE slice (models/moe.py)",
-    "xlstm-350m": "the xLSTM slice (models/xlstm.py)",
-    "whisper-large-v3": "the encoder-decoder slice",
-    "jamba-v0.1-52b": "the SSM and MoE slices (models/ssm.py, moe.py)",
-    "internvl2-76b": "the vision-prefix slice",
+    "xlstm-350m": "ROADMAP Queue A 8.3 (models/xlstm.py: mLSTM, sLSTM)",
+    "jamba-v0.1-52b": "ROADMAP Queue A 8.4 (models/ssm.py: the Mamba mixer)",
+    "whisper-large-v3": "ROADMAP Queue A 8.5 (the xattn mixer, the encoder, "
+                        "learned positions)",
+    "internvl2-76b": "ROADMAP Queue A 8.6 (the vision prefix)",
 }
 
 

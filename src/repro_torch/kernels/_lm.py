@@ -1,7 +1,8 @@
 """What the three language-model kernel wrappers (``rmsnorm.py``,
 ``flash_attention.py``, ``decode_attention.py``) share: their element types,
-the checks an operand passes before its pointer reaches a kernel, and the
-binding of a launcher from its library."""
+the checks an operand passes before its pointer reaches a kernel, the
+binding of a launcher from its library, and the gradient of a launch
+(:class:`KernelWithPlainBackward`)."""
 from __future__ import annotations
 
 import ctypes
@@ -68,3 +69,44 @@ def raise_on_error(lib: ctypes.CDLL, name: str, err: int, detail: str) -> None:
 
 def stream_of(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def wants_grad(*ts: torch.Tensor) -> bool:
+    """True when autograd records this call: grad mode is on and an operand
+    requires a gradient. Only then does a wrapper route its launch through
+    :class:`KernelWithPlainBackward`; otherwise it launches directly, so a
+    decode step (grad mode off) runs and counts exactly as before."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class KernelWithPlainBackward(torch.autograd.Function):
+    """A kernel launch with the gradient of its plain version.
+
+    ``apply(launch, plain, *inputs)``: the forward is ``launch(*inputs)``,
+    the kernel, exactly as without autograd (its launch counts too). The
+    backward recomputes ``plain(*inputs)`` under autograd from the saved
+    inputs and returns ``torch.autograd.grad`` of it: the hand-written
+    kernels write their outputs through ``ctypes``, which autograd cannot
+    see, so without this a backward on the card would stop at every kernel
+    without an error. Non-tensor arguments (eps, window, kv_len) reach both
+    callables through their closures. The backward kernels themselves are
+    later work; this one is the plain version's arithmetic, on the card.
+    """
+
+    @staticmethod
+    def forward(ctx, launch, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        return launch(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, needs)]
+            out = ctx.plain(*leaves)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in leaves if t.requires_grad], grad_out))
+        return (None, None) + tuple(next(grads) if need else None
+                                    for need in needs)

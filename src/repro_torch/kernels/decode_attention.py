@@ -26,8 +26,10 @@ are written at the head of the CUDA source.
 
 :func:`flash_decode` launches the kernel for tensors on a CUDA device and
 raises if it cannot; only for tensors that lie on the CPU does it run the
-plain version :func:`decode_attention_ref`. ``flash_decode.launches`` counts
-launches, ``flash_decode.launches_by_variant`` the launches of each variant.
+plain version :func:`decode_attention_ref`. When autograd records the call,
+the launch goes through ``_lm.KernelWithPlainBackward``, whose backward is
+the plain version's gradient. ``flash_decode.launches`` counts launches,
+``flash_decode.launches_by_variant`` the launches of each variant.
 """
 from __future__ import annotations
 
@@ -148,6 +150,19 @@ def flash_decode(q, k_cache, v_cache, kv_len: KvLen, *,
     if dev.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, kv_len,
                                     window=window)
+    if _lm.wants_grad(q, k_cache, v_cache):
+        return _lm.KernelWithPlainBackward.apply(
+            lambda q, kc, vc: _launch(q, kc, vc, kv_len, window),
+            lambda q, kc, vc: decode_attention_ref(q, kc, vc, kv_len,
+                                                   window=window),
+            q, k_cache, v_cache)
+    return _launch(q, k_cache, v_cache, kv_len, window)
+
+
+def _launch(q, k_cache, v_cache, kv_len: KvLen,
+            window: int) -> torch.Tensor:
+    """The kernel on checked CUDA operands; counts the launch."""
+    dev = q.device
     B, _, H, hd = q.shape
     Smax, KV = k_cache.shape[1], k_cache.shape[2]
     if hd not in _lm.HEAD_DIMS:

@@ -20,7 +20,9 @@ Two kernels, routed by the operands' dtype (never as a fallback):
 The design of each, and what bounds it on this card, are written at the head
 of its CUDA source. :func:`flash_attention` launches the kernel for tensors
 on a CUDA device and raises if it cannot; only for tensors that lie on the
-CPU does it run the plain version :func:`flash_attention_ref`.
+CPU does it run the plain version :func:`flash_attention_ref`. When autograd
+records the call, the launch goes through ``_lm.KernelWithPlainBackward``,
+whose backward is the plain version's gradient.
 ``flash_attention.launches`` counts kernel launches,
 ``flash_attention.launches_by_variant`` the launches of each kernel.
 """
@@ -97,6 +99,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if dev.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if _lm.wants_grad(q, k, v):
+        return _lm.KernelWithPlainBackward.apply(
+            lambda q, k, v: _launch(q, k, v, **kw),
+            lambda q, k, v: flash_attention_ref(q, k, v, **kw), q, k, v)
+    return _launch(q, k, v, **kw)
+
+
+def _launch(q, k, v, *, causal: bool, window: int,
+            q_offset: int) -> torch.Tensor:
+    """The kernel of q's dtype on checked CUDA operands; counts the
+    launch."""
+    dev = q.device
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     if hd not in _lm.HEAD_DIMS:

@@ -4,7 +4,11 @@ package's ``kernels/ops.py``), and their launch counts.
 The model calls its kernels through these names. Each wrapper checks its
 operands' device, dtype, shape and contiguity; on CUDA tensors it launches its
 kernel or raises (there is no fallback), and only for tensors that lie on the
-CPU does it run its plain version. Each keeps an integer ``launches`` count
+CPU does it run its plain version. Each is differentiable: when grad mode is
+on and an operand requires a gradient, the launch goes through
+``_lm.KernelWithPlainBackward``, whose backward recomputes the plain version
+under autograd (the plain version's own gradient, on the card); otherwise it
+launches directly. Each keeps an integer ``launches`` count
 and a ``launches_by_variant`` dict (``rms_norm``: register or generic kernel;
 ``flash_attention``: tensor cores or float32; ``flash_decode``: one split or
 several).

@@ -12,7 +12,9 @@ generic one.
 
 :func:`rms_norm` launches the kernel for tensors on a CUDA device and raises
 if it cannot; only for tensors that lie on the CPU does it run the plain
-version :func:`rms_norm_ref`. ``rms_norm.launches`` counts kernel launches,
+version :func:`rms_norm_ref`. When autograd records the call, the launch
+goes through ``_lm.KernelWithPlainBackward``, whose backward is the plain
+version's gradient. ``rms_norm.launches`` counts kernel launches,
 ``rms_norm.launches_by_variant`` the launches of each variant.
 """
 from __future__ import annotations
@@ -68,6 +70,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     dev = _lm.check_same_device("rms_norm", x, scale)
     if dev.type == "cpu":
         return rms_norm_ref(x, scale, eps)
+    if _lm.wants_grad(x, scale):
+        return _lm.KernelWithPlainBackward.apply(
+            lambda x, s: _launch(x, s, eps),
+            lambda x, s: rms_norm_ref(x, s, eps), x, scale)
+    return _launch(x, scale, eps)
+
+
+def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """The kernel on checked CUDA operands; counts the launch."""
+    D, dev = x.shape[-1], x.device
     _lm.check_kernel_operand(x, "rms_norm x")
     _lm.check_kernel_operand(scale, "rms_norm scale")
     out = torch.empty_like(x)

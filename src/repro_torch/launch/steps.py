@@ -32,7 +32,7 @@ def build_prefill_step(model, device=None):
     check_model_device(model, device)
 
     def prefill_step(params, batch):
-        x = model.hidden_states(params, batch)
+        x, _aux = model.hidden_states(params, batch)
         return model.head(params, x[:, -1:])
     return prefill_step
 

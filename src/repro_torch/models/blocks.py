@@ -3,12 +3,13 @@
 A *slot* is one layer of the repeating pattern. Parameters of a slot are
 stacked over the ``repeats`` axis, as in the JAX package; the model indexes
 layer ``r`` out of the stack (a view, no copy). Every block is
-residual-pre-norm.
+residual-pre-norm; ``parallel_block`` (command-r) computes attention and FFN
+from the same normed input.
 
-This slice ports mixer ``attn`` with ffn ``dense`` (and ``none``). The other
-mixers (``xattn``, ``mamba``, ``mlstm``, ``slstm``), ffn ``moe`` and
+This slice ports mixer ``attn`` with ffn ``dense``, ``moe`` and ``none``.
+The other mixers (``xattn``, ``mamba``, ``mlstm``, ``slstm``) and
 context-parallel decode (``cp_axes``) raise ``NotImplementedError``: they
-come with later slices of the language-model substrate (ROADMAP Queue A 13).
+come with later slices of the language-model substrate (ROADMAP Queue A 8).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (apply_rope, dense, device_of,
                                        init_dense, init_scale, rms_norm)
 from repro_torch.models.mlp import mlp_apply, mlp_init
@@ -26,13 +28,13 @@ from repro_torch.models.mlp import mlp_apply, mlp_init
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: it comes with a later slice of the "
-        f"language-model substrate (ROADMAP Queue A 13)")
+        f"language-model substrate (ROADMAP Queue A 8)")
 
 
 def check_slot(mixer: str, ffn: str) -> None:
     if mixer != "attn":
         raise not_ported(f"mixer {mixer!r}")
-    if ffn not in ("dense", "none"):
+    if ffn not in ("dense", "moe", "none"):
         raise not_ported(f"ffn {ffn!r}")
 
 
@@ -59,8 +61,16 @@ def slot_init(gen: Optional[torch.Generator], cfg: ArchConfig, mixer: str, ffn: 
                "attn": _attn_init(gen, cfg, dtype)}
     if ffn != "none":
         p["norm2"] = init_scale(cfg.d_model, dtype, device_of(gen))
-        p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, cfg.act)
+        p["ffn"] = _ffn_init(gen, cfg, ffn, dtype)
     return p
+
+
+def _ffn_init(gen: Optional[torch.Generator], cfg: ArchConfig, kind: str,
+              dtype) -> Dict:
+    if kind == "dense":
+        return mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, cfg.act)
+    return moe_mod.moe_init(gen, cfg.d_model, cfg.expert_d_ff,
+                            cfg.n_experts, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -94,16 +104,54 @@ def _attention_apply(p: Dict, cfg: ArchConfig, x, positions, *,
 
 
 def slot_apply(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x, positions,
-               *, causal: bool = True) -> torch.Tensor:
-    """One layer over a whole sequence. Returns x (the MoE auxiliary loss of
-    the JAX package's ``slot_apply`` comes with the MoE slice)."""
+               *, causal: bool = True) -> Tuple[torch.Tensor, object]:
+    """One layer over a whole sequence. Returns (x, aux): the MoE auxiliary
+    loss times ``router_aux_coef``, a float32 tensor of one element, or the
+    Python float 0.0 for a layer without experts (the JAX package's
+    ``jnp.float32(0.0)``, with no tensor made for it)."""
     check_slot(mixer, ffn)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    x = x + _attention_apply(p["attn"], cfg, h, positions, causal=causal)
-    if ffn != "none":
-        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + mlp_apply(p["ffn"], h2, cfg.act)
-    return x
+    mix_out = _attention_apply(p["attn"], cfg, h, positions, causal=causal)
+    return _residual(p, cfg, ffn, x, mix_out, h, _ffn_apply)
+
+
+def _residual(p: Dict, cfg: ArchConfig, ffn: str, x, mix_out, h, ffn_fn):
+    """(the layer's output, the FFN's aux) from its input ``x``, the mixer's
+    output and the normed input ``h``: ``x + mix_out + ffn(h)`` in a
+    parallel block (command-r, one norm), else ``x + mix_out`` and its
+    normed FFN added, in the JAX package's order of the adds.
+    ``ffn_fn(p, cfg, kind, h)`` gives (the FFN's output, its aux)."""
+    if ffn == "none":
+        return x + mix_out, 0.0
+    if cfg.parallel_block:
+        f_out, aux = ffn_fn(p, cfg, ffn, h)
+        return x + mix_out + f_out, aux
+    x = x + mix_out
+    f_out, aux = ffn_fn(p, cfg, ffn, rms_norm(x, p["norm2"], cfg.norm_eps))
+    return x + f_out, aux
+
+
+def _moe_kw(cfg: ArchConfig) -> Dict:
+    return dict(n_experts=cfg.n_experts, top_k=cfg.experts_per_tok,
+                capacity_factor=cfg.capacity_factor,
+                ws_rebalance=cfg.ws_rebalance, n_groups=cfg.moe_groups)
+
+
+def _ffn_apply(p: Dict, cfg: ArchConfig, kind: str, h):
+    """(the FFN's output, its aux: a MoE layer's loss times
+    ``router_aux_coef``, 0.0 for a dense one)."""
+    if kind == "dense":
+        return mlp_apply(p["ffn"], h, cfg.act), 0.0
+    y, aux, _stats = moe_mod.moe_apply(p["ffn"], h, **_moe_kw(cfg))
+    return y, aux * cfg.router_aux_coef
+
+
+def _ffn_output(p: Dict, cfg: ArchConfig, kind: str, h):
+    """(the FFN's output, None): no aux is computed, a MoE layer runs
+    ``moe_output``."""
+    if kind == "dense":
+        return mlp_apply(p["ffn"], h, cfg.act), None
+    return moe_mod.moe_output(p["ffn"], h, **_moe_kw(cfg)), None
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +187,7 @@ def decode_position(pos, device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def slot_decode(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x,
                 cache: Dict, pos, cp_axes=None, *,
-                kv_len=None) -> Tuple[torch.Tensor, Dict]:
+                kv_len=None) -> Tuple[torch.Tensor, Dict, object]:
     """x (B,1,D); pos the 0-based index of this token, as
     :func:`decode_position` takes it. ``Model.decode_step`` forms (pos,
     kv_len) once a step with :func:`decode_position` and passes both;
@@ -147,8 +195,26 @@ def slot_decode(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x,
 
     Writes the token's k and v into ``cache`` in place (cast to the cache's
     dtype), attends over the cache's first ``pos + 1`` positions and
-    returns (x, cache).
+    returns (x, cache, aux), aux as :func:`slot_apply` gives it (a MoE layer
+    routes the batch's B tokens as one group of its own).
     """
+    return _decode(p, cfg, mixer, ffn, x, cache, pos, cp_axes, kv_len,
+                   _ffn_apply)
+
+
+def slot_decode_output(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x,
+                       cache: Dict, pos, *,
+                       kv_len=None) -> Tuple[torch.Tensor, Dict]:
+    """:func:`slot_decode`'s (x, cache), with no aux computed: what
+    ``Model.decode_step`` runs, since it drops the aux (the JAX package's
+    compiled step never runs that work; eager PyTorch would launch it)."""
+    x, cache, _ = _decode(p, cfg, mixer, ffn, x, cache, pos, None, kv_len,
+                          _ffn_output)
+    return x, cache
+
+
+def _decode(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x, cache: Dict,
+            pos, cp_axes, kv_len, ffn_fn):
     check_slot(mixer, ffn)
     if cp_axes:
         raise not_ported("context-parallel decode (cp_axes)")
@@ -161,8 +227,6 @@ def slot_decode(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x,
         cache[name].index_copy_(1, pos, new.to(cache[name].dtype))
     o = attn_mod.decode_attention(q, cache["k"], cache["v"], kv_len,
                                   window=cfg.sliding_window)
-    x = x + dense(o.reshape(B, 1, cfg.n_heads * cfg.hd), p["attn"]["wo"])
-    if ffn != "none":
-        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + mlp_apply(p["ffn"], h2, cfg.act)
-    return x, cache
+    mix_out = dense(o.reshape(B, 1, cfg.n_heads * cfg.hd), p["attn"]["wo"])
+    x, aux = _residual(p, cfg, ffn, x, mix_out, h, ffn_fn)
+    return x, cache, aux

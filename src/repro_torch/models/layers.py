@@ -22,6 +22,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return ops.rms_norm(x, scale, eps)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in float32 (population variance), cast
+    back to x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with float32 accumulation, cast back to x's dtype. cuBLAS
     accumulates bf16 products in float32; on the CPU the product of the
@@ -85,12 +96,16 @@ def device_of(gen: Optional[torch.Generator]) -> torch.device:
 
 
 def init_dense(gen: Optional[torch.Generator], d_in: int, d_out: int,
-               dtype) -> torch.Tensor:
+               dtype, scale: Optional[float] = None) -> torch.Tensor:
+    """Normal weights times ``scale`` (default 1/sqrt(d_in)), drawn in
+    float32 and cast to ``dtype``."""
     if gen is None:
         return torch.empty((d_in, d_out), dtype=dtype, device="meta")
     w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (w / math.sqrt(d_in)).to(dtype)
+    if scale is None:
+        return (w / math.sqrt(d_in)).to(dtype)
+    return (w * scale).to(dtype)
 
 
 def init_embed(gen: Optional[torch.Generator], vocab: int, d: int,
@@ -104,3 +119,18 @@ def init_embed(gen: Optional[torch.Generator], vocab: int, d: int,
 
 def init_scale(d: int, dtype, device=None) -> torch.Tensor:
     return torch.ones((d,), dtype=dtype, device=device)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32; logits (B, S, V) of any
+    float type, labels (B, S) integer ids; with ``mask`` the mean over the
+    positions it keeps (at least one)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

@@ -9,10 +9,11 @@ loop over the stack; every RMSNorm, attention and decode-attention goes
 through the port's kernels.
 
 A config with an encoder (the JAX package's ``_encode``,
-``_write_cross_cache``), a vision prefix, learned positions or parallel
-blocks is refused with ``NotImplementedError`` until its slice.
+``_write_cross_cache``), a vision prefix or learned positions is refused
+with ``NotImplementedError`` until its slice.
 
-Batch dict keys: ``tokens`` (B, S) integer token ids.
+Batch dict keys: ``tokens`` (B, S) integer token ids; ``labels`` (B, S)
+next-token targets for :meth:`Model.loss_fn`.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (device_of, embed, init_dense,
                                        init_embed, init_scale, logits_f32,
-                                       rms_norm)
+                                       rms_norm, softmax_xent)
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -49,8 +50,7 @@ class Model:
         for flag, what in ((cfg.is_encoder_decoder, "the encoder "
                             "(_encode, _write_cross_cache)"),
                            (cfg.vision_prefix_len, "vision prefixes"),
-                           (cfg.learned_pos, "learned positions"),
-                           (cfg.parallel_block, "parallel blocks")):
+                           (cfg.learned_pos, "learned positions")):
             if flag:
                 raise blk.not_ported(f"{cfg.name}: {what}")
         for mixer, ffn in cfg.pattern:
@@ -101,20 +101,26 @@ class Model:
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
-    def hidden_states(self, params: Dict, batch: Dict) -> torch.Tensor:
-        """The final-normed hidden states (B, S, D) of ``forward``."""
+    def hidden_states(self, params: Dict,
+                      batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the final-normed hidden states (B, S, D) of ``forward``, the MoE
+        auxiliary loss summed over the layers: a float32 tensor of one
+        element, 0 for a model without experts)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = embed(tokens, params["tok_embed"])
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
+        aux = 0.0
         for r in range(cfg.repeats):
             slot_params = _layer(params["layers"], r)
             for j, (mixer, ffn) in enumerate(cfg.pattern):
-                x = blk.slot_apply(slot_params[f"slot{j}"], cfg, mixer, ffn,
-                                   x, positions, causal=cfg.causal)
-        return rms_norm(x, params["final_norm"], cfg.norm_eps)
+                x, a = blk.slot_apply(slot_params[f"slot{j}"], cfg, mixer,
+                                      ffn, x, positions, causal=cfg.causal)
+                aux = aux + a
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
     def head(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
         """Logits (..., Vpad) in float32 from hidden states."""
@@ -122,10 +128,25 @@ class Model:
              else params["lm_head"])
         return logits_f32(x, w)
 
-    def forward(self, params: Dict, batch: Dict) -> torch.Tensor:
-        """Returns logits (B, S, Vpad) in float32 (the MoE auxiliary loss of
-        the JAX package's ``forward`` comes with the MoE slice)."""
-        return self.head(params, self.hidden_states(params, batch))
+    def forward(self, params: Dict,
+                batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Returns (logits (B, S, Vpad) float32, moe_aux), as the JAX
+        package's ``forward``: ``moe_aux`` is the sum over the layers of
+        each MoE layer's auxiliary loss times ``router_aux_coef``, a float32
+        tensor of one element (0 without experts)."""
+        x, aux = self.hidden_states(params, batch)
+        return self.head(params, x), aux
+
+    def loss_fn(self, params: Dict, batch: Dict):
+        """(loss, metrics): the mean next-token cross-entropy of
+        ``batch["labels"]`` plus ``moe_aux``, and a dict of ``loss``,
+        ``xent`` and ``moe_aux``, as the JAX package's ``loss_fn``. On the
+        card its gradient runs through each kernel's
+        ``_lm.KernelWithPlainBackward``."""
+        logits, aux = self.forward(params, batch)
+        xent = softmax_xent(logits, batch["labels"])
+        loss = xent + aux
+        return loss, {"loss": loss, "xent": xent, "moe_aux": aux}
 
     # ------------------------------------------------------------------
     # serving: cache init + single-token decode
@@ -151,7 +172,10 @@ class Model:
         step can be captured in a CUDA graph and replayed at any position.
         Writes this token's keys and values into ``cache`` in place (the
         JAX package returns a new cache; updating in place saves a copy of
-        the cache per step). Returns (logits (B, 1, Vpad) float32, cache).
+        the cache per step). Returns (logits (B, 1, Vpad) float32, cache);
+        the MoE layers' auxiliary loss is neither kept nor computed
+        (``blocks.slot_decode_output``), as the JAX package's compiled
+        ``decode_step`` drops it.
         """
         cfg = self.cfg
         pos, kv_len = blk.decode_position(pos, self.device)
@@ -160,9 +184,9 @@ class Model:
             slot_params = _layer(params["layers"], r)
             slot_cache = _layer(cache["layers"], r)
             for j, (mixer, ffn) in enumerate(cfg.pattern):
-                x, _ = blk.slot_decode(slot_params[f"slot{j}"], cfg, mixer,
-                                       ffn, x, slot_cache[f"slot{j}"], pos,
-                                       kv_len=kv_len)
+                x, _ = blk.slot_decode_output(
+                    slot_params[f"slot{j}"], cfg, mixer, ffn, x,
+                    slot_cache[f"slot{j}"], pos, kv_len=kv_len)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self.head(params, x), cache
 

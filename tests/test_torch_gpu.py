@@ -3,11 +3,13 @@ version on the same CUDA tensors, every leaf ``torch.equal``; the three
 language-model kernels (``rmsnorm.cu``, ``flash_attention.cu``,
 ``decode_attention.cu``) against their plain versions within the JAX
 package's kernel tolerances, flash decode also with a device kv_len replayed
-in a CUDA graph and on its split path; the reduced model on the card against
-the CPU, and ``decode_batch``'s graph against the eager loop; the simulation
-daemon on the card answering a client process; ``ws_sim_cuda(grid_chunk=)``
-against the unchunked launch, and the dispatch lint's host-sync counts of the
-decode step and of an event-loop step on the card.
+in a CUDA graph and on its split path, and the gradient through each wrapper;
+the reduced models (dense, MoE, parallel block) on the card against the CPU,
+and ``decode_batch``'s graph against the eager loop (dense and MoE); the
+simulation daemon on the card answering a client process;
+``ws_sim_cuda(grid_chunk=)`` against the unchunked launch, and the dispatch
+lint's host-sync counts of the decode step and of an event-loop step on the
+card.
 
 A CUDA kernel has no interpret mode, so these tests carry the ``gpu`` marker
 and skip where there is no CUDA device. This file imports the port alone (no
@@ -441,13 +443,27 @@ def test_reduced_model_on_the_card_matches_the_cpu():
     """The reduced qwen3-1.7b in float32: forward logits on the card (through
     the kernels) against the CPU (plain versions), and greedy tokens."""
     _need_card()
+    _reduced_on_the_card_against_the_cpu("qwen3-1.7b")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "command-r-35b"])
+def test_reduced_moe_and_parallel_block_models_on_the_card(arch):
+    """The MoE model (rebalance on, the config's capacity) and the parallel
+    block in float32: forward logits and the MoE auxiliary loss on the card
+    against the CPU, and greedy tokens."""
+    _need_card()
+    _reduced_on_the_card_against_the_cpu(arch)
+
+
+def _reduced_on_the_card_against_the_cpu(arch):
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import Request, decode_batch
     from repro_torch.models import build_model
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+    cfg = dataclasses.replace(get_config(arch).reduced(),
                               param_dtype="float32")
     mc, mg = build_model(cfg, device="cpu"), build_model(cfg)
     pc = mc.init_params(torch.Generator(device="cpu").manual_seed(3))
@@ -458,16 +474,120 @@ def test_reduced_model_on_the_card_matches_the_cpu():
     pg = to_card(pc)
     tok = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 32)))
-    a = mc.forward(pc, {"tokens": tok})
-    b = mg.forward(pg, {"tokens": tok.cuda()}).cpu()
+    a, aux_a = mc.forward(pc, {"tokens": tok})
+    b, aux_b = mg.forward(pg, {"tokens": tok.cuda()})
     tol = 1e-4 * float(a.abs().max())
-    assert float((a - b).abs().max()) < tol
+    assert float((a - b.cpu()).abs().max()) < tol
+    assert float(aux_a) == pytest.approx(float(aux_b), rel=1e-5, abs=1e-7)
+    assert (float(aux_a) > 0) == bool(cfg.n_experts)
     rng = np.random.default_rng(1)
     reqs = [Request(i, rng.integers(1, cfg.vocab_size, 16).astype(np.int32),
                     8) for i in range(6)]
     np.testing.assert_array_equal(
         decode_batch(mc, pc, reqs, device="cpu"),
         decode_batch(mg, pg, reqs))
+
+
+@pytest.mark.gpu
+def test_moe_decode_graph_matches_the_eager_loop():
+    """decode_batch of the reduced mixtral-8x7b (bf16, routing with the
+    rebalance on inside the graph) replays one captured step; its tokens
+    equal an eager prefill + decode_step loop's, and the launches too."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request, decode_batch
+    from repro_torch.models import build_model
+    cfg = get_config("mixtral-8x7b").reduced()
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(5))
+    S, new, B = 16, 8, 24
+    prompts = np.random.default_rng(3).integers(
+        1, cfg.vocab_size, (B, S)).astype(np.int32)
+    tokens = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+    ops.reset_counts()
+    cache, logits = model.prefill(params, {"tokens": tokens},
+                                  max_seq=S + new)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    eager = []
+    for i in range(new):
+        eager.append(tok[:, 0])
+        logits, cache = model.decode_step(params, cache, tok, S + i)
+        tok = torch.argmax(logits, dim=-1)
+    eager_tokens = torch.stack(eager, 1).cpu().numpy()
+    eager_counts = (ops.launch_counts(), ops.variant_counts())
+    ops.reset_counts()
+    got = decode_batch(model, params, [Request(i, p, new)
+                                       for i, p in enumerate(prompts)])
+    np.testing.assert_array_equal(got, eager_tokens)
+    assert (ops.launch_counts(), ops.variant_counts()) == eager_counts
+    L = cfg.n_layers
+    assert eager_counts[0] == {"rms_norm": (S + new) * (2 * L + 1),
+                               "flash_attention": 0,
+                               "flash_decode": (S + new) * L}
+    assert decode_batch.last_graph["replays"] == S + new - 1
+
+
+#: kernel -> the float32 tolerance of its kernel tests
+_GRAD_CASES = {
+    "rms_norm": 1e-6,
+    "flash_attention": 2e-5,
+    "flash_decode": 2e-5,
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", list(_GRAD_CASES))
+def test_gradients_through_each_kernel_wrapper(kernel):
+    """Through the kernel on CUDA tensors (grad mode on, inputs that require
+    a gradient: ``_lm.KernelWithPlainBackward``), every input's gradient
+    exists and equals the plain version's on the same tensors (the loss
+    weighs the output by a ramp, so the same gradient reaches both
+    backwards); the forward launched the kernel once."""
+    _need_card()
+    from repro_torch.kernels import decode_attention as fd
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rn
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    f32 = torch.float32
+    if kernel == "rms_norm":
+        ins = [_lm_randn(gen, (24, 512), f32, 3.0), _lm_randn(gen, (512,), f32)]
+        run, plain = ops.rms_norm, rn.rms_norm_ref
+    elif kernel == "flash_attention":
+        ins = [_lm_randn(gen, (2, 40, 4, 32), f32),
+               _lm_randn(gen, (2, 40, 2, 32), f32),
+               _lm_randn(gen, (2, 40, 2, 32), f32)]
+        run = functools.partial(ops.flash_attention, window=9)
+        plain = functools.partial(fa.flash_attention_ref, window=9)
+    else:
+        kv = torch.tensor([29], dtype=torch.int32, device="cuda")
+        ins = [_lm_randn(gen, (3, 1, 8, 64), f32),
+               _lm_randn(gen, (3, 48, 2, 64), f32),
+               _lm_randn(gen, (3, 48, 2, 64), f32)]
+        run = lambda q, k, v: ops.flash_decode(q, k, v, kv)  # noqa: E731
+        plain = lambda q, k, v: fd.decode_attention_ref(q, k, v, kv)  # noqa
+    tol = _GRAD_CASES[kernel]
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        out = fn(*leaves)
+        weight = torch.linspace(-1, 1, out.numel(), device="cuda")
+        (out * weight.reshape(out.shape)).sum().backward()
+        return out, [t.grad for t in leaves]
+
+    before = ops.launch_counts()[kernel]
+    out, got = grads(run)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[kernel] == before + 1
+    assert out.grad_fn is not None
+    want_out, want = grads(plain)
+    _hold(out.detach(), want_out.detach(), tol)
+    for g, w in zip(got, want):
+        assert g is not None and g.shape == w.shape
+        _hold(g, w, tol)
+    with torch.no_grad():                   # no autograd: a direct launch
+        assert run(*ins).grad_fn is None
 
 
 @pytest.fixture

@@ -73,10 +73,14 @@ def test_port_has_the_expected_modules():
                  "configs/ws_paper.py", "service/wire.py",
                  "service/daemon.py", "service/client.py",
                  "check/protocol_lint.py", "check/__main__.py",
-                 "check/dispatch_lint.py"):
+                 "check/dispatch_lint.py", "models/moe.py",
+                 "configs/deepseek_67b.py", "configs/phi3_mini_3p8b.py",
+                 "configs/command_r_35b.py", "configs/mixtral_8x7b.py",
+                 "configs/phi35_moe_42b.py"):
         assert want in names, want
     for other in ("examples/quickstart_torch.py",
                   "examples/paper_sweep_torch.py",
+                  "examples/serve_lm_torch.py",
                   "benchmarks/paper_torch.py",
                   "benchmarks/daemon_torch.py",
                   "benchmarks/run_torch.py",
@@ -120,6 +124,13 @@ out = decode_batch(m, p, reqs, device="cpu")
 lg = build_prefill_step(m, device="cpu")(p, {"tokens": torch.ones(2, 8,
                                          dtype=torch.int64)})
 assert out.shape == (2, 3) and lg.shape == (2, 1, cfg.padded_vocab)
+for arch in ("mixtral-8x7b", "command-r-35b"):
+    m = build_model(get_config(arch).reduced(), device="cpu")
+    p = m.init_params(torch.Generator().manual_seed(0))
+    assert decode_batch(m, p, reqs, device="cpu").shape == (2, 3)
+    loss, met = m.loss_fn(p, {"tokens": torch.ones(2, 8, dtype=torch.int64),
+                              "labels": torch.ones(2, 8, dtype=torch.int64)})
+    assert torch.isfinite(loss) and set(met) == {"loss", "xent", "moe_aux"}
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", bad)
@@ -373,6 +384,11 @@ def test_no_silent_cpu_run_of_the_paper_surface():
     finally:
         sys.path.remove(str(ROOT))
     from repro_torch.launch import serve
+    sys.path.insert(0, str(ROOT))
+    try:
+        from examples import serve_lm_torch
+    finally:
+        sys.path.remove(str(ROOT))
     for call in (lambda: pt.fig10_overhead_ratio(2),
                  lambda: pt.fig11_accept_latency(2),
                  lambda: pt.fig12_mwt_swt(2, False),
@@ -383,7 +399,8 @@ def test_no_silent_cpu_run_of_the_paper_surface():
                  lambda: ps.acceptable_latency(2),
                  lambda: ps.all_task_models(2),
                  lambda: ps.execution_backends(2),
-                 lambda: serve.main([])):
+                 lambda: serve.main([]),
+                 lambda: serve.main(serve_lm_torch.ARGV)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 

@@ -473,3 +473,69 @@ def test_rms_norm_register_widths_match_the_launcher(D):
     src = _csrc_text("rmsnorm.cu")
     assert f"case {D}: return f(std::integral_constant<int, {D}>{{}});" in src
     assert sorted(_rms_register_cases()) == sorted(rmsnorm.REG_WIDTHS)
+
+
+# ---------------------------------------------------------------------------
+# The gradient of a launch: _lm.KernelWithPlainBackward. Its forward is the
+# kernel, which needs the card; here the plain version stands in for the
+# launch, so the backward's bookkeeping (which inputs, which closures) is
+# held to torch.autograd of the plain version, exactly.
+# ---------------------------------------------------------------------------
+
+def _plain_backward_cases():
+    rng = np.random.default_rng(21)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    kv = torch.tensor([5], dtype=torch.int32)
+    return {
+        "rms_norm": ((t(6, 32), t(32)),
+                     lambda x, s: rmsnorm.rms_norm_ref(x, s, 1e-6)),
+        "flash_attention": ((t(2, 9, 4, 16), t(2, 9, 2, 16), t(2, 9, 2, 16)),
+                            lambda q, k, v: fa.flash_attention_ref(
+                                q, k, v, window=4)),
+        "flash_decode": ((t(2, 1, 4, 16), t(2, 7, 2, 16), t(2, 7, 2, 16)),
+                         lambda q, k, v: fd.decode_attention_ref(q, k, v,
+                                                                 kv)),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["rms_norm", "flash_attention",
+                                    "flash_decode"])
+@pytest.mark.parametrize("which", ["all", "first"])
+def test_plain_backward_equals_the_plain_versions_gradient(kernel, which):
+    inputs, plain = _plain_backward_cases()[kernel]
+    seen = []
+
+    def launch(*ts):
+        seen.append(torch.is_grad_enabled())
+        return plain(*ts)
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_(which == "all" or i == 0)
+                  for i, x in enumerate(inputs)]
+        out = fn(*leaves)
+        (out.square() * torch.linspace(-1, 1, out.numel()).reshape(
+            out.shape)).sum().backward()
+        return out, [x.grad for x in leaves]
+
+    out, got = grads(lambda *ts: _lm.KernelWithPlainBackward.apply(
+        launch, plain, *ts))
+    want_out, want = grads(plain)
+    assert seen == [False]               # the launch runs outside autograd
+    assert torch.equal(out.detach(), want_out.detach())
+    for i, (g, w) in enumerate(zip(got, want)):
+        if which == "first" and i > 0:
+            assert g is None and w is None
+        else:
+            assert torch.equal(g, w), i
+
+
+def test_wants_grad_only_when_autograd_records():
+    x = torch.ones(3, requires_grad=True)
+    y = torch.ones(3)
+    assert _lm.wants_grad(x, y) and not _lm.wants_grad(y, y)
+    with torch.no_grad():
+        assert not _lm.wants_grad(x, y)
+    with torch.inference_mode():
+        assert not _lm.wants_grad(y)

@@ -1,6 +1,8 @@
 """The port's language-model serving path against the JAX package, on the CPU,
 at ``get_config("qwen3-1.7b").reduced()`` (2 layers, d_model 64, 4 query and
-2 KV heads of 16, vocab 512).
+2 KV heads of 16, vocab 512), and at ``reduced()`` of every other registered
+architecture (``NEW_ARCHS``: two more dense ones, command-r's parallel block,
+two MoE ones with 4 experts of 64, top-2).
 
 The JAX package's parameters, made from ``PRNGKey(0)``, are carried into the
 port by ``models.interop.params_from_jax``, so both run the same weights;
@@ -19,9 +21,15 @@ its reason:
   row of every step must stay within half its own top-2 logit gap, so that
   a different token would be a fault, not a tie;
 * bf16 parameters: ``2e-2 * max|logit|``, the bf16 tolerance of the kernel
-  tests (bf16 rounds at other places in the two frameworks).
+  tests (bf16 rounds at other places in the two frameworks);
+* the MoE auxiliary loss: rtol 1e-5 in float32 (float32 means over the
+  tokens in other orders), rtol 2e-2 in bf16;
+* ``loss_fn``: rtol 1e-5 (a float32 log-sum-exp over 512 logits);
+  gradients of ``loss_fn``: each leaf within ``1e-4 * max|grad|`` of that
+  leaf's JAX gradient (float32 rounding through two layers and back).
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +37,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import SHAPES as JSHAPES
+from repro.configs import cell_is_runnable as j_runnable
 from repro.configs import get_config as jget
 from repro.launch import serve as jserve
 from repro.launch.steps import build_prefill_step as j_prefill_step
@@ -37,6 +47,8 @@ from repro.models import blocks as jblk
 from repro.models import build_model as jbuild
 from repro.models import layers as jlayers
 from repro.models import mlp as jmlp
+from repro_torch.configs import SHAPES as PSHAPES
+from repro_torch.configs import cell_is_runnable as p_runnable
 from repro_torch.configs import get_config as pget
 from repro_torch.launch import serve as pserve
 from repro_torch.launch.steps import (GraphedDecodeStep, build_decode_step,
@@ -51,6 +63,9 @@ from repro_torch.models.interop import params_from_jax
 torch.set_num_threads(1)
 
 ARCH = "qwen3-1.7b"
+#: the architectures this slice registers
+NEW_ARCHS = ("deepseek-67b", "phi3-mini-3.8b", "command-r-35b",
+             "mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
 B, S = 2, 32
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 24, 16, 8
 
@@ -113,8 +128,8 @@ def test_config_is_a_copy_of_the_jax_packages():
         assert dataclasses.asdict(j) == dataclasses.asdict(p)
         assert (j.hd, j.padded_vocab, j.n_layers) == \
             (p.hd, p.padded_vocab, p.n_layers)
-    with pytest.raises(KeyError, match="later slice|slice"):
-        pget("mixtral-8x7b")
+    with pytest.raises(KeyError, match="not ported yet.*Queue A 8.3"):
+        pget("xlstm-350m")
 
 
 def test_param_tree_and_count_match_the_jax_package(built):
@@ -235,7 +250,8 @@ def test_blocks_vs_jax(f32):
     x = jnp.asarray(rng.standard_normal((B, 12, jc.d_model)), jnp.float32)
     pos = jnp.asarray(np.broadcast_to(np.arange(12), (B, 12)), jnp.int32)
     want, _aux = jblk.slot_apply(jlayer, jc, "attn", "dense", x, pos)
-    got = pblk.slot_apply(player, jc, "attn", "dense", _t(x), _t(pos))
+    got, aux = pblk.slot_apply(player, jc, "attn", "dense", _t(x), _t(pos))
+    assert aux == 0.0
     np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
     jcache = jblk.slot_cache_init(jc, "attn", B, 16, jnp.float32)
     pcache = pblk.slot_cache_init(jc, "attn", B, 16, torch.float32)
@@ -243,15 +259,14 @@ def test_blocks_vs_jax(f32):
         xi = x[:, i:i + 1]
         want, jcache, _ = jblk.slot_decode(jlayer, jc, "attn", "dense", xi,
                                            jcache, i)
-        got, pcache = pblk.slot_decode(player, jc, "attn", "dense", _t(xi),
-                                       pcache, i)
+        got, pcache, _aux = pblk.slot_decode(player, jc, "attn", "dense",
+                                             _t(xi), pcache, i)
         np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
         for key in ("k", "v"):
             np.testing.assert_allclose(_np(pcache[key]), _np(jcache[key]),
                                        atol=1e-5, rtol=1e-5)
-    for mixer, ffn in (("mamba", "dense"), ("attn", "moe"), ("xattn",
-                                                             "dense")):
-        with pytest.raises(NotImplementedError, match="Queue A 13"):
+    for mixer, ffn in (("mamba", "dense"), ("xattn", "dense")):
+        with pytest.raises(NotImplementedError, match="Queue A 8"):
             pblk.slot_init(torch.Generator(), jc, mixer, ffn, torch.float32)
     with pytest.raises(NotImplementedError, match="cp_axes"):
         pblk.slot_decode(player, jc, "attn", "dense", _t(x[:, :1]), pcache,
@@ -265,10 +280,11 @@ def test_blocks_vs_jax(f32):
 def test_forward_vs_jax(built):
     dt, jc, jm, jp, pm, pp = built
     tok = _tokens(jc, (B, S))
-    want = jax.jit(lambda p, b: jm.forward(p, b)[0])(
-        jp, {"tokens": jnp.asarray(tok)})
-    got = pm.forward(pp, {"tokens": _t(tok, torch.int64)})
+    want, want_aux = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(tok)})
+    got, aux = pm.forward(pp, {"tokens": _t(tok, torch.int64)})
     assert got.dtype == torch.float32 and got.shape == (B, S, jc.padded_vocab)
+    assert aux.dtype == torch.float32 and aux.shape == () \
+        and float(aux) == float(want_aux) == 0.0
     np.testing.assert_allclose(_np(got), _np(want), rtol=0,
                                atol=_logit_tol(dt, want))
 
@@ -308,7 +324,7 @@ def test_prefill_logits_and_caches_vs_jax(f32, cache_dtype):
                                        rtol=2.0 ** -7)
     # the decode path agrees with forward (tests/test_models_smoke.py)
     if cache_dtype == "float32":
-        fwd = pm.forward(pp, {"tokens": _t(tok, torch.int64)})[:, -1]
+        fwd = pm.forward(pp, {"tokens": _t(tok, torch.int64)})[0][:, -1]
         diff = float((fwd - plog[:, 0]).abs().max())
         assert diff < 1e-3 * float(fwd.abs().max()) + 1e-3
 
@@ -416,3 +432,279 @@ def test_decode_batch_tokens_equal_the_jax_packages(f32):
         assert (err <= 1e-3 * np.abs(jl).max()).all(), step
         assert (err < gap / 2).all(), (step, err, gap)
         np.testing.assert_array_equal(pl.argmax(-1), got[:, step])
+
+
+# ---------------------------------------------------------------------------
+# the architectures of the MoE slice: dense, parallel block, MoE
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _arch(name, param_dtype, **over):
+    """(jax cfg, jax model, jax params, port model, port params) of
+    ``name``'s reduced config; the JAX weights carried into the port."""
+    jc = dataclasses.replace(jget(name).reduced(), param_dtype=param_dtype,
+                             **over)
+    pc = dataclasses.replace(pget(name).reduced(), param_dtype=param_dtype,
+                             **over)
+    jm, pm = jbuild(jc), pbuild(pc, device="cpu")
+    jp = jm.init_params(jax.random.PRNGKey(sum(map(ord, name))))
+    return jc, jm, jp, pm, params_from_jax(jax.tree.map(np.asarray, jp), pm)
+
+
+@pytest.mark.parametrize("name", NEW_ARCHS)
+def test_new_config_is_a_copy_of_the_jax_packages(name):
+    for j, p in ((jget(name), pget(name)),
+                 (jget(name).reduced(), pget(name).reduced())):
+        assert dataclasses.asdict(j) == dataclasses.asdict(p)
+        assert (j.hd, j.padded_vocab, j.n_layers, j.expert_d_ff,
+                j.sub_quadratic) == (p.hd, p.padded_vocab, p.n_layers,
+                                     p.expert_d_ff, p.sub_quadratic)
+    # the long-context flag of every shape (mixtral's window qualifies it)
+    for shape in JSHAPES:
+        assert p_runnable(pget(name), PSHAPES[shape]) == \
+            j_runnable(jget(name), JSHAPES[shape]), shape
+    assert p_runnable(pget(name), PSHAPES["long_500k"])[0] == \
+        (name == "mixtral-8x7b")
+
+
+#: parameter counts of the full configs (JAX ``param_count``)
+FULL_COUNTS = {"deepseek-67b": 67_425_001_472,
+               "phi3-mini-3.8b": 3_821_472_768,
+               "command-r-35b": 30_283_538_432,
+               "mixtral-8x7b": 46_702_792_704,
+               "phi3.5-moe-42b-a6.6b": 41_873_051_648}
+
+
+def _jax_shapes(tree):
+    return jax.tree.map(lambda x: (tuple(x.shape), str(x.dtype)), tree)
+
+
+def _port_shapes(model):
+    return jax.tree.map(lambda s: (s[0], str(s[1]).split(".")[-1]),
+                        model.param_shapes(),
+                        is_leaf=lambda x: isinstance(x, tuple))
+
+
+@pytest.mark.parametrize("name", NEW_ARCHS)
+def test_new_config_param_tree_and_count_match_the_jax_package(name):
+    _jc, jm, jp, pm, _pp = _arch(name, "bfloat16")
+    assert _port_shapes(pm) == _jax_shapes(jp)
+    assert pm.param_count() == jm.param_count()
+    full_j, full_p = jbuild(jget(name)), pbuild(pget(name), device="cpu")
+    assert _port_shapes(full_p) == _jax_shapes(full_j.abstract_params())
+    assert full_p.param_count() == full_j.param_count() == FULL_COUNTS[name]
+
+
+def test_params_from_jax_carries_the_router_and_experts_unchanged():
+    """The float32 router and the (R, E, d, f) bf16 experts of a MoE slot
+    cross bit for bit."""
+    _jc, _jm, jp, _pm, pp = _arch("mixtral-8x7b", "bfloat16")
+    jf, pf = jp["layers"]["slot0"]["ffn"], pp["layers"]["slot0"]["ffn"]
+    assert pf["router"].dtype == torch.float32
+    np.testing.assert_array_equal(pf["router"].numpy(),
+                                  np.asarray(jf["router"]))
+    for key in ("w_gate", "w_up", "w_down"):
+        assert pf[key].dtype == torch.bfloat16
+        assert tuple(pf[key].shape) == jf[key].shape and len(jf[key].shape) == 4
+        np.testing.assert_array_equal(pf[key].view(torch.int16).numpy(),
+                                      np.asarray(jf[key]).view(np.int16))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", NEW_ARCHS)
+def test_new_config_forward_vs_jax(name, dtype):
+    jc, jm, jp, pm, pp = _arch(name, dtype)
+    tok = _tokens(jc, (B, S), seed=11)
+    want, want_aux = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(tok)})
+    got, aux = pm.forward(pp, {"tokens": _t(tok, torch.int64)})
+    assert got.dtype == torch.float32 and got.shape == (B, S, jc.padded_vocab)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0,
+                               atol=_logit_tol(dtype, want))
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    if jc.n_experts:
+        assert float(want_aux) > 0
+    np.testing.assert_allclose(float(aux), float(want_aux),
+                               rtol=1e-5 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("name", NEW_ARCHS)
+def test_new_config_decode_matches_forward(name):
+    """tests/test_models_smoke.py's parity in the port: float32, and for
+    MoE a capacity no token overflows with the rebalance off (batched and
+    per-token routing then keep the same assignments)."""
+    over = dict(capacity_factor=64.0, ws_rebalance=False) \
+        if pget(name).n_experts else {}
+    jc, _jm, _jp, pm, pp = _arch(name, "float32", **over)
+    tok = _t(_tokens(jc, (B, S), seed=12), torch.int64)
+    fwd = pm.forward(pp, {"tokens": tok})[0][:, -1]
+    _cache, dec = pm.prefill(pp, {"tokens": tok}, max_seq=S,
+                             dtype=torch.float32)
+    diff = float((fwd - dec[:, 0]).abs().max())
+    assert diff < 1e-3 * float(fwd.abs().max()) + 1e-3, diff
+
+
+def _labels(cfg, seed):
+    return _tokens(cfg, (B, S), seed=seed)
+
+
+@pytest.mark.parametrize("name", NEW_ARCHS)
+def test_new_config_loss_fn_vs_jax(name):
+    jc, jm, jp, pm, pp = _arch(name, "float32")
+    tok, lab = _tokens(jc, (B, S), seed=13), _labels(jc, 14)
+    want, wm = jax.jit(jm.loss_fn)(jp, {"tokens": jnp.asarray(tok),
+                                        "labels": jnp.asarray(lab)})
+    got, gm = pm.loss_fn(pp, {"tokens": _t(tok, torch.int64),
+                              "labels": _t(lab, torch.int64)})
+    assert set(gm) == set(wm) == {"loss", "xent", "moe_aux"}
+    for key in gm:
+        np.testing.assert_allclose(float(gm[key]), float(wm[key]),
+                                   rtol=1e-5, err_msg=key)
+    assert float(got) == float(gm["loss"])
+    if jc.n_experts:
+        assert float(gm["moe_aux"]) > 0
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_softmax_xent_and_layer_norm_vs_jax(masked):
+    rng = np.random.default_rng(15)
+    logits = rng.standard_normal((2, 5, 40)).astype(np.float32) * 3
+    labels = rng.integers(0, 40, (2, 5)).astype(np.int32)
+    mask = (rng.random((2, 5)) > 0.4) if masked else None
+    want = jlayers.softmax_xent(jnp.asarray(logits), jnp.asarray(labels),
+                                None if mask is None else jnp.asarray(mask))
+    got = players.softmax_xent(_t(logits), _t(labels, torch.int64),
+                               None if mask is None else _t(mask))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    x = jnp.asarray(rng.standard_normal((3, 24)) * 2 + 1, jnp.float32)
+    sc = jnp.asarray(rng.standard_normal(24), jnp.float32)
+    bi = jnp.asarray(rng.standard_normal(24), jnp.float32)
+    for dt in (jnp.float32, jnp.bfloat16):
+        np.testing.assert_allclose(
+            _np(players.layer_norm(_t(x.astype(dt)), _t(sc.astype(dt)),
+                                   _t(bi.astype(dt)))),
+            _np(jlayers.layer_norm(x.astype(dt), sc.astype(dt),
+                                   bi.astype(dt))),
+            atol=1e-5, rtol=1e-5 if dt == jnp.float32 else 2.0 ** -7)
+
+
+def test_parallel_block_vs_jax():
+    """command-r's block: attention and FFN from one normed input, added as
+    x + attn + ffn; slot_apply over a sequence and slot_decode token by
+    token against the JAX package's."""
+    jc, _jm, jp, _pm, pp = _arch("command-r-35b", "float32")
+    assert jc.parallel_block
+    jlayer = jax.tree.map(lambda a: a[0], jp["layers"]["slot0"])
+    player = jax.tree.map(lambda a: a[0], pp["layers"]["slot0"])
+    rng = np.random.default_rng(16)
+    x = jnp.asarray(rng.standard_normal((B, 10, jc.d_model)), jnp.float32)
+    pos = jnp.asarray(np.broadcast_to(np.arange(10), (B, 10)), jnp.int32)
+    want, _ = jblk.slot_apply(jlayer, jc, "attn", "dense", x, pos)
+    got, aux = pblk.slot_apply(player, jc, "attn", "dense", _t(x), _t(pos))
+    assert aux == 0.0
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+    # the sequential block of the same weights gives another answer
+    seq = dataclasses.replace(jc, parallel_block=False)
+    other, _ = pblk.slot_apply(player, seq, "attn", "dense", _t(x), _t(pos))
+    assert float((other - got).abs().max()) > 1e-2
+    jcache = jblk.slot_cache_init(jc, "attn", B, 12, jnp.float32)
+    pcache = pblk.slot_cache_init(jc, "attn", B, 12, torch.float32)
+    for i in range(4):
+        want, jcache, _ = jblk.slot_decode(jlayer, jc, "attn", "dense",
+                                           x[:, i:i + 1], jcache, i)
+        got, pcache, _ = pblk.slot_decode(player, jc, "attn", "dense",
+                                          _t(x[:, i:i + 1]), pcache, i)
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_moe_block_vs_jax():
+    """A mixtral layer (attention + MoE with the rebalance on): slot_apply's
+    (x, aux) and slot_decode's (x, cache, aux) against the JAX package's."""
+    jc, _jm, jp, _pm, pp = _arch("mixtral-8x7b", "float32")
+    jlayer = jax.tree.map(lambda a: a[1], jp["layers"]["slot0"])
+    player = jax.tree.map(lambda a: a[1], pp["layers"]["slot0"])
+    rng = np.random.default_rng(17)
+    x = jnp.asarray(rng.standard_normal((B, 12, jc.d_model)), jnp.float32)
+    pos = jnp.asarray(np.broadcast_to(np.arange(12), (B, 12)), jnp.int32)
+    want, want_aux = jblk.slot_apply(jlayer, jc, "attn", "moe", x, pos)
+    got, aux = pblk.slot_apply(player, jc, "attn", "moe", _t(x), _t(pos))
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+    jcache = jblk.slot_cache_init(jc, "attn", B, 12, jnp.float32)
+    pcache = pblk.slot_cache_init(jc, "attn", B, 12, torch.float32)
+    for i in range(3):
+        want, jcache, want_aux = jblk.slot_decode(
+            jlayer, jc, "attn", "moe", x[:, i:i + 1], jcache, i)
+        got, pcache, aux = pblk.slot_decode(
+            player, jc, "attn", "moe", _t(x[:, i:i + 1]), pcache, i)
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-5,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+
+
+def test_decode_batch_of_mixtral_equals_the_jax_packages():
+    """serve.decode_batch of the reduced mixtral-8x7b (float32 weights, the
+    default bf16 cache, the config's capacity with the rebalance on) at
+    serve.py's defaults: the same tokens; every row of every step within
+    half its own top-2 gap."""
+    jc, jm, jp, pm, pp = _arch("mixtral-8x7b", "float32")
+    rng = np.random.default_rng(18)
+    prompts = rng.integers(1, jc.vocab_size,
+                           (SERVE_REQUESTS, SERVE_PROMPT)).astype(np.int32)
+    want = jserve.decode_batch(
+        jm, jp, [jserve.Request(i, p, SERVE_NEW)
+                 for i, p in enumerate(prompts)], jc.padded_vocab)
+    got = pserve.decode_batch(
+        pm, pp, [pserve.Request(i, p, SERVE_NEW)
+                 for i, p in enumerate(prompts)], device="cpu")
+    assert got.dtype == np.int32 and got.shape == (SERVE_REQUESTS, SERVE_NEW)
+    np.testing.assert_array_equal(got, want)
+    for step, (jl, pl) in enumerate(_replay(jm, jp, pm, pp, prompts, got)):
+        err = np.abs(jl - pl).max(axis=-1)
+        top2 = np.sort(jl, axis=-1)[:, -2:]
+        gap = top2[:, 1] - top2[:, 0]
+        assert (err <= 1e-3 * np.abs(jl).max()).all(), step
+        assert (err < gap / 2).all(), (step, err, gap)
+
+
+def _leaves_with_paths(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves_with_paths(v, f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+@pytest.mark.parametrize("name", [ARCH, "mixtral-8x7b"])
+def test_loss_fn_gradients_vs_jax_grad(name):
+    """The port's ``loss_fn`` differentiated by torch.autograd (on the CPU:
+    the plain versions) against ``jax.grad`` of the JAX package's, leaf by
+    leaf: every parameter, the router and the experts included."""
+    jc, jm, jp, pm, pp = _arch(name, "float32")
+    tok, lab = _tokens(jc, (B, S), seed=19), _labels(jc, 20)
+    want = jax.jit(jax.grad(lambda q: jm.loss_fn(
+        q, {"tokens": jnp.asarray(tok), "labels": jnp.asarray(lab)})[0]))(jp)
+    leaves = dict(_leaves_with_paths(pp))
+    params = {}
+
+    def leaf(path, t):
+        t = t.detach().clone().requires_grad_(True)
+        params[path] = t
+        return t
+
+    def rebuild(tree, path=""):
+        return {k: rebuild(v, f"{path}/{k}") if isinstance(v, dict)
+                else leaf(f"{path}/{k}", v) for k, v in tree.items()}
+    loss, _ = pm.loss_fn(rebuild(pp), {"tokens": _t(tok, torch.int64),
+                                       "labels": _t(lab, torch.int64)})
+    loss.backward()
+    wanted = dict(_leaves_with_paths(want))
+    assert set(params) == set(wanted) == set(leaves)
+    for path, t in params.items():
+        w = np.asarray(wanted[path])
+        assert t.grad is not None, path
+        scale = float(np.abs(w).max())
+        if "ffn/router" in path or "ffn/w_" in path:
+            assert scale > 0, path
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=0,
+                                   atol=1e-4 * scale, err_msg=path)

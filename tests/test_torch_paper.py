@@ -269,6 +269,35 @@ def test_serve_main_plans_and_schedules_as_the_jax_packages(
     assert run.tokens.shape == (6, 2) and run.stats.completed == 6
 
 
+def test_serve_example_serves_mixtral_through_main(tmp_path, monkeypatch,
+                                                   capsys):
+    """``examples/serve_lm_torch.py``'s command line (the JAX example's):
+    the reduced mixtral-8x7b planned, scheduled and served; the tokens are
+    ``decode_batch``'s on the same weights."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        from examples import serve_lm_torch
+    finally:
+        sys.path.remove(str(ROOT))
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request
+    from repro_torch.models import build_model
+    serve = _port_serve_on_the_cpu(monkeypatch, tmp_path)
+    run = serve.main(serve_lm_torch.ARGV)
+    out = capsys.readouterr().out
+    assert "serving mixtral-8x7b (" in out and "on 2 pods" in out
+    assert run.tokens.shape == (24, 8) and run.stats.completed == 24
+    cfg = get_config("mixtral-8x7b").reduced()
+    model = build_model(cfg, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(1, cfg.vocab_size, 16).astype(np.int32),
+                    8) for i in range(24)]
+    np.testing.assert_array_equal(
+        run.tokens, serve.decode_batch(model, params, reqs))
+
+
 def test_serve_reduced_is_a_switch(monkeypatch):
     """``--reduced`` is the default, as in the JAX package; ``--no-reduced``
     serves the full config (checked at the model build, which is stopped

@@ -355,3 +355,24 @@ def test_smoke_ab_reads_the_end_to_end_numbers_of_a_run(tmp_path):
         "phase_seconds": {"lm": 9.0}, "decode": decode,
         "prefill_wall_seconds": 0.07, "query_per_second": qps,
         "query_per_second_without_replay": qps}
+
+
+def test_smoke_ab_keeps_the_moe_phase_apart():
+    """Phase ``lm_moe``'s serving and prefill lines (the same paths as
+    ``lm_main_path``'s) land under their own keys."""
+    from benchmarks import smoke_ab
+    dense = dict.fromkeys(smoke_ab.DECODE_KEYS, 1.5)
+    moe = dict.fromkeys(smoke_ab.DECODE_KEYS, 4.5)
+    lines = [json.dumps({"phase": "lm_moe", "path": "serve.decode_batch",
+                         **moe}),
+             json.dumps({"phase": "lm_main_path",
+                         "path": "serve.decode_batch", **dense}),
+             json.dumps({"phase": "lm_moe",
+                         "path": "steps.build_prefill_step",
+                         "wall_seconds": 0.2}),
+             json.dumps({"phase": "lm_main_path",
+                         "path": "steps.build_prefill_step",
+                         "wall_seconds": 0.07})]
+    assert smoke_ab.summarize(lines) == {
+        "phase_seconds": {}, "decode": dense, "moe_decode": moe,
+        "prefill_wall_seconds": 0.07, "moe_prefill_wall_seconds": 0.2}
