@@ -12,8 +12,9 @@ proof runs can be told apart from the host's spread within one machine::
 
 Phases run in the order given: ``paths`` (the store-backed main-path
 sweeps), ``query`` (the query path; needs ``paths`` before it), ``lint``,
-``benches``, ``lm`` (the language-model main path) and ``lm_moe``
-(mixtral-8x7b at full width). Each run first
+``benches``, ``lm`` (the language-model main path), ``lm_moe``
+(mixtral-8x7b at full width) and ``lm_recurrent`` (xlstm-350m,
+jamba-v0.1-52b and phi3-mini-3.8b at full width). Each run first
 builds its checkout's kernels (cached in that checkout's ``build/``). A
 checkout's ``chip_smoke.py`` must define the phases its arm names. Needs a
 card; ``--out`` keeps each run's full output.
@@ -55,6 +56,8 @@ with tempfile.TemporaryDirectory(prefix="smoke_ab_") as tmp:
             cs.phase_lm_main_path()
         elif ph == "lm_moe":
             cs.phase_lm_moe()
+        elif ph == "lm_recurrent":
+            cs.phase_lm_recurrent()
         else:
             raise SystemExit("unknown phase " + ph)
         print(json.dumps({"phase": "smoke_ab", "ran": ph,
@@ -77,10 +80,14 @@ def summarize(lines: list) -> dict:
         if d.get("phase") == "smoke_ab":
             out["phase_seconds"][d["ran"]] = d["seconds"]
         elif d.get("path") == "serve.decode_batch":
-            key = "moe_decode" if d["phase"] == "lm_moe" else "decode"
+            key = {"lm_moe": "moe_decode",
+                   "lm_recurrent": f"{d.get('arch')} decode"}.get(
+                       d["phase"], "decode")
             out[key] = {k: d[k] for k in DECODE_KEYS}
         elif d.get("path") == "steps.build_prefill_step":
-            key = "moe_prefill" if d["phase"] == "lm_moe" else "prefill"
+            key = {"lm_moe": "moe_prefill",
+                   "lm_recurrent": f"{d.get('arch')} prefill"}.get(
+                       d["phase"], "prefill")
             out[f"{key}_wall_seconds"] = d["wall_seconds"]
         elif d.get("step") == "parity_and_rate":
             out["query_per_second"] = d["queries_per_second"]

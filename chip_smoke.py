@@ -20,13 +20,20 @@ with their launch counts (per kernel variant too), and the float32 parity
 of forward and sequential prefill. Then ``mixtral-8x7b`` at full width with
 its depth cut to 4 of 32 layers: serving and prefill through the MoE layer
 with its work-stealing overflow rebalance, the float32 parity, and one MoE
-layer on the card against the CPU's plain path.
+layer on the card against the CPU's plain path. Then the recurrent mixers
+and head dim 96: ``xlstm-350m`` (mLSTM and sLSTM), ``jamba-v0.1-52b`` (Mamba
+beside attention and MoE, one period of 8 of its 32 layers) and
+``phi3-mini-3.8b`` (32 heads of 96), each served and prefilled at full
+width.
 
-Phases, one JSON line each: ``build`` (seconds, ptxas's registers and spills,
+Phases, one JSON line each (and after each a ``phase_seconds`` line with
+its wall seconds): ``build`` (seconds, ptxas's registers and spills,
 the count of ``HGMMA`` instructions in each library's SASS, and the
 resources of every instantiation of the simulator kernel, where a spill
 fails the run), ``kernels`` (bit-exact against the plain loop, the
-simulator at every slot-count boundary), ``oracle`` (bit-exact
+simulator at every slot-count boundary; its six case groups run at once,
+each in a worker process of its own on the card: ``python3 chip_smoke.py
+--kernel-group NAME``), ``oracle`` (bit-exact
 against the serial numpy simulators), ``main_path`` (one line per path:
 sweeps, invariants, every launch on the register variant, repeat served from
 the store, sampled oracle rows), ``query_main_path`` (one line per step of
@@ -87,7 +94,14 @@ per replayed step, beside the eager loop's wall), ``lm_parity``,
 same checks and the step's byte bound, the prefill at 4 x 2048, the
 profile of a decode step, the float32 parity at 2 layers, one MoE layer at
 T = 64 against the CPU: routing equal, ``stolen`` > 0, near-ties
-reported),
+reported), ``lm_recurrent`` (xlstm-350m, jamba-v0.1-52b at one period and
+phi3-mini-3.8b: ``decode_batch`` with its tokens equal to the eager loop's
+and exact launch counts, ms a replayed step against the step's byte bound
+— every weight once and the recurrent state read and written once — the
+prefill at 4 x 2048 with its peak memory, one sLSTM layer's prefill time,
+the profile of a decode step of xlstm and jamba, the float32 parity of
+forward and sequential prefill for xlstm whole and jamba's first five
+slots),
 ``lm_timing`` (one line per kernel and shape: the kernel, its
 plain version and one PyTorch call as a yardstick, each as device time from
 a replayed CUDA graph, its bound, the rate it reached and its share of the
@@ -116,6 +130,7 @@ import threading
 import time
 import types
 import zipfile
+from collections import Counter
 from contextlib import contextmanager
 from pathlib import Path
 
@@ -157,6 +172,7 @@ from repro_torch.launch.steps import (GraphedDecodeStep,  # noqa: E402
                                      build_prefill_step)
 from repro_torch.models import build_model as build_lm_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.check import dispatch_lint as dl  # noqa: E402
 from repro_torch.check import run_pass as run_check_pass  # noqa: E402
 from repro_torch.check import sanitizer as san  # noqa: E402
@@ -519,25 +535,24 @@ def boundary_case(body: str, p: int) -> tuple:
     return cfg, scn
 
 
-def boundary_cases(stats):
-    """Every body at every p of BOUNDARY_P (:func:`boundary_case`) on the
+def boundary_cases(stats, body: str):
+    """``body`` at every p of BOUNDARY_P (:func:`boundary_case`) on the
     variant ``ws.variant`` routes it to, held against the plain loop; each
     launch must count under its variant."""
-    for body in BODIES:
-        for p in BOUNDARY_P:
-            cfg, scn = boundary_case(body, p)
-            name, k = ws.variant(p)
-            before = dict(ws.ws_sim_cuda.launches_by_variant)
-            res, _ = hold_against_plain(cfg, scn, f"{body} p={p} "
-                                        f"{cfg.topology.name} ({name}, K={k})")
-            if ws.ws_sim_cuda.launches_by_variant[name] != before[name] + 1:
-                raise AssertionError(f"{body} p={p}: the launch did not count "
-                                     f"under variant {name}")
-            if not bool(res.overflow[1]) or int(res.n_events[1]) != 3:
-                raise AssertionError(f"{body} p={p}: the row budget of 3 "
-                                     "events was not honoured")
-            stats.add(body, scn)
-            stats.variants[name] += 1
+    for p in BOUNDARY_P:
+        cfg, scn = boundary_case(body, p)
+        name, k = ws.variant(p)
+        before = dict(ws.ws_sim_cuda.launches_by_variant)
+        res, _ = hold_against_plain(cfg, scn, f"{body} p={p} "
+                                    f"{cfg.topology.name} ({name}, K={k})")
+        if ws.ws_sim_cuda.launches_by_variant[name] != before[name] + 1:
+            raise AssertionError(f"{body} p={p}: the launch did not count "
+                                 f"under variant {name}")
+        if not bool(res.overflow[1]) or int(res.n_events[1]) != 3:
+            raise AssertionError(f"{body} p={p}: the row budget of 3 "
+                                 "events was not honoured")
+        stats.add(body, scn)
+        stats.variants[name] += 1
 
 
 @dataclasses.dataclass
@@ -556,21 +571,77 @@ class CaseStats:
         self.rows[body] += int(scn.W.shape[0])
 
 
-def phase_kernels_and_oracle():
+#: the case groups of phase ``kernels``; each runs in a worker process of
+#: its own on the card (``python3 chip_smoke.py --kernel-group NAME``), all
+#: at once: the plain loop they hold the kernel against launches small
+#: kernels from the host, one event step at a time, so the groups are
+#: host-bound and the card has room for all of them
+KERNEL_GROUPS = {
+    "ws_sim_divisible": divisible_cases,
+    "ws_sim_dag": dag_cases,
+    "ws_sim_adaptive": adaptive_cases,
+    **{f"slot_boundaries {b}": (lambda stats, b=b: boundary_cases(stats, b))
+       for b in BODIES},
+}
+
+
+def run_kernel_group(name: str) -> None:
+    """A worker's whole run: one group of KERNEL_GROUPS on the card; its
+    last line of output is the group's stats, worst errors and seconds."""
     t0 = time.perf_counter()
     stats = CaseStats()
-    seconds = {}
-    for body, run in (("ws_sim_divisible", divisible_cases),
-                      ("ws_sim_dag", dag_cases),
-                      ("ws_sim_adaptive", adaptive_cases),
-                      ("slot_boundaries", boundary_cases)):
-        t1 = time.perf_counter()
-        run(stats)
-        seconds[body] = round(time.perf_counter() - t1, 3)
+    KERNEL_GROUPS[name](stats)
+    print(json.dumps({"group": name, "stats": dataclasses.asdict(stats),
+                      "worst": WORST,
+                      "seconds": round(time.perf_counter() - t0, 3)}),
+          flush=True)
+
+
+def phase_kernels_and_oracle():
+    """Every group of KERNEL_GROUPS in a worker process on the card, all
+    started together (each process reaps its own; a failed or killed
+    worker fails the phase with its output's tail); their stats and worst
+    errors summed into this process's."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    stats, seconds = CaseStats(), {}
+    with tempfile.TemporaryDirectory(prefix="ws_kernel_groups_") as tmp:
+        logs = {name: Path(tmp) / f"{i}.log"
+                for i, name in enumerate(KERNEL_GROUPS)}
+        procs = {}
+        try:
+            for name, log in logs.items():
+                with open(log, "w") as f:
+                    procs[name] = subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()),
+                         "--kernel-group", name], stdout=f,
+                        stderr=subprocess.STDOUT, text=True, env=env)
+            for p in procs.values():
+                p.wait(timeout=900)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs = {name: log.read_text() for name, log in logs.items()}
+    for name, out in outs.items():
+        if procs[name].returncode != 0:
+            raise AssertionError(f"kernel group {name!r} exited "
+                                 f"{procs[name].returncode}:\n{out[-4000:]}")
+        line = json.loads(out.strip().splitlines()[-1])
+        for field in ("cases", "rows", "variants"):
+            for k, v in line["stats"][field].items():
+                getattr(stats, field)[k] += v
+        stats.oracle += line["stats"]["oracle"]
+        stats.halted_rows += line["stats"]["halted_rows"]
+        for body, err_ in line["worst"].items():
+            WORST[body] = max(WORST[body], err_)
+        seconds[name] = line["seconds"]
     say("kernels", kernels=list(BODIES), models=stats.cases, rows=stats.rows,
         dag_rows_halted_at_deque_cap=stats.halted_rows, bit_exact=True,
         boundary_p=BOUNDARY_P, boundary_cases_by_variant=stats.variants,
-        max_abs_err=WORST, seconds=seconds,
+        max_abs_err=WORST, worker_processes=len(procs),
+        seconds_by_worker=seconds,
         total_seconds=round(time.perf_counter() - t0, 3))
     say("oracle", rows=stats.oracle, bit_exact=True)
 
@@ -2501,20 +2572,30 @@ def lm_rms_cases(gen, dtype):
     (8192 x 16, 128), (8192 x 8, 128) — tests/test_kernels.py's shapes
     (100 rows: a ragged block), a width of the generic kernel (100); and
     every width of the register kernel at one row, 24 rows and more row
-    groups than the card holds at once (its grid-stride loop)."""
+    groups than the card holds at once (its grid-stride loop); then
+    phi3-mini-3.8b's widths of 3072, decode (24, 3072) and prefill (8192,
+    3072), which must run the generic kernel, as its main path does."""
     shapes = ((24, 2048), (384, 128), (192, 128), (8192, 2048),
               (131072, 128), (65536, 128), (64, 256), (100, 512),
               (128, 1024), (1, 128), (7, 100))
     shapes += tuple((R, D) for D in rn.REG_WIDTHS for R in (1, 24, 17000))
+    shapes += ((24, 3072), (PREFILL_B * PREFILL_S, 3072))
     tol = LM_TOL[("rms_norm", dtype)]
     out = []
     for R, D in shapes:
         x = lm_randn(gen, (R, D), dtype, 3.0)
         s = lm_randn(gen, (D,), dtype)
+        before = dict(ops.rms_norm.launches_by_variant)
         got = ops.rms_norm(x, s, 1e-6)
         torch.cuda.synchronize()
+        variant = rn.VARIANTS[0] if D in rn.REG_WIDTHS else rn.VARIANTS[1]
+        ran = {v: n - before[v]
+               for v, n in ops.rms_norm.launches_by_variant.items()}
+        if ran != {**dict.fromkeys(ran, 0), variant: 1}:
+            raise AssertionError(f"rms_norm {dtype} ({R}, {D}) ran {ran}, "
+                                 f"expected one {variant} launch")
         out.append(lm_compare("rms_norm", got, rn.rms_norm_ref(x, s, 1e-6),
-                              tol, f"{dtype} ({R}, {D})"))
+                              tol, f"{dtype} ({R}, {D}) {variant}"))
     return out
 
 
@@ -2546,7 +2627,13 @@ def lm_attention_cases(gen, dtype):
              (1, 200, 600, 4, 2, 16, True, 150, 400),
              (1, 100, 257, 8, 4, 64, False, 0, 0),
              (1, 128, 128, 4, 2, 128, False, 50, 0),
-             (2, 1, 40, 4, 2, 128, True, 0, 39))
+             (2, 1, 40, 4, 2, 128, True, 0, 39),
+             # head dim 96: phi3-mini-3.8b's prefill (32 heads, MHA), a
+             # window, ragged and non-causal tiles
+             (PREFILL_B, PREFILL_S, PREFILL_S, *PHI3_HEADS, 96, True, 0, 0),
+             (2, 700, 700, *PHI3_HEADS, 96, True, 300, 0),
+             (1, 333, 333, 4, 2, 96, False, 0, 0),
+             (2, 100, 257, 4, 4, 96, True, 0, 157))
     tol = LM_TOL[("attention", dtype)]
     out = []
     for B, Sq, Skv, H, KV, hd, causal, win, qo in cases:
@@ -2602,6 +2689,16 @@ def lm_decode_cases(gen, dtype):
               (2, 4096, 3000, 16, 8, 128, 300, True),
               (2, 4096, 4096, 8, 1, 64, 700, True),
               (2, 4096, 1, 16, 8, 128, 0, True)]
+    # head dim 96 (phi3-mini-3.8b: 32 heads, G = 1; a row is 12 or 24
+    # loads in lane groups of 16 or 32): every kv_len of its serving cache
+    # with kv_len as an int and on the device, then the split path
+    cases += [(SERVE_REQUESTS, SERVE_PROMPT + SERVE_NEW, n, *PHI3_HEADS, 96,
+               0, on_device) for on_device in (False, True)
+              for n in range(1, SERVE_PROMPT + SERVE_NEW + 1)]
+    cases += [(1, 32768, 32768, *PHI3_HEADS, 96, 0, True),
+              (1, 32768, 20001, *PHI3_HEADS, 96, 1000, False),
+              (2, 4096, 3000, *PHI3_HEADS, 96, 300, True),
+              (3, 40, 39, 4, 2, 96, 5, False)]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = []
     for B, Smax, kvl, H, KV, hd, win, on_device in cases:
@@ -2769,124 +2866,26 @@ def eager_serve(model, params, reqs) -> tuple:
 
 def phase_lm_main_path() -> dict:
     """(a) serving: decode_batch at serve.py's defaults; (b) production
-    prefill: build_prefill_step on 4 x 2048 tokens; each counted on its own;
-    then the full-width float32 parity of forward and sequential prefill."""
+    prefill: build_prefill_step on 4 x 2048 tokens; each counted on its own
+    (:func:`lm_serve_and_prefill`: per step and layer norm1, q_norm, k_norm,
+    norm2 and one decode attention, per step the final norm; every width of
+    the serving path, 2048 and 128, has a register kernel, and a cache of
+    24 rows is one split); then the full-width float32 parity of forward
+    and sequential prefill."""
     cfg = get_lm_config(LM_ARCH)
     model = build_lm_model(cfg)                       # device=None: the card
-    t0 = time.perf_counter()
-    params = model.init_params(
-        torch.Generator(device=DEV).manual_seed(LM_SEED))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    params, init_s = init_weights(model, LM_SEED)
     rng = np.random.default_rng(LM_SEED)
-    reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab_size,
-                                               SERVE_PROMPT).astype(np.int32),
-                    max_new=SERVE_NEW) for i in range(SERVE_REQUESTS)]
-    decode_batch(model, params, reqs)                       # warm (cuBLAS)
-    # ---- (a) the run that is counted: every count at 0 just before --------
-    reset_all_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tokens = decode_batch(model, params, reqs)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    graph = decode_batch.last_graph
-    steps = SERVE_PROMPT + SERVE_NEW
-    L = cfg.n_layers
-    # read just after: per step and layer norm1, q_norm, k_norm, norm2 and
-    # one decode attention; per step the final norm; the step's first run
-    # is eager, the other steps - 1 replay its graph, each counted once
-    # every width of the serving path (2048, 128) has a register kernel,
-    # and a cache of 24 rows is one split
-    serve_counts, serve_variants = lm_counts_since_reset(
-        {"rms_norm": {"row_in_registers": steps * (4 * L + 1)},
-         "flash_decode": {"single": steps * L}},
-        rms_norm=steps * (4 * L + 1), flash_decode=steps * L)
-    if graph is None or graph["replays"] != steps - 1:
-        raise AssertionError(f"decode_batch replayed {graph} on the card, "
-                             f"expected {steps - 1} replays")
-    if tokens.shape != (SERVE_REQUESTS, SERVE_NEW) or tokens.dtype != \
-            np.int32 or tokens.min() < 0 or tokens.max() >= cfg.padded_vocab:
-        raise AssertionError(f"decode_batch returned {tokens.shape} "
-                             f"{tokens.dtype} in [{tokens.min()}, "
-                             f"{tokens.max()}]")
-    # the same requests through an eager loop driven here: Model.prefill
-    # and decode_step with int positions, every launch from Python
-    eager_tokens, eager_s = eager_serve(model, params, reqs)
-    if not np.array_equal(tokens, eager_tokens):
-        raise AssertionError(f"decode_batch's tokens differ from the eager "
-                             f"loop's in {int((tokens != eager_tokens).sum())}"
-                             f" places")
-    replayed_s = serve_s - graph["warmup_seconds"] - graph["capture_seconds"]
-    serve = dict(requests=SERVE_REQUESTS, prompt=SERVE_PROMPT,
-                 new_tokens=SERVE_NEW, decode_steps=steps,
-                 wall_seconds=serve_s,
-                 tokens_per_second=SERVE_REQUESTS * SERVE_NEW / serve_s,
-                 prompt_and_new_tokens_per_second=(
-                     SERVE_REQUESTS * steps / serve_s),
-                 warmup_seconds=graph["warmup_seconds"],
-                 capture_seconds=graph["capture_seconds"],
-                 replays=graph["replays"],
-                 ms_per_replayed_step=replayed_s / graph["replays"] * 1e3,
-                 eager_loop_wall_seconds=eager_s,
-                 eager_loop_ms_per_step=eager_s / steps * 1e3,
-                 tokens_equal_the_eager_loop=True,
-                 launches=serve_counts, launches_by_variant=serve_variants,
-                 launches_per_replay=graph["launches_per_replay"][0],
-                 sample=tokens[0].tolist())
-    say("lm_main_path", path="serve.decode_batch", arch=LM_ARCH,
-        params=model.param_count(), param_dtype=cfg.param_dtype,
-        init_seconds=init_s, card=card_line(), **serve)
-    # ---- (b) production prefill -------------------------------------------
-    step = build_prefill_step(model)
-    batch = {"tokens": torch.as_tensor(
-        rng.integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S)),
-        dtype=torch.int64, device=DEV)}
-    step(params, batch)                                     # warm
-    reset_all_counts()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    logits = step(params, batch)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    # bf16 prefill: every attention launch on the tensor cores
-    prefill_counts, prefill_variants = lm_counts_since_reset(
-        {"rms_norm": {"row_in_registers": 4 * L + 1},
-         "flash_attention": {"tc_bf16": L}},
-        rms_norm=4 * L + 1, flash_attention=L)
-    if logits.shape != (PREFILL_B, 1, cfg.padded_vocab) or \
-            logits.dtype != torch.float32 or \
-            not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"prefill logits {tuple(logits.shape)} "
-                             f"{logits.dtype} or not finite")
-    prefill = dict(batch=PREFILL_B, seq=PREFILL_S, wall_seconds=prefill_s,
-                   tokens_per_second=PREFILL_B * PREFILL_S / prefill_s,
-                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   launches=prefill_counts,
-                   launches_by_variant=prefill_variants)
-    say("lm_main_path", path="steps.build_prefill_step", arch=LM_ARCH,
-        card=card_line(), **prefill)
+    out = lm_serve_and_prefill("lm_main_path", LM_ARCH, model, params, rng,
+                               rms_variant="row_in_registers",
+                               extra=dict(init_seconds=init_s))
     # ---- float32 parity at full width (tests/test_models_smoke.py) --------
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
-    model32 = build_lm_model(cfg32)
     params32 = tree_to(params, torch.float32)               # exact
     del params
-    tk = torch.as_tensor(rng.integers(0, cfg.vocab_size, (PARITY_B, PARITY_S)),
-                         dtype=torch.int64, device=DEV)
-    fwd = model32.forward(params32, {"tokens": tk})[0][:, -1]
-    _cache, dec = model32.prefill(params32, {"tokens": tk}, max_seq=PARITY_S,
-                                  dtype=torch.float32)
-    diff = float((fwd - dec[:, 0]).abs().max())
-    tol = 1e-3 * float(fwd.abs().max()) + 1e-3
-    if not diff < tol or not bool(torch.isfinite(fwd).all()):
-        raise AssertionError(f"full-width float32 forward and sequential "
-                             f"prefill differ by {diff} (tolerance {tol})")
-    say("lm_parity", arch=LM_ARCH, param_dtype="float32", batch=PARITY_B,
-        seq=PARITY_S, max_abs_diff=diff, tol=tol,
-        max_abs_logit=float(fwd.abs().max()))
+    float32_parity("lm_parity", LM_ARCH, build_lm_model(
+        dataclasses.replace(cfg, param_dtype="float32")), params32, rng)
     del params32
-    return dict(serve=serve, prefill=prefill)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2914,6 +2913,8 @@ MOE_GROUPS = ((SERVE_REQUESTS, True), (MOE_LAYER_T, True),
               (PREFILL_B * PREFILL_S, False))
 #: (query heads, KV heads) of mixtral-8x7b
 MOE_HEADS = (32, 8)
+#: (query heads, KV heads) of phi3-mini-3.8b, at head dim 96
+PHI3_HEADS = (32, 32)
 
 
 def moe_cfg(repeats: int, **over):
@@ -2946,141 +2947,41 @@ def phase_lm_moe() -> dict:
     t_phase = time.perf_counter()
     cfg = moe_cfg(MOE_REPEATS)
     model = build_lm_model(cfg)                       # device=None: the card
-    t0 = time.perf_counter()
-    params = model.init_params(
-        torch.Generator(device=DEV).manual_seed(MOE_SEED))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    params, init_s = init_weights(model, MOE_SEED)
     rng = np.random.default_rng(MOE_SEED)
-    reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab_size,
-                                               SERVE_PROMPT).astype(np.int32),
-                    max_new=SERVE_NEW) for i in range(SERVE_REQUESTS)]
-    decode_batch(model, params, reqs)                       # warm (cuBLAS)
-    # ---- (1) serving: every count at 0 just before -------------------------
-    reset_all_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tokens = decode_batch(model, params, reqs)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    graph = decode_batch.last_graph
-    steps = SERVE_PROMPT + SERVE_NEW
-    L = cfg.n_layers
-    # a step: norm1 and norm2 a layer (no qk-norm) and the final norm, one
-    # flash decode a layer; width 4096 has a register kernel, 24 rows one
-    # split
-    serve_counts, serve_variants = lm_counts_since_reset(
-        {"rms_norm": {"row_in_registers": steps * (2 * L + 1)},
-         "flash_decode": {"single": steps * L}},
-        rms_norm=steps * (2 * L + 1), flash_decode=steps * L)
-    if graph is None or graph["replays"] != steps - 1:
-        raise AssertionError(f"{MOE_ARCH} decode_batch replayed {graph}, "
-                             f"expected {steps - 1} replays")
-    if tokens.shape != (SERVE_REQUESTS, SERVE_NEW) or tokens.min() < 0 \
-            or tokens.max() >= cfg.padded_vocab:
-        raise AssertionError(f"{MOE_ARCH} decode_batch returned "
-                             f"{tokens.shape} in [{tokens.min()}, "
-                             f"{tokens.max()}]")
-    eager_tokens, eager_s = eager_serve(model, params, reqs)
-    if not np.array_equal(tokens, eager_tokens):
-        raise AssertionError(f"{MOE_ARCH} decode_batch's tokens differ from "
-                             f"the eager loop's in "
-                             f"{int((tokens != eager_tokens).sum())} places")
-    replayed_s = serve_s - graph["warmup_seconds"] - graph["capture_seconds"]
-    weight_bytes = step_weight_bytes(params, SERVE_REQUESTS)
-    serve = dict(requests=SERVE_REQUESTS, prompt=SERVE_PROMPT,
-                 new_tokens=SERVE_NEW, decode_steps=steps,
-                 wall_seconds=serve_s,
-                 tokens_per_second=SERVE_REQUESTS * SERVE_NEW / serve_s,
-                 warmup_seconds=graph["warmup_seconds"],
-                 capture_seconds=graph["capture_seconds"],
-                 replays=graph["replays"],
-                 ms_per_replayed_step=replayed_s / graph["replays"] * 1e3,
-                 step_bytes=weight_bytes,
-                 step_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
-                 eager_loop_wall_seconds=eager_s,
-                 eager_loop_ms_per_step=eager_s / steps * 1e3,
-                 tokens_equal_the_eager_loop=True,
-                 launches=serve_counts, launches_by_variant=serve_variants,
-                 launches_per_replay=graph["launches_per_replay"][0],
-                 sample=tokens[0].tolist())
-    say("lm_moe", path="serve.decode_batch", arch=MOE_ARCH, repeats=L,
-        params=model.param_count(), param_dtype=cfg.param_dtype,
-        capacity_factor=cfg.capacity_factor, ws_rebalance=cfg.ws_rebalance,
-        init_seconds=init_s, card=card_line(), **serve)
-    # ---- (2) production prefill --------------------------------------------
-    step = build_prefill_step(model)
-    batch = {"tokens": torch.as_tensor(
-        rng.integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S)),
-        dtype=torch.int64, device=DEV)}
-    step(params, batch)                                     # warm
-    reset_all_counts()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    logits = step(params, batch)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    prefill_counts, prefill_variants = lm_counts_since_reset(
-        {"rms_norm": {"row_in_registers": 2 * L + 1},
-         "flash_attention": {"tc_bf16": L}},
-        rms_norm=2 * L + 1, flash_attention=L)
-    if logits.shape != (PREFILL_B, 1, cfg.padded_vocab) or \
-            not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"{MOE_ARCH} prefill logits "
-                             f"{tuple(logits.shape)} or not finite")
-    prefill = dict(batch=PREFILL_B, seq=PREFILL_S, wall_seconds=prefill_s,
-                   tokens_per_second=PREFILL_B * PREFILL_S / prefill_s,
-                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   capacity=moe_mod.capacity(PREFILL_B * PREFILL_S,
-                                             cfg.experts_per_tok,
-                                             cfg.capacity_factor,
-                                             cfg.n_experts),
-                   launches=prefill_counts,
-                   launches_by_variant=prefill_variants)
-    say("lm_moe", path="steps.build_prefill_step", arch=MOE_ARCH, repeats=L,
-        card=card_line(), **prefill)
+    # (1), (2): a step runs norm1 and norm2 a layer (no qk-norm) and the
+    # final norm, one flash decode a layer; width 4096 has a register
+    # kernel, 24 rows one split
+    out = lm_serve_and_prefill(
+        "lm_moe", MOE_ARCH, model, params, rng,
+        rms_variant="row_in_registers",
+        extra=dict(init_seconds=init_s, capacity_factor=cfg.capacity_factor,
+                   ws_rebalance=cfg.ws_rebalance),
+        prefill_extra=dict(capacity=moe_mod.capacity(
+            PREFILL_B * PREFILL_S, cfg.experts_per_tok, cfg.capacity_factor,
+            cfg.n_experts)))
     # ---- (5) where a decode step's time goes (the served weights) ----------
-    tok = torch.as_tensor(rng.integers(1, cfg.vocab_size,
-                                       (SERVE_REQUESTS, 1)),
-                          dtype=torch.int64, device=DEV)
-    for window, profile in lm_profile_decode_steps(model, params,
-                                                   tok).items():
-        say("lm_profile", what=f"decode steps, serving path, {window}",
-            arch=MOE_ARCH, repeats=L, card=card_line(), **profile)
+    profile_decode(model, params, rng, MOE_ARCH, repeats=cfg.repeats)
     layer0 = {k: v[0].float() for k, v in
               params["layers"]["slot0"]["ffn"].items()}
     parity_params = {k: (tree_to(_first(v, MOE_PARITY_REPEATS), torch.float32)
                          if k == "layers" else v.float())
                      for k, v in params.items()}
-    del params, model, step
+    del params, model
     torch.cuda.empty_cache()
     # ---- (3) float32 parity at full width ----------------------------------
     cfg32 = moe_cfg(MOE_PARITY_REPEATS, param_dtype="float32",
                     capacity_factor=64.0, ws_rebalance=False)
     model32 = build_lm_model(cfg32)
-    tk = torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                      (PARITY_B, PARITY_S)),
-                         dtype=torch.int64, device=DEV)
-    fwd, aux = model32.forward(parity_params, {"tokens": tk})
-    fwd = fwd[:, -1]
-    _cache, dec = model32.prefill(parity_params, {"tokens": tk},
-                                  max_seq=PARITY_S, dtype=torch.float32)
-    diff = float((fwd - dec[:, 0]).abs().max())
-    tol = 1e-3 * float(fwd.abs().max()) + 1e-3
-    if not diff < tol or not bool(torch.isfinite(fwd).all()):
-        raise AssertionError(f"{MOE_ARCH} float32 forward and sequential "
-                             f"prefill differ by {diff} (tolerance {tol})")
-    say("lm_moe", path="parity", arch=MOE_ARCH, repeats=cfg32.n_layers,
-        param_dtype="float32", capacity_factor=cfg32.capacity_factor,
-        ws_rebalance=False, batch=PARITY_B, seq=PARITY_S, max_abs_diff=diff,
-        tol=tol, max_abs_logit=float(fwd.abs().max()), moe_aux=float(aux))
+    float32_parity("lm_moe", MOE_ARCH, model32, parity_params, rng,
+                   repeats=cfg32.n_layers,
+                   capacity_factor=cfg32.capacity_factor, ws_rebalance=False)
     del parity_params, model32
     torch.cuda.empty_cache()
     # ---- (4) one MoE layer on the card against the CPU plain path ----------
     moe_layer_against_the_cpu(cfg, layer0, rng)
     say("lm_moe", path="done", seconds=time.perf_counter() - t_phase)
-    return dict(serve=serve, prefill=prefill)
+    return out
 
 
 def _first(tree, n: int):
@@ -3190,6 +3091,302 @@ def moe_group_against_the_cpu(cfg, layer: dict, cpu: dict, T: int,
     return line, faults
 
 
+# ---------------------------------------------------------------------------
+# Phase lm_recurrent: the recurrent mixers (xlstm-350m's mLSTM and sLSTM,
+# jamba-v0.1-52b's Mamba beside attention and MoE) and head dim 96
+# (phi3-mini-3.8b), each served at full width.
+# ---------------------------------------------------------------------------
+
+REC_SEED = 0
+XLSTM_ARCH, JAMBA_ARCH, PHI3_ARCH = ("xlstm-350m", "jamba-v0.1-52b",
+                                     "phi3-mini-3.8b")
+#: Jamba's depth served: one period of its pattern (8 of 32 layers: 7
+#: Mamba, 1 attention, 4 MoE of 16 experts, 4 dense; 13.27 B parameters,
+#: 26.5 GB in bf16; all 32 are 51.48 B, 103 GB, above the card's 80 GB)
+JAMBA_REPEATS = 1
+#: Jamba's float32 parity: the first five slots of its pattern (mamba/dense,
+#: mamba/moe, mamba/dense, mamba/moe, attn/dense: every slot kind), one
+#: repeat, 7.15 B parameters, 28.6 GB
+JAMBA_PARITY_SLOTS = 5
+
+
+def init_weights(model, seed: int) -> tuple:
+    """(random weights of ``model`` from ``seed`` on the card, the seconds
+    that took)."""
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=DEV).manual_seed(seed))
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def recurrent_state_bytes(cache: dict) -> int:
+    """Bytes of the recurrent state in a decode cache (every leaf of a
+    layer without a KV cache): a decode step reads it once and writes it
+    once."""
+    total = 0
+    for slot in cache["layers"].values():
+        if "k" not in slot:
+            total += sum(t.numel() * t.element_size() for t in slot.values())
+    return total
+
+
+def kv_bytes_per_replayed_step(cache: dict, steps: int) -> float:
+    """Mean bytes of K and V that a replayed step of a ``steps``-step
+    decode moves, over a cache of ``steps`` positions: at position p (1 ..
+    steps - 1, the replays) each layer of attention reads its p cached rows
+    of K and V and writes one, kv_len = p + 1 rows in all; their mean is
+    (steps + 2) / 2."""
+    row_bytes = sum(
+        (slot["k"].numel() * slot["k"].element_size()
+         + slot["v"].numel() * slot["v"].element_size()) / steps
+        for slot in cache["layers"].values() if "k" in slot)
+    return row_bytes * (steps + 2) / 2
+
+
+def lm_serve_and_prefill(phase: str, arch: str, model, params, rng, *,
+                         rms_variant: str, extra: dict,
+                         prefill_extra: dict = None) -> dict:
+    """(1) ``decode_batch`` at serve.py's defaults (24 requests, prompt 16,
+    8 new tokens), each step after the first a replay of one CUDA graph;
+    its tokens equal to an eager loop's; (2) ``build_prefill_step`` at 4 x
+    2048. Each run counted on its own, every count at 0 just before and
+    exact just after: a step runs the norm before each mixer and FFN, a
+    q-norm and a k-norm a layer of attention where the config has them, and
+    the final norm (RMSNorm variant ``rms_variant``), and one flash decode
+    a layer of attention; the prefill the same norms and one flash
+    attention (``tc_bf16``) a layer of attention. The step's byte bound:
+    every weight once (of an untied embedding the batch's rows), the
+    recurrent state read and written once, and the K and V rows a replayed
+    step moves (:func:`kv_bytes_per_replayed_step`). Returns
+    dict(serve=..., prefill=...)."""
+    cfg = model.cfg
+    attn = sum(m == "attn" for m, _f in cfg.pattern) * cfg.repeats
+    norms = sum(1 if ffn == "none" else 2 for _m, ffn in cfg.pattern) \
+        * cfg.repeats + 1 + (2 * attn if cfg.qk_norm else 0)
+    reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab_size,
+                                               SERVE_PROMPT).astype(np.int32),
+                    max_new=SERVE_NEW) for i in range(SERVE_REQUESTS)]
+    decode_batch(model, params, reqs)                       # warm (cuBLAS)
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = decode_batch(model, params, reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    graph = decode_batch.last_graph
+    steps = SERVE_PROMPT + SERVE_NEW
+    want = {"rms_norm": {rms_variant: steps * norms}}
+    if attn:
+        want["flash_decode"] = {"single": steps * attn}
+    serve_counts, serve_variants = lm_counts_since_reset(
+        want, rms_norm=steps * norms, flash_decode=steps * attn)
+    if graph is None or graph["replays"] != steps - 1:
+        raise AssertionError(f"{arch} decode_batch replayed {graph}, "
+                             f"expected {steps - 1} replays")
+    if tokens.shape != (SERVE_REQUESTS, SERVE_NEW) or tokens.dtype != \
+            np.int32 or tokens.min() < 0 or tokens.max() >= cfg.padded_vocab:
+        raise AssertionError(f"{arch} decode_batch returned {tokens.shape} "
+                             f"{tokens.dtype} in [{tokens.min()}, "
+                             f"{tokens.max()}]")
+    eager_tokens, eager_s = eager_serve(model, params, reqs)
+    if not np.array_equal(tokens, eager_tokens):
+        raise AssertionError(f"{arch} decode_batch's tokens differ from the "
+                             f"eager loop's in "
+                             f"{int((tokens != eager_tokens).sum())} places")
+    replayed_s = serve_s - graph["warmup_seconds"] - graph["capture_seconds"]
+    weight_bytes = step_weight_bytes(params, SERVE_REQUESTS)
+    cache = model.init_cache(SERVE_REQUESTS, steps)
+    state_bytes = 2 * recurrent_state_bytes(cache)
+    kv_bytes = kv_bytes_per_replayed_step(cache, steps)
+    del cache
+    serve = dict(requests=SERVE_REQUESTS, prompt=SERVE_PROMPT,
+                 new_tokens=SERVE_NEW, decode_steps=steps,
+                 wall_seconds=serve_s,
+                 tokens_per_second=SERVE_REQUESTS * SERVE_NEW / serve_s,
+                 prompt_and_new_tokens_per_second=(
+                     SERVE_REQUESTS * steps / serve_s),
+                 warmup_seconds=graph["warmup_seconds"],
+                 capture_seconds=graph["capture_seconds"],
+                 replays=graph["replays"],
+                 ms_per_replayed_step=replayed_s / graph["replays"] * 1e3,
+                 step_weight_bytes=weight_bytes,
+                 step_state_bytes_read_and_written=state_bytes,
+                 step_kv_bytes=kv_bytes,
+                 step_bound_ms=(weight_bytes + state_bytes + kv_bytes)
+                 / HBM_BYTES_PER_S * 1e3,
+                 step_bound_ms_weights_only=weight_bytes
+                 / HBM_BYTES_PER_S * 1e3,
+                 eager_loop_wall_seconds=eager_s,
+                 eager_loop_ms_per_step=eager_s / steps * 1e3,
+                 tokens_equal_the_eager_loop=True,
+                 launches=serve_counts, launches_by_variant=serve_variants,
+                 launches_per_replay=graph["launches_per_replay"][0],
+                 sample=tokens[0].tolist())
+    say(phase, path="serve.decode_batch", arch=arch, repeats=cfg.repeats,
+        layers=cfg.n_layers, params=model.param_count(),
+        param_dtype=cfg.param_dtype, card=card_line(), **extra, **serve)
+    step = build_prefill_step(model)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S)),
+        dtype=torch.int64, device=DEV)}
+    step(params, batch)                                     # warm
+    reset_all_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    want = {"rms_norm": {rms_variant: norms}}
+    if attn:
+        want["flash_attention"] = {"tc_bf16": attn}
+    prefill_counts, prefill_variants = lm_counts_since_reset(
+        want, rms_norm=norms, flash_attention=attn)
+    if logits.shape != (PREFILL_B, 1, cfg.padded_vocab) or \
+            logits.dtype != torch.float32 or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} prefill logits {tuple(logits.shape)} "
+                             f"{logits.dtype} or not finite")
+    prefill = dict(batch=PREFILL_B, seq=PREFILL_S, wall_seconds=prefill_s,
+                   tokens_per_second=PREFILL_B * PREFILL_S / prefill_s,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   **(prefill_extra or {}), launches=prefill_counts,
+                   launches_by_variant=prefill_variants)
+    say(phase, path="steps.build_prefill_step", arch=arch,
+        repeats=cfg.repeats, card=card_line(), **prefill)
+    return dict(serve=serve, prefill=prefill)
+
+
+def profile_decode(model, params, rng, arch: str, **extra) -> None:
+    """``lm_profile``'s two windows (eager, graph replay) of the served
+    model's decode step, at the serving batch, tokens drawn from ``rng``."""
+    tok = torch.as_tensor(rng.integers(1, model.cfg.vocab_size,
+                                       (SERVE_REQUESTS, 1)),
+                          dtype=torch.int64, device=DEV)
+    for window, prof in lm_profile_decode_steps(model, params, tok).items():
+        say("lm_profile", what=f"decode steps, serving path, {window}",
+            arch=arch, card=card_line(), **extra, **prof)
+
+
+def float32_parity(phase: str, arch: str, model32, params32, rng,
+                   **extra) -> None:
+    """tests/test_models_smoke.py's parity at full width in float32: the
+    last position's logits of ``forward`` against sequential prefill (one
+    decode step a token, the recurrent state carried in a float32 cache),
+    within 1e-3 max|logit| + 1e-3."""
+    cfg = model32.cfg
+    tk = torch.as_tensor(rng.integers(0, cfg.vocab_size, (PARITY_B, PARITY_S)),
+                         dtype=torch.int64, device=DEV)
+    fwd, aux = model32.forward(params32, {"tokens": tk})
+    fwd = fwd[:, -1]
+    _cache, dec = model32.prefill(params32, {"tokens": tk}, max_seq=PARITY_S,
+                                  dtype=torch.float32)
+    diff = float((fwd - dec[:, 0]).abs().max())
+    tol = 1e-3 * float(fwd.abs().max()) + 1e-3
+    if not diff < tol or not bool(torch.isfinite(fwd).all()):
+        raise AssertionError(f"{arch} float32 forward and sequential prefill "
+                             f"differ by {diff} (tolerance {tol})")
+    say(phase, path="parity", arch=arch, layers=cfg.n_layers,
+        params=model32.param_count(), param_dtype="float32", batch=PARITY_B,
+        seq=PARITY_S, max_abs_diff=diff, tol=tol,
+        max_abs_logit=float(fwd.abs().max()), moe_aux=float(aux), **extra)
+
+
+def phase_lm_recurrent() -> dict:
+    """xlstm-350m (24 layers), jamba-v0.1-52b (one period, 8 layers) and
+    phi3-mini-3.8b (32 layers, head dim 96) at full width, bf16 random
+    weights from a seed on the card: each served and prefilled
+    (:func:`lm_serve_and_prefill`); the sLSTM prefill's own time at 4 x
+    2048; where a decode step's time goes (xlstm and jamba); the float32
+    parity of forward and sequential prefill (xlstm whole; jamba's first
+    five slots, built after its bf16 weights are freed). Returns the
+    counted runs by ``LM_PATHS`` key."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(REC_SEED)
+    runs = {}
+
+    # ---- xlstm-350m: 12 mLSTM (8 heads of 256) and 12 sLSTM layers --------
+    t0 = time.perf_counter()
+    cfg = get_lm_config(XLSTM_ARCH)
+    model = build_lm_model(cfg)                       # device=None: the card
+    params, init_s = init_weights(model, REC_SEED)
+    out = lm_serve_and_prefill("lm_recurrent", XLSTM_ARCH, model, params,
+                               rng, rms_variant="row_in_registers",
+                               extra=dict(init_seconds=init_s))
+    runs["xlstm_serve"], runs["xlstm_prefill"] = out["serve"], out["prefill"]
+    # one sLSTM layer over the prefill's 4 x 2048 tokens: 2048 timesteps,
+    # each a few kernels launched from the host
+    j = next(i for i, (m, _f) in enumerate(cfg.pattern) if m == "slstm")
+    layer = {k: v[0] for k, v in params["layers"][f"slot{j}"]["slstm"].items()}
+    h = lm_randn(torch.Generator(device=DEV).manual_seed(REC_SEED),
+                 (PREFILL_B, PREFILL_S, cfg.d_model), torch.bfloat16)
+    dims = xlstm_mod.xlstm_dims(cfg.d_model, cfg.n_heads)
+    xlstm_mod.slstm_apply(layer, h[:, :64], dims)           # warm
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    y = xlstm_mod.slstm_apply(layer, h, dims, max(cfg.ssm_chunk, 16))
+    torch.cuda.synchronize()
+    say("lm_recurrent", path="slstm_layer", arch=XLSTM_ARCH,
+        batch=PREFILL_B, seq=PREFILL_S, heads=dims.n_heads,
+        head_dim=dims.head_dim, wall_seconds=time.perf_counter() - t1,
+        finite=bool(torch.isfinite(y).all()), card=card_line())
+    profile_decode(model, params, rng, XLSTM_ARCH)
+    params32 = tree_to(params, torch.float32)               # exact
+    del params, model, layer, h, y
+    torch.cuda.empty_cache()
+    float32_parity("lm_recurrent", XLSTM_ARCH, build_lm_model(dataclasses
+                   .replace(cfg, param_dtype="float32")), params32, rng)
+    del params32
+    torch.cuda.empty_cache()
+    say("lm_recurrent", path="done", arch=XLSTM_ARCH,
+        seconds=time.perf_counter() - t0)
+    # ---- jamba-v0.1-52b: one period ----------------------------------------
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_lm_config(JAMBA_ARCH),
+                              repeats=JAMBA_REPEATS)
+    model = build_lm_model(cfg)
+    params, init_s = init_weights(model, REC_SEED + 1)
+    out = lm_serve_and_prefill(
+        "lm_recurrent", JAMBA_ARCH, model, params, rng,
+        rms_variant="row_in_registers",
+        extra=dict(init_seconds=init_s, capacity_factor=cfg.capacity_factor,
+                   ws_rebalance=cfg.ws_rebalance, ssm_chunk=cfg.ssm_chunk))
+    runs["jamba_serve"], runs["jamba_prefill"] = out["serve"], out["prefill"]
+    profile_decode(model, params, rng, JAMBA_ARCH, repeats=cfg.repeats)
+    del params, model
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(
+        cfg, pattern=cfg.pattern[:JAMBA_PARITY_SLOTS], param_dtype="float32",
+        capacity_factor=64.0, ws_rebalance=False)
+    model32 = build_lm_model(cfg32)
+    params32, _ = init_weights(model32, REC_SEED + 2)
+    float32_parity("lm_recurrent", JAMBA_ARCH, model32, params32, rng,
+                   pattern=[list(sl) for sl in cfg32.pattern],
+                   capacity_factor=cfg32.capacity_factor, ws_rebalance=False)
+    del params32, model32
+    torch.cuda.empty_cache()
+    say("lm_recurrent", path="done", arch=JAMBA_ARCH,
+        seconds=time.perf_counter() - t0)
+    # ---- phi3-mini-3.8b: head dim 96 at full width ------------------------
+    t0 = time.perf_counter()
+    cfg = get_lm_config(PHI3_ARCH)
+    model = build_lm_model(cfg)
+    params, init_s = init_weights(model, REC_SEED + 3)
+    # width 3072 has no register kernel: every RMSNorm is the generic one
+    out = lm_serve_and_prefill("lm_recurrent", PHI3_ARCH, model, params, rng,
+                               rms_variant="generic",
+                               extra=dict(init_seconds=init_s,
+                                          head_dim=cfg.hd))
+    runs["phi3_serve"], runs["phi3_prefill"] = out["serve"], out["prefill"]
+    del params, model
+    torch.cuda.empty_cache()
+    say("lm_recurrent", path="done", arch=PHI3_ARCH,
+        seconds=time.perf_counter() - t0)
+    say("lm_recurrent", path="phase_done",
+        seconds=time.perf_counter() - t_phase)
+    return runs
+
+
 def eager_ms(fn, reps: int) -> float:
     """CUDA events around ``reps`` calls launched from Python: for a small
     kernel this is the rate at which the host launches calls, not the
@@ -3296,11 +3493,11 @@ def lm_time_rms(gen, R: int, D: int, reps: int) -> dict:
 
 
 def lm_time_attention(gen, B: int, S: int, reps: int, H: int = 16,
-                      KV: int = 8) -> dict:
+                      KV: int = 8, hd: int = 128) -> dict:
     """Causal attention of B x S tokens; qwen3-1.7b's heads unless given
     (mixtral-8x7b: 32 and 8; its window of 4096 masks nothing at S =
-    2048)."""
-    dt, hd = torch.bfloat16, 128
+    2048; phi3-mini-3.8b: 32 and 32 of 96)."""
+    dt = torch.bfloat16
     q = lm_randn(gen, (B, S, H, hd), dt)
     k, v = lm_randn(gen, (B, S, KV, hd), dt), lm_randn(gen, (B, S, KV, hd), dt)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -3321,10 +3518,11 @@ def lm_time_attention(gen, B: int, S: int, reps: int, H: int = 16,
 
 
 def lm_time_decode(gen, B: int, Smax: int, kv_len: int, reps: int,
-                   H: int = 16, KV: int = 8) -> dict:
+                   H: int = 16, KV: int = 8, hd: int = 128) -> dict:
     """The kernel with kv_len on the device, as the serving path passes
-    it; qwen3-1.7b's heads unless given (mixtral-8x7b: 32 and 8)."""
-    dt, hd = torch.bfloat16, 128
+    it; qwen3-1.7b's heads unless given (mixtral-8x7b: 32 and 8;
+    phi3-mini-3.8b: 32 and 32 of 96)."""
+    dt = torch.bfloat16
     q = lm_randn(gen, (B, 1, H, hd), dt)
     kc, vc = (lm_randn(gen, (B, Smax, KV, hd), dt) for _ in range(2))
     kv = torch.tensor(kv_len, dtype=torch.int32, device=DEV)
@@ -3360,6 +3558,79 @@ TRACED_KERNEL = {"rms_norm": re.compile(r"rmsnorm_(regs|generic)_kernel"),
                  "flash_decode": re.compile(r"decode_split_kernel")}
 
 
+#: profiled tries of a window before a trace that lost device records fails
+#: the run
+PROFILE_TRIES = 3
+#: device operations traced, then waited for, before each window: late in a
+#: long run the first device records of a trace go missing (two to four a
+#: trace on an H100 with torch 2.11), so they fall to these, not the window
+LEAD_IN_OPS = 16
+LEAD_IN_S = 0.01
+WINDOW = "chip_smoke.profile_window"
+
+
+def window_records(prof) -> tuple:
+    """The host calls that start device work (``HOST_LAUNCH``) inside the
+    ``WINDOW`` range of a trace, in order, and the device records of each
+    (matched by correlation id); the device records that match no such call
+    (the trace lost the host side) and began after the lead-in's wait, which
+    count as the window's; and the numbers of the lead-in's calls whose
+    records were lost and of its records with no call."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    (span,) = [e for e in events
+               if e.device_type() != cuda and e.name() == WINDOW]
+    calls = sorted((e for e in events if e.device_type() != cuda
+                    and HOST_LAUNCH.match(e.name())), key=lambda e: e.start_ns())
+    by_corr = {}
+    for e in events:
+        # the range's own device-side annotation is no device work
+        if e.device_type() == cuda and e.name() != WINDOW:
+            by_corr.setdefault(e.correlation_id(), []).append(e)
+    host = [h for h in calls if span.start_ns() <= h.start_ns() <= span.end_ns()]
+    launched = {h.correlation_id() for h in calls}
+    # the lead-in's records end before its wait of LEAD_IN_S: half of it
+    # parts them from the window's in the trace's time
+    cut = span.start_ns() - LEAD_IN_S * 5e8
+    orphans = [r for k, recs in by_corr.items() if k not in launched
+               for r in recs]
+    stray = [r for r in orphans if r.start_ns() >= cut]
+    lead_in = dict(lost=sum(1 for h in calls if h.start_ns() < span.start_ns()
+                            and h.correlation_id() not in by_corr),
+                   without_a_call=len(orphans) - len(stray))
+    return host, [by_corr.get(h.correlation_id(), []) for h in host], stray, \
+        lead_in
+
+
+def lost_device_records(host, ran) -> list:
+    """The device records that a window's trace lost. A kernel launch, copy
+    or fill must have one record; a graph launch as many as the window's
+    fullest replay of that graph, whose kernel names tell which ones a
+    shorter replay lost. One dict per lost record: the host call's index in
+    the window, its name and the kernel that ran there (for an eager step,
+    the kernel of the call at its place in another step)."""
+    per_step = len(host) // PROFILE_STEPS if len(host) % PROFILE_STEPS == 0 \
+        else 0
+    fullest = {}
+    for h, recs in zip(host, ran):
+        if "Graph" in h.name() and len(recs) > len(fullest.get(h.name(), [])):
+            fullest[h.name()] = [r.name() for r in recs]
+    lost = []
+    for i, (h, recs) in enumerate(zip(host, ran)):
+        if "Graph" in h.name():
+            missing = Counter(fullest[h.name()]) - Counter(r.name()
+                                                           for r in recs)
+            lost += [dict(call=i, host=h.name(), kernel=k[:80])
+                     for k in missing.elements()]
+        elif not recs:
+            same = [ran[j][0].name() for j in range(i % per_step, len(host),
+                                                    per_step)
+                    if ran[j]] if per_step else []
+            lost.append(dict(call=i, host=h.name(),
+                             kernel=same[0][:80] if same else None))
+    return lost
+
+
 def profile_window(run_steps) -> dict:
     """torch.profiler over one window of PROFILE_STEPS serving-path decode
     steps (``run_steps(first_pos, n)``): device time by kernel against the
@@ -3370,34 +3641,60 @@ def profile_window(run_steps) -> dict:
     The launches that the wrappers counted in the window must be the
     kernels the trace saw run, wrapper by wrapper (``TRACED_KERNEL``): for
     a replayed graph the counts are the capture's times the replays, and
-    the trace shows that every replay ran them."""
-    torch.cuda.synchronize()
+    the trace shows that every replay ran them. The window is the trace's
+    ``WINDOW`` range, after a lead-in of LEAD_IN_OPS operations whose lost
+    records are counted on the line (``lead_in_records_lost``); a device
+    record whose host call the trace lost counts as the window's if it began
+    after the lead-in (``window_records_without_a_call``). The
+    comparison is made on a window that lost no device record
+    (:func:`lost_device_records`): one that lost some is profiled again, up
+    to PROFILE_TRIES times, and the records each try lost are on the line."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    before = (ops.launch_counts(), ops.variant_counts())
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        logits = run_steps(3, PROFILE_STEPS)
+    lead = torch.zeros(1, device=DEV)
+    lost_by_try, lead_in_lost = [], []
+    for _try in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    counted = ops.counts_since(before)[0]
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError("bf16 decode step: non-finite logits")
-    events = prof.key_averages()
-    # device-side events only (kernels, copies): an operator's own row
-    # would count its kernels' time a second time
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows.sort(key=lambda r: -r[1])
+        before = (ops.launch_counts(), ops.variant_counts())
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(LEAD_IN_OPS):
+                lead.add_(1.0)
+            torch.cuda.synchronize()
+            time.sleep(LEAD_IN_S)
+            with torch.profiler.record_function(WINDOW):
+                t0 = time.perf_counter()
+                logits = run_steps(3, PROFILE_STEPS)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(LEAD_IN_S)
+        counted = ops.counts_since(before)[0]
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("bf16 decode step: non-finite logits")
+        host, ran, stray, lead_in = window_records(prof)
+        lead_in_lost.append(lead_in)
+        lost = lost_device_records(host, ran)
+        if not lost:
+            break
+        lost_by_try.append(lost[:8] + [{"lost": len(lost)}])
+    else:
+        raise AssertionError(f"every one of {PROFILE_TRIES} traces of the "
+                             f"window lost device records: {lost_by_try}")
+    # device-side records only (kernels, copies, fills): an operator's own
+    # row would count its kernels' time a second time
+    by_name = {}
+    for recs in ran + [stray]:
+        for r in recs:
+            ms, c = by_name.get(r.name(), (0.0, 0))
+            by_name[r.name()] = (ms + r.duration_ns() / 1e6, c + 1)
+    rows = sorted(((k, ms, c) for k, (ms, c) in by_name.items()),
+                  key=lambda r: -r[1])
     traced = {fn: sum(c for key, _ms, c in rows if pat.search(key))
               for fn, pat in TRACED_KERNEL.items()}
     if traced != counted:
         raise AssertionError(f"the trace ran {traced} kernel launches, the "
                              f"wrappers counted {counted}")
     device_ms = sum(r[1] for r in rows)
-    host_calls = {e.key: e.count for e in events
-                  if e.device_type == torch.autograd.DeviceType.CPU
-                  and HOST_LAUNCH.match(e.key)}
+    host_calls = dict(Counter(h.name() for h in host))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run_steps(3 + PROFILE_STEPS, PROFILE_STEPS)
@@ -3414,6 +3711,9 @@ def profile_window(run_steps) -> dict:
                 if rows else "not measured",
                 kernel_launches_per_step=sum(r[2] for r in rows) / n,
                 traced_wrapper_launches_equal_the_counts=traced,
+                traces_that_lost_device_records=lost_by_try,
+                lead_in_records_lost=lead_in_lost,
+                window_records_without_a_call=[r.name()[:80] for r in stray],
                 host_launch_calls_per_step=sum(host_calls.values()) / n,
                 host_launch_calls=host_calls,
                 top=[dict(name=n_[:80], ms_per_step=ms / n, count=c)
@@ -3448,7 +3748,13 @@ def lm_profile_decode_steps(model, params, tok) -> dict:
 LM_PATHS = (("serve", "serve.decode_batch"),
             ("prefill", "steps.build_prefill_step"),
             ("moe_serve", f"serve.decode_batch {MOE_ARCH}"),
-            ("moe_prefill", f"steps.build_prefill_step {MOE_ARCH}"))
+            ("moe_prefill", f"steps.build_prefill_step {MOE_ARCH}"),
+            ("xlstm_serve", f"serve.decode_batch {XLSTM_ARCH}"),
+            ("xlstm_prefill", f"steps.build_prefill_step {XLSTM_ARCH}"),
+            ("jamba_serve", f"serve.decode_batch {JAMBA_ARCH}"),
+            ("jamba_prefill", f"steps.build_prefill_step {JAMBA_ARCH}"),
+            ("phi3_serve", f"serve.decode_batch {PHI3_ARCH}"),
+            ("phi3_prefill", f"steps.build_prefill_step {PHI3_ARCH}"))
 
 
 def phase_lm_timing(main: dict) -> list:
@@ -3464,16 +3770,27 @@ def phase_lm_timing(main: dict) -> list:
                      lm_time_rms(gen, PREFILL_B * PREFILL_S * 16, 128, 50),
                      lm_time_rms(gen, SERVE_REQUESTS, 2048, 200),
                      lm_time_rms(gen, PREFILL_B * PREFILL_S, 4096, 50),
-                     lm_time_rms(gen, SERVE_REQUESTS, 4096, 200)],
+                     lm_time_rms(gen, SERVE_REQUESTS, 4096, 200),
+                     # phi3-mini-3.8b's width: the generic kernel
+                     lm_time_rms(gen, PREFILL_B * PREFILL_S, 3072, 50),
+                     lm_time_rms(gen, SERVE_REQUESTS, 3072, 200),
+                     # xlstm-350m's width
+                     lm_time_rms(gen, SERVE_REQUESTS, 1024, 200)],
         "flash_attention": [lm_time_attention(gen, PREFILL_B, PREFILL_S, 10),
                             lm_time_attention(gen, PREFILL_B, PREFILL_S, 10,
-                                              H, KV)],
+                                              H, KV),
+                            lm_time_attention(gen, PREFILL_B, PREFILL_S, 10,
+                                              *PHI3_HEADS, hd=96)],
         "flash_decode": [lm_time_decode(gen, SERVE_REQUESTS, serve_kv,
                                         serve_kv, 200),
                          lm_time_decode(gen, SERVE_REQUESTS, 2048, 2048, 50),
                          lm_time_decode(gen, 1, 32768, 32768, 50),
                          lm_time_decode(gen, SERVE_REQUESTS, serve_kv,
-                                        serve_kv, 200, H, KV)],
+                                        serve_kv, 200, H, KV),
+                         lm_time_decode(gen, SERVE_REQUESTS, serve_kv,
+                                        serve_kv, 200, *PHI3_HEADS, hd=96),
+                         lm_time_decode(gen, 1, 32768, 32768, 50,
+                                        *PHI3_HEADS, hd=96)],
     }
     for kernel, rows in shapes.items():
         for r in rows:
@@ -3574,40 +3891,53 @@ def main():
     t_start = time.perf_counter()
     say("start", torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0), card=card_line())
+    phase_seconds = {}
+
+    def timed(name: str, fn, *args):
+        """Run one phase; its wall seconds go on a line of their own."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_seconds[name] = time.perf_counter() - t0
+        say("phase_seconds", of=name, seconds=phase_seconds[name])
+        return out
+
     # 1. build every kernel from the sources in this checkout
-    seconds = _build.build_all()
-    ws._lib()
-    say("build", seconds=seconds, directory=str(_build.build_dir()),
-        ptxas={name: [l.strip() for l in log.splitlines()
-                      if "registers" in l or "spill" in l]
-               for name, log in _build.build_logs.items()},
-        hgmma=hgmma_counts(),
-        ws_sim_register_variant=register_variant_resources())
+    def build():
+        seconds = _build.build_all()
+        ws._lib()
+        say("build", seconds=seconds, directory=str(_build.build_dir()),
+            ptxas={name: [l.strip() for l in log.splitlines()
+                          if "registers" in l or "spill" in l]
+                   for name, log in _build.build_logs.items()},
+            hgmma=hgmma_counts(),
+            ws_sim_register_variant=register_variant_resources())
+    timed("build", build)
     # 2, 3. each body against its plain version and the oracle
-    phase_kernels_and_oracle()
+    timed("kernels", phase_kernels_and_oracle)
     # 4. the main paths, each counted on its own
     with tempfile.TemporaryDirectory(prefix="ws_store_") as tmp:
-        main_out = {path: drive_path(Path(tmp) / path, path)
-                    for path in MAIN_PATHS}
+        main_out = timed("main_path", lambda: {
+            path: drive_path(Path(tmp) / path, path) for path in MAIN_PATHS})
         # 4b. the query path and the planner, under the sanitizer
-        query = phase_query_main_path(Path(tmp) / "query", Path(tmp))
+        query = timed("query_main_path", phase_query_main_path,
+                      Path(tmp) / "query", Path(tmp))
     # 4c. the paper's experiments, the log engine, the segmented loop and
     # serve's command line
-    paper = phase_paper()
+    paper = timed("paper", phase_paper)
     # 4d. the simulation daemon: client processes, sweep chunks, library
     # mode, a daemon killed mid-round, the daemon bench
     with tempfile.TemporaryDirectory(prefix="ws_daemon_") as tmp:
-        daemon = phase_daemon(Path(tmp))
+        daemon = timed("daemon", phase_daemon, Path(tmp))
     # 4e. the checker suite on the card and grid_chunk; the simulator benches
     # of benchmarks/run.py (benchmarks/run_torch.py)
     with tempfile.TemporaryDirectory(prefix="ws_lint_") as tmp:
-        phase_lint(Path(tmp))
+        timed("lint", phase_lint, Path(tmp))
     with tempfile.TemporaryDirectory(prefix="ws_benches_") as tmp:
-        benches = phase_benches(Path(tmp))
+        benches = timed("benches", phase_benches, Path(tmp))
     # 5. times at a main-path shape
-    entries = [time_body(path, main_out[path],
-                         reps=5 if path == "divisible" else 3)
-               for path in MAIN_PATHS]
+    entries = timed("timing", lambda: [
+        time_body(path, main_out[path], reps=5 if path == "divisible" else 3)
+        for path in MAIN_PATHS])
     for e in entries:
         e["launches_query_path"] = query["launches"][e["name"]]
         e["launches_paper_path"] = paper[e["name"]]
@@ -3615,13 +3945,17 @@ def main():
         e["launches_bench_path"] = benches[e["name"]]
     # 6-8. the language-model serving path: its kernels against their plain
     # versions, its two main paths counted, the kernels' times
-    phase_lm_kernels()
-    lm_main = phase_lm_main_path()
+    timed("lm_kernels", phase_lm_kernels)
+    lm_main = timed("lm_main_path", phase_lm_main_path)
     # 6b. mixtral-8x7b at full width through the MoE layer
-    lm_moe = phase_lm_moe()
+    lm_moe = timed("lm_moe", phase_lm_moe)
     lm_main.update(moe_serve=lm_moe["serve"], moe_prefill=lm_moe["prefill"])
-    entries += phase_lm_timing(lm_main)
-    say("done", seconds=round(time.perf_counter() - t_start, 1))
+    # 6c. the recurrent mixers (xlstm-350m, jamba-v0.1-52b) and head dim 96
+    # (phi3-mini-3.8b) at full width
+    lm_main.update(timed("lm_recurrent", phase_lm_recurrent))
+    entries += timed("lm_timing", phase_lm_timing, lm_main)
+    say("done", seconds=round(time.perf_counter() - t_start, 1),
+        phase_seconds=phase_seconds)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3630,4 +3964,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--kernel-group"]:
+        run_kernel_group(sys.argv[2])
+    else:
+        main()

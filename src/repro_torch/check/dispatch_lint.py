@@ -9,8 +9,9 @@ outputs and whether it copied a CUDA tensor to the host, while
 event loop for each task model on a tiny one-cluster topology, and while
 ``Model.decode_step`` runs the body that ``launch/steps.py::
 GraphedDecodeStep`` captures, for each architecture of
-:data:`DECODE_ARCHS` (a dense one and a MoE one). On the card the ``ws_sim_cuda`` launch is
-recorded too (the kernel itself is a ``ctypes`` call, outside aten).
+:data:`DECODE_ARCHS` (a dense one, a MoE one, xLSTM and Jamba). On the
+card the ``ws_sim_cuda`` launch is recorded too (the kernel itself is a
+``ctypes`` call, outside aten).
 
 ``retrace.static_args``
     The model is a key (the broker's buckets, the model-keyed maps and,
@@ -80,12 +81,20 @@ STEP_SYNCS = 1
 HOST_SYNC_CALLS = ("item", "tolist", "numpy", "cpu")
 
 #: (file under src/repro_torch, function) whose bodies must not sync: the
-#: event step, the kernel launcher, the captured decode step and the MoE
-#: layer it runs
+#: event step, the kernel launcher, the captured decode step, the layer
+#: dispatch it runs, the MoE layer and the recurrent mixers' decode steps
 SYNC_FREE = (("core/engine.py", "advance"),
              ("kernels/ws_sim.py", "_launch"),
              ("kernels/ws_sim.py", "_params"),
              ("models/model.py", "decode_step"),
+             ("models/blocks.py", "_decode"),
+             ("models/xlstm.py", "mlstm_decode_step"),
+             ("models/xlstm.py", "_mlstm_project"),
+             ("models/xlstm.py", "_mlstm_out"),
+             ("models/xlstm.py", "slstm_decode_step"),
+             ("models/xlstm.py", "_slstm_cell"),
+             ("models/ssm.py", "mamba_decode_step"),
+             ("models/ssm.py", "_softplus"),
              ("models/moe.py", "moe_apply"),
              ("models/moe.py", "moe_output"),
              ("models/moe.py", "_moe"),
@@ -95,8 +104,10 @@ SYNC_FREE = (("core/engine.py", "advance"),
              ("models/moe.py", "_slots"),
              ("models/moe.py", "_route_stats"))
 
-#: the architectures whose reduced decode step the lint records
-DECODE_ARCHS = ("qwen3-1.7b", "mixtral-8x7b")
+#: the architectures whose reduced decode step the lint records: a dense
+#: one, a MoE one, and the recurrent mixers (xLSTM; Mamba beside attention
+#: and MoE in Jamba)
+DECODE_ARCHS = ("qwen3-1.7b", "mixtral-8x7b", "xlstm-350m", "jamba-v0.1-52b")
 
 
 def tiny_models() -> List[Tuple[str, object]]:

@@ -127,14 +127,14 @@ _REGISTRY: Dict[str, str] = {
     "command-r-35b": "repro_torch.configs.command_r_35b",
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe_42b",
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
 }
 
 #: the JAX package's other architectures, and what they wait for in the port
 _NOT_YET = {
-    "xlstm-350m": "ROADMAP Queue A 8.3 (models/xlstm.py: mLSTM, sLSTM)",
-    "jamba-v0.1-52b": "ROADMAP Queue A 8.4 (models/ssm.py: the Mamba mixer)",
     "whisper-large-v3": "ROADMAP Queue A 8.5 (the xattn mixer, the encoder, "
-                        "learned positions)",
+                        "learned positions, non-causal encoder attention)",
     "internvl2-76b": "ROADMAP Queue A 8.6 (the vision prefix)",
 }
 

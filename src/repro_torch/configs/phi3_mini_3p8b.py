@@ -1,10 +1,9 @@
 """Phi-3-mini 3.8B [arXiv:2404.14219; unverified tier].
 
 32L, d_model 3072, 32 heads (kv=32 -> MHA), d_ff 8192, vocab 32064,
-RoPE + SwiGLU.
-
-The port runs it at ``reduced()`` (head dim 16). Its full width has head dim
-96, which the port's attention kernels do not take yet (ROADMAP Queue B 6).
+RoPE + SwiGLU. Head dim 96 at full width: the port's attention kernels
+take it (flash attention's tensor-core route loads it as three 32-column
+sub-tiles; flash decode pads its lane groups to a power of two).
 """
 from repro_torch.configs.base import ArchConfig
 

@@ -16,7 +16,7 @@ from repro_torch.kernels import _build
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: head dims the attention kernels are instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128)
 
 NEG_INF = -1e30
 

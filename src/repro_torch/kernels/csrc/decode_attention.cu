@@ -38,11 +38,16 @@
 //   (up to MAX_HEADS_PER_BLOCK; larger groups take several blocks) from
 //   registers: q, the online-softmax state (m, l) and the accumulator of
 //   every head live in the registers of the lanes that hold its elements.
-// - A row is read with 16-byte loads, L = hd * sizeof(cache) / 16 lanes a
-//   row on neighbouring addresses (2 to 32 lanes), so a warp reads 32 / L
+// - A row is read with 16-byte loads, hd * sizeof(cache) / 16 lanes a row
+//   on neighbouring addresses, in a lane group of L lanes, that count
+//   rounded up to a power of two (2 to 32 lanes), so a warp reads 32 / L
 //   rows at once; each lane group loads CH rows of K and of V together,
 //   all before the first dot product needs them (8 loads in flight a lane).
-//   A dot product is summed over the row's L lanes with shuffles.
+//   A dot product is summed over the row's L lanes with shuffles. At hd =
+//   96 a row is 12 loads in bfloat16 and 24 in float32: the group is 16 or
+//   32 lanes, and the lanes past the row's end load nothing, hold zeros and
+//   add 0 to every sum (the xor shuffles need a power of two). Padding q and
+//   the caches to 128 instead would copy the whole cache every step.
 // - Split-K over the sequence: the host picks the number of splits from
 //   (B, KV, Smax) and the SM count so that the grid covers the card several
 //   times (kernels/decode_attention.py::num_splits). A block whose rows lie
@@ -76,6 +81,11 @@ constexpr int MAX_HEADS_PER_BLOCK = 4;    // query heads a block serves
 constexpr int MAX_SPLITS = 128;           // splits of the sequence
 constexpr int MERGE_THREADS = 128;
 
+// The least power of two >= n (n >= 1).
+__host__ __device__ constexpr int pow2_at_least(int n) {
+    return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
 // Query heads a block serves for G = H / KV: 1, 2, else 4 (a third or
 // fourth head of a block past G is idle).
 __host__ __device__ constexpr int heads_per_block(int G) {
@@ -84,15 +94,17 @@ __host__ __device__ constexpr int heads_per_block(int G) {
 
 // Rows j0, j0 + NLG, ..., j0 + (CH - 1) NLG of K and V, 16 bytes of each
 // from this lane, all loads issued before any is used; rows at or past end
-// read as zeros.
+// read as zeros, and so does every row on a lane past the row's end
+// (`active` false), which loads nothing.
 template <int NLG, class KT>
 __device__ __forceinline__ void load_tile(const KT* kb, const KT* vb,
                                           long long stride, int j0, int end,
-                                          uint4 (&kr)[CH], uint4 (&vr)[CH]) {
+                                          bool active, uint4 (&kr)[CH],
+                                          uint4 (&vr)[CH]) {
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
         const int j = j0 + c * NLG;
-        if (j < end) {
+        if (active && j < end) {
             kr[c] = __ldg(reinterpret_cast<const uint4*>(kb + j * stride));
             vr[c] = __ldg(reinterpret_cast<const uint4*>(vb + j * stride));
         } else {
@@ -111,11 +123,12 @@ decode_split_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
                     int window, float scale) {
     using V = lm::Vec16<KT>;
     constexpr int VEC = V::N;             // elements a 16-byte load
-    constexpr int L = HD / VEC;           // lanes a row
+    constexpr int LOADS = HD / VEC;       // 16-byte loads a row
+    constexpr int L = pow2_at_least(LOADS);   // lanes a row
     constexpr int RPW = 32 / L;           // rows a warp reads at once
     constexpr int NLG = NW * RPW;         // lane groups a block
     constexpr int TILE = NLG * CH;        // rows a block reads a tile
-    static_assert(L >= 1 && L <= 32 && L * VEC == HD, "hd");
+    static_assert(L >= 1 && L <= 32 && LOADS * VEC == HD, "hd");
     __shared__ float s_m[NW][GB], s_l[NW][GB], s_acc[NW][GB][HD];
 
     // kv_len's read goes out first; nothing waits for its value until the
@@ -130,6 +143,9 @@ decode_split_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int lg = warp * RPW + lane / L;       // this lane's group
     const int d0 = (lane % L) * VEC;            // its elements of a row
+    // false on the lanes past the row's end (hd not a power-of-two number
+    // of loads): they load nothing and keep zeros
+    const bool active = L == LOADS || d0 < HD;
     const int row_begin = split * rows_per_split;
     const int row_end = min(Smax, row_begin + rows_per_split);
     const long long stride = (long long)KV * HD;
@@ -142,13 +158,15 @@ decode_split_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
     for (int g = 0; g < GB; ++g) {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) qv[g][e] = 0.f;
-        if (g0 + g < G) lm::load_vec<QT, VEC>(q + (bh0 + g) * HD + d0, qv[g]);
+        if (active && g0 + g < G)
+            lm::load_vec<QT, VEC>(q + (bh0 + g) * HD + d0, qv[g]);
     }
     // Without a window the first tile starts at row_begin whatever kv_len
     // is: its loads are guarded by the split's end, not by kv_len.
     uint4 kr[CH], vr[CH];
     if (window <= 0)
-        load_tile<NLG>(kb, vb, stride, row_begin + lg, row_end, kr, vr);
+        load_tile<NLG>(kb, vb, stride, row_begin + lg, row_end, active,
+                       kr, vr);
 
     const int kv_len = min(max(kv_raw, 1), Smax);
     const int lo = window > 0 ? max(max(0, kv_len - window), row_begin)
@@ -156,7 +174,7 @@ decode_split_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
     const int hi = min(kv_len, row_end);
     int base = lo;
     if (window > 0 && lo < hi)
-        load_tile<NLG>(kb, vb, stride, lo + lg, hi, kr, vr);
+        load_tile<NLG>(kb, vb, stride, lo + lg, hi, active, kr, vr);
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
 #pragma unroll
@@ -237,7 +255,7 @@ decode_split_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
         }
         base += TILE;
         if (base >= hi) break;
-        load_tile<NLG>(kb, vb, stride, base + lg, hi, kr, vr);
+        load_tile<NLG>(kb, vb, stride, base + lg, hi, active, kr, vr);
     }
 
     // The lane groups of a warp hold the same elements of different rows:
@@ -266,8 +284,11 @@ decode_split_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
                 s_m[warp][g] = m[g];
                 s_l[warp][g] = l[g];
             }
+            if (active) {
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) s_acc[warp][g][d0 + e] = acc[g][e];
+                for (int e = 0; e < VEC; ++e)
+                    s_acc[warp][g][d0 + e] = acc[g][e];
+            }
         }
     }
     __syncthreads();
@@ -367,6 +388,7 @@ int launch_hd(const Args& a) {
         case 16: return launch_gb<QT, KT, 16>(a);
         case 32: return launch_gb<QT, KT, 32>(a);
         case 64: return launch_gb<QT, KT, 64>(a);
+        case 96: return launch_gb<QT, KT, 96>(a);
         case 128: return launch_gb<QT, KT, 128>(a);
         default: return (int)cudaErrorInvalidValue;
     }
@@ -385,9 +407,9 @@ int launch_kv(int kv_dtype, const Args& a) {
 
 extern "C" {
 
-// hd must be 16, 32, 64 or 128. kv_len_dev: an int32 in device memory, read
-// by the kernel and clamped to [1, Smax]; if it is null, kv_len is used and
-// must lie in [1, Smax]. The sequence is cut into n_split (1 ...
+// hd must be 16, 32, 64, 96 or 128. kv_len_dev: an int32 in device memory,
+// read by the kernel and clamped to [1, Smax]; if it is null, kv_len is used
+// and must lie in [1, Smax]. The sequence is cut into n_split (1 ...
 // MAX_SPLITS) splits of rows_per_split rows, which must cover Smax with no
 // split empty; with n_split > 1, ws is a float32 workspace of
 // B * H * n_split * (hd + 2) elements. q_dtype is also the output's. Else

@@ -211,6 +211,8 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
                                    causal, window, scale, s);
         case 64: return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, q_offset,
                                    causal, window, scale, s);
+        case 96: return launch<96>(q, k, v, o, B, Sq, Skv, H, KV, q_offset,
+                                   causal, window, scale, s);
         case 128: return launch<128>(q, k, v, o, B, Sq, Skv, H, KV,
                                      q_offset, causal, window, scale, s);
         default: return (int)cudaErrorInvalidValue;
@@ -221,7 +223,7 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// float32 q, k, v, out; hd must be 16, 32, 64 or 128 (else
+// float32 q, k, v, out; hd must be 16, 32, 64, 96 or 128 (else
 // cudaErrorInvalidValue).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int Sq, int Skv, int H, int KV,

@@ -48,8 +48,12 @@
 //   so the ragged edge past Sq or Skv is zero-filled by the hardware and
 //   never reads the next sequence. A 64-column box is one 128-byte
 //   swizzled row; hd = 128 loads as two boxes into two sub-tiles, hd = 32
-//   and 16 take the 64- and 32-byte swizzles. Every head dim (16, 32, 64,
-//   128) runs here.
+//   and 16 take the 64- and 32-byte swizzles, and hd = 96 loads as three
+//   32-column boxes (64-byte swizzle) into three sub-tiles: Q K^T walks
+//   them in 6 k16 steps, and P V's B operand steps from one sub-tile to the
+//   next by the descriptor's leading byte offset (m64n96k16, 48 float32
+//   accumulators a thread). Every head dim (16, 32, 64, 96, 128) runs
+//   here.
 // - S = Q K^T: wgmma m64n128k16, both operands from shared memory, K's rows
 //   (hd contiguous) the K-major B operand. The scale hd^-0.5 (times log2 e,
 //   for ex2) is applied to the float32 scores, not to q: rounding q * scale
@@ -107,7 +111,10 @@ constexpr int ENCODE_ERROR = 100000;
 // at that width (the TMA box and the wgmma descriptor agree on it).
 template <int HD>
 struct Geo {
-    static constexpr int CH = HD < 64 ? HD : 64;
+    // hd 96 takes three 32-column sub-tiles at the 64-byte swizzle: a
+    // 128-byte atom holds 64 columns, which 96 does not fill, and one
+    // sub-tile of 96 columns (192 bytes) is no swizzle width at all
+    static constexpr int CH = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : HD;
     static constexpr int NCH = HD / CH;
     static constexpr int ROWB = CH * 2;
     // wgmma descriptor layout: 1 = 128-byte swizzle, 2 = 64, 3 = 32
@@ -291,6 +298,31 @@ template <> __device__ __forceinline__ void wgmma_rs<64>(
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <> __device__ __forceinline__ void wgmma_rs<96>(
+        float (&d)[48], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -693,7 +725,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
 
 extern "C" {
 
-// bfloat16 q, k, v, out; hd must be 16, 32, 64 or 128 (else
+// bfloat16 q, k, v, out; hd must be 16, 32, 64, 96 or 128 (else
 // cudaErrorInvalidValue).
 int flash_attention_tc_launch(const void* q, const void* k, const void* v,
                               void* o, int B, int Sq, int Skv, int H, int KV,
@@ -708,6 +740,8 @@ int flash_attention_tc_launch(const void* q, const void* k, const void* v,
         case 32: return launch<32>(q, k, v, o, B, Sq, Skv, H, KV, q_offset,
                                    causal, window, scale, s);
         case 64: return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, q_offset,
+                                   causal, window, scale, s);
+        case 96: return launch<96>(q, k, v, o, B, Sq, Skv, H, KV, q_offset,
                                    causal, window, scale, s);
         case 128: return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, q_offset,
                                      causal, window, scale, s);

@@ -1,15 +1,17 @@
-"""Layer blocks: init + apply for the (mixer, ffn) slot kinds of this slice.
+"""Layer blocks: init + apply for the (mixer, ffn) slot kinds the port runs.
 
 A *slot* is one layer of the repeating pattern. Parameters of a slot are
 stacked over the ``repeats`` axis, as in the JAX package; the model indexes
 layer ``r`` out of the stack (a view, no copy). Every block is
 residual-pre-norm; ``parallel_block`` (command-r) computes attention and FFN
-from the same normed input.
+from the same normed input. The RMSNorm before every mixer and FFN goes
+through the port's kernel.
 
-This slice ports mixer ``attn`` with ffn ``dense``, ``moe`` and ``none``.
-The other mixers (``xattn``, ``mamba``, ``mlstm``, ``slstm``) and
-context-parallel decode (``cp_axes``) raise ``NotImplementedError``: they
-come with later slices of the language-model substrate (ROADMAP Queue A 8).
+Mixers: ``attn``, ``mamba`` (``models/ssm.py``), ``mlstm`` and ``slstm``
+(``models/xlstm.py``); ffn ``dense``, ``moe`` and ``none``. Mixer ``xattn``
+(the encoder-decoder's cross-attention, ROADMAP Queue A 8.5) and
+context-parallel decode (``cp_axes``, Queue A 10) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,22 +22,43 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (apply_rope, dense, device_of,
                                        init_dense, init_scale, rms_norm)
 from repro_torch.models.mlp import mlp_apply, mlp_init
 
 
-def not_ported(what: str) -> NotImplementedError:
+#: the mixers the port runs
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
+#: what a mixer or feature that is not ported yet waits for
+WAITS_FOR = {"xattn": "ROADMAP Queue A 8.5 (Whisper: the xattn mixer and "
+                      "the encoder)",
+             "cp_axes": "ROADMAP Queue A 10 (mesh and sharding)"}
+
+
+def not_ported(what: str, item: str = "ROADMAP Queue A 8") -> \
+        NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: it comes with a later slice of the "
-        f"language-model substrate (ROADMAP Queue A 8)")
+        f"language-model substrate ({item})")
 
 
 def check_slot(mixer: str, ffn: str) -> None:
-    if mixer != "attn":
-        raise not_ported(f"mixer {mixer!r}")
+    if mixer not in MIXERS:
+        raise not_ported(f"mixer {mixer!r}",
+                         WAITS_FOR.get(mixer, "ROADMAP Queue A 8"))
     if ffn not in ("dense", "moe", "none"):
         raise not_ported(f"ffn {ffn!r}")
+
+
+def _mamba_dims(cfg: ArchConfig) -> ssm_mod.MambaDims:
+    return ssm_mod.mamba_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_p,
+                              cfg.ssm_state, cfg.ssm_conv)
+
+
+def _xlstm_dims(cfg: ArchConfig) -> xlstm_mod.XlstmDims:
+    return xlstm_mod.xlstm_dims(cfg.d_model, cfg.n_heads)
 
 
 def _attn_init(gen: Optional[torch.Generator], cfg: ArchConfig, dtype) -> Dict:
@@ -57,8 +80,15 @@ def slot_init(gen: Optional[torch.Generator], cfg: ArchConfig, mixer: str, ffn: 
     """One layer's parameters, drawn from ``gen`` on its device (``None``:
     on the meta device, shapes only)."""
     check_slot(mixer, ffn)
-    p: Dict = {"norm1": init_scale(cfg.d_model, dtype, device_of(gen)),
-               "attn": _attn_init(gen, cfg, dtype)}
+    p: Dict = {"norm1": init_scale(cfg.d_model, dtype, device_of(gen))}
+    if mixer == "attn":
+        p["attn"] = _attn_init(gen, cfg, dtype)
+    elif mixer == "mamba":
+        p["mamba"] = ssm_mod.mamba_init(gen, _mamba_dims(cfg), dtype)
+    elif mixer == "mlstm":
+        p["mlstm"] = xlstm_mod.mlstm_init(gen, _xlstm_dims(cfg), dtype)
+    else:
+        p["slstm"] = xlstm_mod.slstm_init(gen, _xlstm_dims(cfg), dtype)
     if ffn != "none":
         p["norm2"] = init_scale(cfg.d_model, dtype, device_of(gen))
         p["ffn"] = _ffn_init(gen, cfg, ffn, dtype)
@@ -111,7 +141,18 @@ def slot_apply(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x, positions,
     ``jnp.float32(0.0)``, with no tensor made for it)."""
     check_slot(mixer, ffn)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    mix_out = _attention_apply(p["attn"], cfg, h, positions, causal=causal)
+    if mixer == "attn":
+        mix_out = _attention_apply(p["attn"], cfg, h, positions,
+                                   causal=causal)
+    elif mixer == "mamba":
+        mix_out = ssm_mod.mamba_apply(p["mamba"], h, _mamba_dims(cfg),
+                                      cfg.ssm_chunk)
+    elif mixer == "mlstm":
+        mix_out = xlstm_mod.mlstm_apply(p["mlstm"], h, _xlstm_dims(cfg),
+                                        cfg.ssm_chunk)
+    else:
+        mix_out = xlstm_mod.slstm_apply(p["slstm"], h, _xlstm_dims(cfg),
+                                        max(cfg.ssm_chunk, 16))
     return _residual(p, cfg, ffn, x, mix_out, h, _ffn_apply)
 
 
@@ -160,8 +201,17 @@ def _ffn_output(p: Dict, cfg: ArchConfig, kind: str, h):
 
 def slot_cache_init(cfg: ArchConfig, mixer: str, batch: int, max_seq: int,
                     dtype, device=None) -> Dict:
-    if mixer != "attn":
-        raise not_ported(f"mixer {mixer!r}")
+    """One layer's decode cache: k and v (B, max_seq, KV, hd) of ``dtype``
+    for ``attn``; the recurrent state of the other mixers (float32, but
+    Mamba's conv window, of ``dtype``), as in the JAX package."""
+    check_slot(mixer, "none")
+    if mixer == "mamba":
+        return ssm_mod.mamba_cache_init(_mamba_dims(cfg), batch, dtype,
+                                        device)
+    if mixer == "mlstm":
+        return xlstm_mod.mlstm_cache_init(_xlstm_dims(cfg), batch, device)
+    if mixer == "slstm":
+        return xlstm_mod.slstm_cache_init(_xlstm_dims(cfg), batch, device)
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -193,10 +243,11 @@ def slot_decode(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x,
     kv_len) once a step with :func:`decode_position` and passes both;
     without ``kv_len``, ``pos`` is given to it here.
 
-    Writes the token's k and v into ``cache`` in place (cast to the cache's
-    dtype), attends over the cache's first ``pos + 1`` positions and
-    returns (x, cache, aux), aux as :func:`slot_apply` gives it (a MoE layer
-    routes the batch's B tokens as one group of its own).
+    An ``attn`` layer writes the token's k and v into ``cache`` in place
+    (cast to the cache's dtype) and attends over the cache's first ``pos +
+    1`` positions; a recurrent layer writes its new state into ``cache`` in
+    place. Returns (x, cache, aux), aux as :func:`slot_apply` gives it (a
+    MoE layer routes the batch's B tokens as one group of its own).
     """
     return _decode(p, cfg, mixer, ffn, x, cache, pos, cp_axes, kv_len,
                    _ffn_apply)
@@ -217,16 +268,28 @@ def _decode(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x, cache: Dict,
             pos, cp_axes, kv_len, ffn_fn):
     check_slot(mixer, ffn)
     if cp_axes:
-        raise not_ported("context-parallel decode (cp_axes)")
-    B = x.shape[0]
-    if kv_len is None:
-        pos, kv_len = decode_position(pos, x.device)
+        raise not_ported("context-parallel decode (cp_axes)",
+                         WAITS_FOR["cp_axes"])
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    q, k, v = _qkv(p["attn"], cfg, h, pos.expand(B, 1))
-    for name, new in (("k", k), ("v", v)):
-        cache[name].index_copy_(1, pos, new.to(cache[name].dtype))
-    o = attn_mod.decode_attention(q, cache["k"], cache["v"], kv_len,
-                                  window=cfg.sliding_window)
-    mix_out = dense(o.reshape(B, 1, cfg.n_heads * cfg.hd), p["attn"]["wo"])
+    if mixer == "attn":
+        B = x.shape[0]
+        if kv_len is None:
+            pos, kv_len = decode_position(pos, x.device)
+        q, k, v = _qkv(p["attn"], cfg, h, pos.expand(B, 1))
+        for name, new in (("k", k), ("v", v)):
+            cache[name].index_copy_(1, pos, new.to(cache[name].dtype))
+        o = attn_mod.decode_attention(q, cache["k"], cache["v"], kv_len,
+                                      window=cfg.sliding_window)
+        mix_out = dense(o.reshape(B, 1, cfg.n_heads * cfg.hd),
+                        p["attn"]["wo"])
+    elif mixer == "mamba":
+        mix_out, cache = ssm_mod.mamba_decode_step(p["mamba"], h, cache,
+                                                   _mamba_dims(cfg))
+    elif mixer == "mlstm":
+        mix_out, cache = xlstm_mod.mlstm_decode_step(p["mlstm"], h, cache,
+                                                     _xlstm_dims(cfg))
+    else:
+        mix_out, cache = xlstm_mod.slstm_decode_step(p["slstm"], h, cache,
+                                                     _xlstm_dims(cfg))
     x, aux = _residual(p, cfg, ffn, x, mix_out, h, ffn_fn)
     return x, cache, aux

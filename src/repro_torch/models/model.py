@@ -1,16 +1,20 @@
-"""Unified model for the decoder-only configurations of this slice:
+"""Unified model for the decoder-only configurations the port runs:
 parameters, forward, cache init, single-token decode, sequential prefill.
 
 As in the JAX package, one class covers the ``pattern × repeats`` layer
-stack; the parameters are a nested dict of tensors whose leaves are stacked
-over ``repeats`` (the same tree as the JAX package's, so weights carry
-across leaf for leaf, see ``models/interop.py``). The layers run in a Python
-loop over the stack; every RMSNorm, attention and decode-attention goes
-through the port's kernels.
+stack of any mixers ``models/blocks.py`` runs (attention, Mamba, mLSTM,
+sLSTM; dense and MoE FFNs); the parameters are a nested dict of tensors
+whose leaves are stacked over ``repeats`` (the same tree as the JAX
+package's, so weights carry across leaf for leaf, see
+``models/interop.py``). The layers run in a Python loop over the stack;
+every RMSNorm, attention and decode-attention goes through the port's
+kernels. The decode cache holds each layer's KV cache or recurrent state,
+stacked the same way, and a decode step writes it in place.
 
 A config with an encoder (the JAX package's ``_encode``,
-``_write_cross_cache``), a vision prefix or learned positions is refused
-with ``NotImplementedError`` until its slice.
+``_write_cross_cache``) or learned positions (Whisper, ROADMAP Queue A 8.5)
+or a vision prefix (InternVL, Queue A 8.6) is refused with
+``NotImplementedError`` until its slice.
 
 Batch dict keys: ``tokens`` (B, S) integer token ids; ``labels`` (B, S)
 next-token targets for :meth:`Model.loss_fn`.
@@ -47,12 +51,16 @@ class Model:
     the CPU)."""
 
     def __init__(self, cfg: ArchConfig, device=None):
-        for flag, what in ((cfg.is_encoder_decoder, "the encoder "
-                            "(_encode, _write_cross_cache)"),
-                           (cfg.vision_prefix_len, "vision prefixes"),
-                           (cfg.learned_pos, "learned positions")):
+        for flag, what, item in (
+                (cfg.is_encoder_decoder,
+                 "the encoder (_encode, _write_cross_cache)",
+                 "ROADMAP Queue A 8.5"),
+                (cfg.vision_prefix_len, "vision prefixes",
+                 "ROADMAP Queue A 8.6"),
+                (cfg.learned_pos, "learned positions",
+                 "ROADMAP Queue A 8.5")):
             if flag:
-                raise blk.not_ported(f"{cfg.name}: {what}")
+                raise blk.not_ported(f"{cfg.name}: {what}", item)
         for mixer, ffn in cfg.pattern:
             blk.check_slot(mixer, ffn)
         self.cfg = cfg
@@ -170,10 +178,11 @@ class Model:
         element on this model's device. A tensor is read on the device only
         (the cache write, RoPE, every ``flash_decode``'s ``kv_len``), so the
         step can be captured in a CUDA graph and replayed at any position.
-        Writes this token's keys and values into ``cache`` in place (the
-        JAX package returns a new cache; updating in place saves a copy of
-        the cache per step). Returns (logits (B, 1, Vpad) float32, cache);
-        the MoE layers' auxiliary loss is neither kept nor computed
+        Writes this token's keys and values, or each recurrent layer's new
+        state, into ``cache`` in place (the JAX package returns a new cache;
+        updating in place saves a copy of the cache per step). Returns
+        (logits (B, 1, Vpad) float32, cache); the MoE layers' auxiliary
+        loss is neither kept nor computed
         (``blocks.slot_decode_output``), as the JAX package's compiled
         ``decode_step`` drops it.
         """

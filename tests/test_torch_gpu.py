@@ -4,8 +4,9 @@ language-model kernels (``rmsnorm.cu``, ``flash_attention.cu``,
 ``decode_attention.cu``) against their plain versions within the JAX
 package's kernel tolerances, flash decode also with a device kv_len replayed
 in a CUDA graph and on its split path, and the gradient through each wrapper;
-the reduced models (dense, MoE, parallel block) on the card against the CPU,
-and ``decode_batch``'s graph against the eager loop (dense and MoE); the
+the reduced models (dense, MoE, parallel block, the recurrent mixers) on the
+card against the CPU, and ``decode_batch``'s graph against the eager loop
+(dense, MoE, recurrent); head dim 96 in both attention kernels; the
 simulation daemon on the card answering a client process;
 ``ws_sim_cuda(grid_chunk=)`` against the unchunked launch, and the dispatch
 lint's host-sync counts of the decode step and of an event-loop step on the
@@ -238,8 +239,12 @@ def test_rms_norm_register_kernel_at_every_width(D, dtype):
 
 # B, Sq, Skv, H, KV, hd, causal, window, q_offset: ragged Sq / Skv (33, 100,
 # 2047: partial q and kv tiles of either kernel), q_offsets, windows,
-# non-causal, G = H / KV of 1, 2, 3 and 4, every head dim
+# non-causal, G = H / KV of 1, 2, 3 and 4, every head dim (96: phi3-mini's,
+# three 32-column sub-tiles on the tensor cores)
 _ATTENTION_CASES = [
+    (1, 300, 300, 4, 4, 96, True, 0, 0),
+    (2, 100, 257, 4, 2, 96, True, 50, 157),
+    (1, 130, 130, 2, 1, 96, False, 0, 0),
     (2, 128, 128, 4, 2, 64, True, 0, 0),
     (2, 100, 100, 2, 1, 16, True, 0, 0),
     (1, 64, 64, 8, 2, 128, False, 0, 0),
@@ -305,6 +310,41 @@ def test_flash_decode_kernel_on_the_card(dtype):
                 assert fd.flash_decode.launches == n + 1
                 want = fd.decode_attention_ref(q, kc, vc, kv_len, window=win)
                 _hold(got, want, _LM_TOL[qdt])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_at_head_dim_96(dtype):
+    """Head dim 96 (phi3-mini-3.8b: 32 heads, G = 1), whose rows are 12
+    (bf16) or 24 (float32) 16-byte loads, in lane groups of 16 or 32: every
+    kv_len of the serving cache with kv_len as an int and on the device, a
+    window, and a long cache on the split path; q of the cache's type and
+    float32."""
+    _need_card()
+    from repro_torch.kernels import decode_attention as fd
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, Smax, H, KV, win, lens in ((24, 24, 32, 32, 0, range(1, 25)),
+                                      (3, 40, 4, 2, 5, (1, 17, 40)),
+                                      (1, 8192, 32, 32, 0, (8192, 3000, 1)),
+                                      (1, 8192, 32, 32, 700, (8192, 5000))):
+        kc = _lm_randn(gen, (B, Smax, KV, 96), dtype)
+        vc = _lm_randn(gen, (B, Smax, KV, 96), dtype)
+        variant = fd.VARIANTS[fd.num_splits(B, H, KV, Smax, sms)[0] > 1]
+        for qdt in (dtype, torch.float32):
+            q = _lm_randn(gen, (B, 1, H, 96), qdt)
+            for n in lens:
+                for kv_len in (n, torch.tensor(n, dtype=torch.int32,
+                                               device="cuda")):
+                    before = fd.flash_decode.launches_by_variant[variant]
+                    got = fd.flash_decode(q, kc, vc, kv_len, window=win)
+                    torch.cuda.synchronize()
+                    assert fd.flash_decode.launches_by_variant[variant] == \
+                        before + 1
+                    want = fd.decode_attention_ref(q, kc, vc, n, window=win)
+                    _hold(got, want, _LM_TOL[qdt])
+                    if qdt == torch.bfloat16:
+                        _hold_to_a_bf16_step(got, want)
 
 
 # B, Smax, H, KV, hd, window: the serving shape (one split), a window at a
@@ -444,6 +484,59 @@ def test_reduced_model_on_the_card_matches_the_cpu():
     the kernels) against the CPU (plain versions), and greedy tokens."""
     _need_card()
     _reduced_on_the_card_against_the_cpu("qwen3-1.7b")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-v0.1-52b"])
+def test_reduced_recurrent_models_on_the_card(arch):
+    """The recurrent mixers (mLSTM and sLSTM; Mamba beside attention and
+    MoE) in float32: forward logits on the card against the CPU, and
+    greedy tokens (decode_batch's graph on the card)."""
+    _need_card()
+    _reduced_on_the_card_against_the_cpu(arch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-v0.1-52b"])
+def test_recurrent_decode_graph_matches_the_eager_loop(arch):
+    """decode_batch of a reduced recurrent model (bf16) replays one
+    captured step that writes every state in place; its tokens and launch
+    counts equal an eager prefill + decode_step loop's."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request, decode_batch
+    from repro_torch.models import build_model
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(9))
+    S, new, B = 16, 8, 24
+    prompts = np.random.default_rng(4).integers(
+        1, cfg.vocab_size, (B, S)).astype(np.int32)
+    tokens = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+    ops.reset_counts()
+    cache, logits = model.prefill(params, {"tokens": tokens},
+                                  max_seq=S + new)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    eager = []
+    for i in range(new):
+        eager.append(tok[:, 0])
+        logits, cache = model.decode_step(params, cache, tok, S + i)
+        tok = torch.argmax(logits, dim=-1)
+    eager_tokens = torch.stack(eager, 1).cpu().numpy()
+    eager_counts = (ops.launch_counts(), ops.variant_counts())
+    ops.reset_counts()
+    got = decode_batch(model, params, [Request(i, p, new)
+                                       for i, p in enumerate(prompts)])
+    np.testing.assert_array_equal(got, eager_tokens)
+    assert (ops.launch_counts(), ops.variant_counts()) == eager_counts
+    norms = sum(1 if f == "none" else 2 for _m, f in cfg.pattern)
+    attn = sum(m == "attn" for m, _f in cfg.pattern)
+    assert eager_counts[0] == {
+        "rms_norm": (S + new) * (norms * cfg.repeats + 1),
+        "flash_attention": 0,
+        "flash_decode": (S + new) * attn * cfg.repeats}
+    assert decode_batch.last_graph["replays"] == S + new - 1
 
 
 @pytest.mark.gpu

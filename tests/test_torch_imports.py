@@ -76,7 +76,9 @@ def test_port_has_the_expected_modules():
                  "check/dispatch_lint.py", "models/moe.py",
                  "configs/deepseek_67b.py", "configs/phi3_mini_3p8b.py",
                  "configs/command_r_35b.py", "configs/mixtral_8x7b.py",
-                 "configs/phi35_moe_42b.py"):
+                 "configs/phi35_moe_42b.py", "models/xlstm.py",
+                 "models/ssm.py", "configs/xlstm_350m.py",
+                 "configs/jamba_v01_52b.py"):
         assert want in names, want
     for other in ("examples/quickstart_torch.py",
                   "examples/paper_sweep_torch.py",
@@ -124,7 +126,8 @@ out = decode_batch(m, p, reqs, device="cpu")
 lg = build_prefill_step(m, device="cpu")(p, {"tokens": torch.ones(2, 8,
                                          dtype=torch.int64)})
 assert out.shape == (2, 3) and lg.shape == (2, 1, cfg.padded_vocab)
-for arch in ("mixtral-8x7b", "command-r-35b"):
+for arch in ("mixtral-8x7b", "command-r-35b", "xlstm-350m",
+             "jamba-v0.1-52b"):
     m = build_model(get_config(arch).reduced(), device="cpu")
     p = m.init_params(torch.Generator().manual_seed(0))
     assert decode_batch(m, p, reqs, device="cpu").shape == (2, 3)

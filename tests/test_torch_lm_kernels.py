@@ -66,6 +66,9 @@ FA_CASES = [
     (1, 64, 8, 2, 128, "float32", False, 0),
     (2, 128, 4, 2, 64, "bfloat16", True, 0),
     (1, 192, 6, 3, 32, "bfloat16", True, 32),
+    # head dim 96 (phi3-mini-3.8b at full width)
+    (1, 130, 4, 4, 96, "float32", True, 0),
+    (2, 100, 4, 2, 96, "bfloat16", True, 32),
 ]
 
 
@@ -95,6 +98,9 @@ DEC_CASES = [
     (1, 512, 512, 8, 8, 32, 0, "float32"),
     (2, 256, 100, 4, 1, 64, 64, "float32"),     # sliding window
     (1, 384, 300, 4, 2, 128, 0, "bfloat16"),
+    # head dim 96 (phi3-mini-3.8b at full width: G = 1)
+    (2, 256, 200, 8, 8, 96, 0, "float32"),
+    (1, 384, 300, 4, 4, 96, 40, "bfloat16"),
 ]
 
 
@@ -437,7 +443,9 @@ TC_CASES = [(B, Sq, Sq, H, KV, hd, causal, win, 0)
             for B, Sq, H, KV, hd, _dt, causal, win in FA_CASES]
 TC_CASES += [(2, 50, 80, 4, 2, 128, True, 0, 30),
              (2, 33, 33, 4, 2, 128, True, 7, 0),
-             (1, 300, 300, 4, 1, 64, True, 100, 0)]
+             (1, 300, 300, 4, 1, 64, True, 100, 0),
+             (1, 300, 300, 4, 4, 96, True, 0, 0),
+             (2, 50, 80, 4, 2, 96, True, 7, 30)]
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal,win,q_offset", TC_CASES)

@@ -2,7 +2,9 @@
 at ``get_config("qwen3-1.7b").reduced()`` (2 layers, d_model 64, 4 query and
 2 KV heads of 16, vocab 512), and at ``reduced()`` of every other registered
 architecture (``NEW_ARCHS``: two more dense ones, command-r's parallel block,
-two MoE ones with 4 experts of 64, top-2).
+two MoE ones with 4 experts of 64, top-2, and the recurrent ones: xLSTM's
+alternating mLSTM and sLSTM, and Jamba's Mamba layers beside attention and
+MoE).
 
 The JAX package's parameters, made from ``PRNGKey(0)``, are carried into the
 port by ``models.interop.params_from_jax``, so both run the same weights;
@@ -65,7 +67,8 @@ torch.set_num_threads(1)
 ARCH = "qwen3-1.7b"
 #: the architectures this slice registers
 NEW_ARCHS = ("deepseek-67b", "phi3-mini-3.8b", "command-r-35b",
-             "mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
+             "mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "xlstm-350m",
+             "jamba-v0.1-52b")
 B, S = 2, 32
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 24, 16, 8
 
@@ -128,8 +131,8 @@ def test_config_is_a_copy_of_the_jax_packages():
         assert dataclasses.asdict(j) == dataclasses.asdict(p)
         assert (j.hd, j.padded_vocab, j.n_layers) == \
             (p.hd, p.padded_vocab, p.n_layers)
-    with pytest.raises(KeyError, match="not ported yet.*Queue A 8.3"):
-        pget("xlstm-350m")
+    with pytest.raises(KeyError, match="not ported yet.*Queue A 8.5"):
+        pget("whisper-large-v3")
 
 
 def test_param_tree_and_count_match_the_jax_package(built):
@@ -265,10 +268,10 @@ def test_blocks_vs_jax(f32):
         for key in ("k", "v"):
             np.testing.assert_allclose(_np(pcache[key]), _np(jcache[key]),
                                        atol=1e-5, rtol=1e-5)
-    for mixer, ffn in (("mamba", "dense"), ("xattn", "dense")):
-        with pytest.raises(NotImplementedError, match="Queue A 8"):
-            pblk.slot_init(torch.Generator(), jc, mixer, ffn, torch.float32)
-    with pytest.raises(NotImplementedError, match="cp_axes"):
+    # the mixers still to port: the encoder-decoder's cross-attention
+    with pytest.raises(NotImplementedError, match="xattn.*Queue A 8.5"):
+        pblk.slot_init(torch.Generator(), jc, "xattn", "dense", torch.float32)
+    with pytest.raises(NotImplementedError, match="cp_axes.*Queue A 10"):
         pblk.slot_decode(player, jc, "attn", "dense", _t(x[:, :1]), pcache,
                          3, cp_axes=(("model",), ()))
 
@@ -459,12 +462,14 @@ def test_new_config_is_a_copy_of_the_jax_packages(name):
         assert (j.hd, j.padded_vocab, j.n_layers, j.expert_d_ff,
                 j.sub_quadratic) == (p.hd, p.padded_vocab, p.n_layers,
                                      p.expert_d_ff, p.sub_quadratic)
-    # the long-context flag of every shape (mixtral's window qualifies it)
+    # the long-context flag of every shape (mixtral's window qualifies it,
+    # as the recurrent state of xLSTM and Jamba does: the JAX package's
+    # test_long_context_skip_flags)
     for shape in JSHAPES:
         assert p_runnable(pget(name), PSHAPES[shape]) == \
             j_runnable(jget(name), JSHAPES[shape]), shape
     assert p_runnable(pget(name), PSHAPES["long_500k"])[0] == \
-        (name == "mixtral-8x7b")
+        (name in ("mixtral-8x7b", "xlstm-350m", "jamba-v0.1-52b"))
 
 
 #: parameter counts of the full configs (JAX ``param_count``)
@@ -472,7 +477,9 @@ FULL_COUNTS = {"deepseek-67b": 67_425_001_472,
                "phi3-mini-3.8b": 3_821_472_768,
                "command-r-35b": 30_283_538_432,
                "mixtral-8x7b": 46_702_792_704,
-               "phi3.5-moe-42b-a6.6b": 41_873_051_648}
+               "phi3.5-moe-42b-a6.6b": 41_873_051_648,
+               "xlstm-350m": 353_993_728,
+               "jamba-v0.1-52b": 51_477_887_488}
 
 
 def _jax_shapes(tree):
@@ -510,12 +517,27 @@ def test_params_from_jax_carries_the_router_and_experts_unchanged():
                                       np.asarray(jf[key]).view(np.int16))
 
 
+#: archs whose bf16 forward is held against the JAX package's forward run op
+#: by op (``jax.disable_jit``), as the port runs: under ``jit`` XLA keeps
+#: some bf16 intermediates in float32, and at jamba-v0.1-52b's 16 reduced
+#: layers the jitted and the op-by-op forward of the same code differ by
+#: about 1.0 in the logits (one layer routes a token to another expert),
+#: while the port is within 0.07 of the op-by-op forward
+BF16_OP_BY_OP = ("jamba-v0.1-52b",)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", NEW_ARCHS)
 def test_new_config_forward_vs_jax(name, dtype):
+    """The reference is the JAX package's jitted forward, but for the archs
+    of ``BF16_OP_BY_OP`` in bf16."""
     jc, jm, jp, pm, pp = _arch(name, dtype)
     tok = _tokens(jc, (B, S), seed=11)
-    want, want_aux = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(tok)})
+    if dtype == "bfloat16" and name in BF16_OP_BY_OP:
+        with jax.disable_jit():
+            want, want_aux = jm.forward(jp, {"tokens": jnp.asarray(tok)})
+    else:
+        want, want_aux = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(tok)})
     got, aux = pm.forward(pp, {"tokens": _t(tok, torch.int64)})
     assert got.dtype == torch.float32 and got.shape == (B, S, jc.padded_vocab)
     np.testing.assert_allclose(_np(got), _np(want), rtol=0,
@@ -562,6 +584,28 @@ def test_new_config_loss_fn_vs_jax(name):
     assert float(got) == float(gm["loss"])
     if jc.n_experts:
         assert float(gm["moe_aux"]) > 0
+
+
+def test_phi3_at_head_dim_96_vs_jax():
+    """phi3-mini-3.8b's full-width head dim at reduced width
+    (``reduced(head_dim=96)``, float32): forward through the attention
+    wrapper and five decode steps through flash decode, against the JAX
+    package's."""
+    jc, jm, jp, pm, pp = _arch("phi3-mini-3.8b", "float32", head_dim=96)
+    assert jc.hd == 96
+    tok = _tokens(jc, (B, S), seed=22)
+    want, _ = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(tok)})
+    got, _ = pm.forward(pp, {"tokens": _t(tok, torch.int64)})
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0,
+                               atol=_logit_tol("float32", want))
+    jcache, pcache = jm.init_cache(B, 8), pm.init_cache(B, 8)
+    jstep = jax.jit(jm.decode_step)
+    for i in range(5):
+        want, jcache = jstep(jp, jcache, jnp.asarray(tok[:, i:i + 1]), i)
+        got, pcache = pm.decode_step(pp, pcache, _t(tok[:, i:i + 1],
+                                                    torch.int64), i)
+        np.testing.assert_allclose(_np(got), _np(want), rtol=0,
+                                   atol=_logit_tol("float32", want))
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -649,6 +693,55 @@ def test_decode_batch_of_mixtral_equals_the_jax_packages():
     half its own top-2 gap."""
     jc, jm, jp, pm, pp = _arch("mixtral-8x7b", "float32")
     rng = np.random.default_rng(18)
+    prompts = rng.integers(1, jc.vocab_size,
+                           (SERVE_REQUESTS, SERVE_PROMPT)).astype(np.int32)
+    want = jserve.decode_batch(
+        jm, jp, [jserve.Request(i, p, SERVE_NEW)
+                 for i, p in enumerate(prompts)], jc.padded_vocab)
+    got = pserve.decode_batch(
+        pm, pp, [pserve.Request(i, p, SERVE_NEW)
+                 for i, p in enumerate(prompts)], device="cpu")
+    assert got.dtype == np.int32 and got.shape == (SERVE_REQUESTS, SERVE_NEW)
+    np.testing.assert_array_equal(got, want)
+    for step, (jl, pl) in enumerate(_replay(jm, jp, pm, pp, prompts, got)):
+        err = np.abs(jl - pl).max(axis=-1)
+        top2 = np.sort(jl, axis=-1)[:, -2:]
+        gap = top2[:, 1] - top2[:, 0]
+        assert (err <= 1e-3 * np.abs(jl).max()).all(), step
+        assert (err < gap / 2).all(), (step, err, gap)
+
+
+class _Float32Cache:
+    """``model`` whose ``prefill`` makes a float32 cache (``dtype``: the
+    package's float32) and is otherwise the model itself."""
+
+    def __init__(self, model, dtype):
+        self._model, self._dtype = model, dtype
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def prefill(self, *args, **kw):
+        return self._model.prefill(*args, dtype=self._dtype, **kw)
+
+
+@pytest.mark.parametrize("name", ["xlstm-350m", "jamba-v0.1-52b"])
+def test_decode_batch_of_the_recurrent_models_equals_the_jax_packages(name):
+    """serve.decode_batch of the reduced xlstm-350m and jamba-v0.1-52b with
+    float32 weights at serve.py's defaults: the same tokens; every row of
+    every step within half its own top-2 gap. xLSTM's states are float32 in
+    any cache, so it runs the default bf16 cache. Jamba runs a float32
+    cache on both sides: the JAX package's float32 Jamba cannot prefill into
+    a bf16 one (jnp.concatenate promotes Mamba's conv window to float32 and
+    lax.scan refuses the changed carry), and in bf16 the JAX package's
+    jitted and op-by-op runs of one layer already route a token to other
+    experts (see test_new_config_forward_vs_jax)."""
+    jc, jm, jp, pm, pp = _arch(name, "float32")
+    f32_cache = name == "jamba-v0.1-52b"
+    if f32_cache:
+        jm, pm = _Float32Cache(jm, jnp.float32), _Float32Cache(pm,
+                                                              torch.float32)
+    rng = np.random.default_rng(21)
     prompts = rng.integers(1, jc.vocab_size,
                            (SERVE_REQUESTS, SERVE_PROMPT)).astype(np.int32)
     want = jserve.decode_batch(

@@ -376,3 +376,22 @@ def test_smoke_ab_keeps_the_moe_phase_apart():
     assert smoke_ab.summarize(lines) == {
         "phase_seconds": {}, "decode": dense, "moe_decode": moe,
         "prefill_wall_seconds": 0.07, "moe_prefill_wall_seconds": 0.2}
+
+
+def test_smoke_ab_keeps_each_recurrent_arch_apart():
+    """Phase ``lm_recurrent`` serves three architectures: each one's
+    serving and prefill lines land under keys named by its ``arch``."""
+    from benchmarks import smoke_ab
+    lines = []
+    want = {"phase_seconds": {}}
+    for i, arch in enumerate(("xlstm-350m", "jamba-v0.1-52b",
+                              "phi3-mini-3.8b")):
+        decode = dict.fromkeys(smoke_ab.DECODE_KEYS, float(i))
+        lines += [json.dumps({"phase": "lm_recurrent", "arch": arch,
+                              "path": "serve.decode_batch", **decode}),
+                  json.dumps({"phase": "lm_recurrent", "arch": arch,
+                              "path": "steps.build_prefill_step",
+                              "wall_seconds": i + 0.5})]
+        want[f"{arch} decode"] = decode
+        want[f"{arch} prefill_wall_seconds"] = i + 0.5
+    assert smoke_ab.summarize(lines) == want
