@@ -13,8 +13,9 @@ proof runs can be told apart from the host's spread within one machine::
 Phases run in the order given: ``paths`` (the store-backed main-path
 sweeps), ``query`` (the query path; needs ``paths`` before it), ``lint``,
 ``benches``, ``lm`` (the language-model main path), ``lm_moe``
-(mixtral-8x7b at full width) and ``lm_recurrent`` (xlstm-350m,
-jamba-v0.1-52b and phi3-mini-3.8b at full width). Each run first
+(mixtral-8x7b at full width), ``lm_recurrent`` (xlstm-350m,
+jamba-v0.1-52b and phi3-mini-3.8b at full width) and ``lm_encdec``
+(whisper-large-v3 and internvl2-76b at full width). Each run first
 builds its checkout's kernels (cached in that checkout's ``build/``). A
 checkout's ``chip_smoke.py`` must define the phases its arm names. Needs a
 card; ``--out`` keeps each run's full output.
@@ -58,6 +59,8 @@ with tempfile.TemporaryDirectory(prefix="smoke_ab_") as tmp:
             cs.phase_lm_moe()
         elif ph == "lm_recurrent":
             cs.phase_lm_recurrent()
+        elif ph == "lm_encdec":
+            cs.phase_lm_encdec()
         else:
             raise SystemExit("unknown phase " + ph)
         print(json.dumps({"phase": "smoke_ab", "ran": ph,
@@ -79,14 +82,17 @@ def summarize(lines: list) -> dict:
         d = json.loads(line)
         if d.get("phase") == "smoke_ab":
             out["phase_seconds"][d["ran"]] = d["seconds"]
-        elif d.get("path") == "serve.decode_batch":
+        elif d.get("path") in ("serve.decode_batch",
+                               "serve.prefill_and_greedy_steps"):
             key = {"lm_moe": "moe_decode",
-                   "lm_recurrent": f"{d.get('arch')} decode"}.get(
+                   "lm_recurrent": f"{d.get('arch')} decode",
+                   "lm_encdec": f"{d.get('arch')} decode"}.get(
                        d["phase"], "decode")
-            out[key] = {k: d[k] for k in DECODE_KEYS}
+            out[key] = {k: d.get(k) for k in DECODE_KEYS}
         elif d.get("path") == "steps.build_prefill_step":
             key = {"lm_moe": "moe_prefill",
-                   "lm_recurrent": f"{d.get('arch')} prefill"}.get(
+                   "lm_recurrent": f"{d.get('arch')} prefill",
+                   "lm_encdec": f"{d.get('arch')} prefill"}.get(
                        d["phase"], "prefill")
             out[f"{key}_wall_seconds"] = d["wall_seconds"]
         elif d.get("step") == "parity_and_rate":

@@ -24,7 +24,10 @@ layer on the card against the CPU's plain path. Then the recurrent mixers
 and head dim 96: ``xlstm-350m`` (mLSTM and sLSTM), ``jamba-v0.1-52b`` (Mamba
 beside attention and MoE, one period of 8 of its 32 layers) and
 ``phi3-mini-3.8b`` (32 heads of 96), each served and prefilled at full
-width.
+width. Then the encoder-decoder and the vision prefix: ``whisper-large-v3``
+whole (its encoder over 1500 frames, a cross-attention in each decoder
+layer, learned positions) and ``internvl2-76b`` (a prefix of 256 patch
+embeddings, 8 of its 80 layers), each served and prefilled at full width.
 
 Phases, one JSON line each (and after each a ``phase_seconds`` line with
 its wall seconds): ``build`` (seconds, ptxas's registers and spills,
@@ -102,6 +105,16 @@ prefill at 4 x 2048 with its peak memory, one sLSTM layer's prefill time,
 the profile of a decode step of xlstm and jamba, the float32 parity of
 forward and sequential prefill for xlstm whole and jamba's first five
 slots),
+``lm_encdec`` (whisper-large-v3 whole and internvl2-76b at 8 of 80
+layers, random frames or patch embeddings from the seed: the prefill and
+greedy steps, each step after the first of its kind a replay of a CUDA
+graph — InternVL's 256 prefix steps on a second graph, on embeddings —
+with its tokens equal to the eager loop's and exact launch counts, encoder
+included, ms a replayed step against its byte bound — the decoder's
+weights without the cross wk/wv, the whole cross caches, the K and V rows
+— the prefill at 4 x 2048 behind the same inputs, the profile of a
+replayed step, the float32 parity of forward and sequential prefill for
+Whisper whole and InternVL's first two layers),
 ``lm_timing`` (one line per kernel and shape: the kernel, its
 plain version and one PyTorch call as a yardstick, each as device time from
 a replayed CUDA graph, its bound, the rate it reached and its share of the
@@ -2503,8 +2516,10 @@ LM_WORST = dict.fromkeys(LM_KERNELS, 0.0)
 #: each kernel's device time at the same shapes before its redesign (this
 #: script's phase lm_timing then, kept in PERF.md's kernel table; NVIDIA H100
 #: 80GB HBM3, 700.00 W), keyed by kernel and shape: (rows, D) of RMSNorm,
-#: (B, S or Smax, H, KV) of the attention kernels
+#: (B, S or Smax, H, KV) of the attention kernels; width 3072 ran the
+#: generic RMSNorm before its register kernel
 EARLIER_MS = {("rms_norm", (8192, 2048)): 0.09501952171325684,
+              ("rms_norm", (8192, 3072)): 0.14489151954650878,
               ("rms_norm", (131072, 128)): 0.03481791973114014,
               ("rms_norm", (24, 2048)): 0.007502400279045105,
               ("flash_attention", (4, 2048, 16, 8)): 5.592787170410157,
@@ -2572,14 +2587,17 @@ def lm_rms_cases(gen, dtype):
     (8192 x 16, 128), (8192 x 8, 128) — tests/test_kernels.py's shapes
     (100 rows: a ragged block), a width of the generic kernel (100); and
     every width of the register kernel at one row, 24 rows and more row
-    groups than the card holds at once (its grid-stride loop); then
-    phi3-mini-3.8b's widths of 3072, decode (24, 3072) and prefill (8192,
-    3072), which must run the generic kernel, as its main path does."""
+    groups than the card holds at once (its grid-stride loop); then the
+    widths of the served models that are not powers of two — Whisper's
+    1280, phi3-mini-3.8b's 3072, InternVL's 8192 — at a decode step's 24
+    rows and a prefill's 8192, each of which must run the register
+    kernel, as the main paths do."""
     shapes = ((24, 2048), (384, 128), (192, 128), (8192, 2048),
               (131072, 128), (65536, 128), (64, 256), (100, 512),
               (128, 1024), (1, 128), (7, 100))
     shapes += tuple((R, D) for D in rn.REG_WIDTHS for R in (1, 24, 17000))
-    shapes += ((24, 3072), (PREFILL_B * PREFILL_S, 3072))
+    shapes += tuple((R, D) for D in (1280, 3072, 8192)
+                    for R in (SERVE_REQUESTS, PREFILL_B * PREFILL_S))
     tol = LM_TOL[("rms_norm", dtype)]
     out = []
     for R, D in shapes:
@@ -2601,7 +2619,10 @@ def lm_rms_cases(gen, dtype):
 
 def lm_attention_cases(gen, dtype):
     """(B, Sq, Skv, H, KV, hd, causal, window, q_offset): the prefill shapes
-    of qwen3-1.7b and of mixtral-8x7b (H 32 / KV 8, window 4096),
+    of qwen3-1.7b and of mixtral-8x7b (H 32 / KV 8, window 4096), of
+    Whisper's encoder (non-causal over 1500 frames, a ragged last tile) and
+    cross-attention (Sq 2048 over Skv 1500), 20 heads of 64, and of
+    InternVL's G = 8 (64 query heads on 8),
     tests/test_kernels.py's shapes (Sq = 100 and 192: ragged q and kv
     tiles; windows; non-causal), a q_offset, a window at hd 128; then
     ragged Sq / Skv of 33, 100 and 2047 (partial tiles of the tensor-core
@@ -2633,7 +2654,20 @@ def lm_attention_cases(gen, dtype):
              (PREFILL_B, PREFILL_S, PREFILL_S, *PHI3_HEADS, 96, True, 0, 0),
              (2, 700, 700, *PHI3_HEADS, 96, True, 300, 0),
              (1, 333, 333, 4, 2, 96, False, 0, 0),
-             (2, 100, 257, 4, 4, 96, True, 0, 157))
+             (2, 100, 257, 4, 4, 96, True, 0, 157),
+             (PREFILL_B, WHISPER_FRAMES, WHISPER_FRAMES, *WHISPER_HEADS, 64,
+              False, 0, 0),
+             (PREFILL_B, PREFILL_S, WHISPER_FRAMES, *WHISPER_HEADS, 64, False,
+              0, 0),
+             (PREFILL_B, PREFILL_S, PREFILL_S, *INTERNVL_HEADS, 128, True, 0,
+              0),
+             # the prefill steps of lm_encdec: Whisper's decoder
+             # self-attention, InternVL's patch rows and text in one
+             # sequence
+             (PREFILL_B, PREFILL_S, PREFILL_S, *WHISPER_HEADS, 64, True, 0,
+              0),
+             (PREFILL_B, internvl_prefill_rows(), internvl_prefill_rows(),
+              *INTERNVL_HEADS, 128, True, 0, 0))
     tol = LM_TOL[("attention", dtype)]
     out = []
     for B, Sq, Skv, H, KV, hd, causal, win, qo in cases:
@@ -2665,7 +2699,10 @@ def lm_decode_cases(gen, dtype):
     as an int. Then kv_len as an int32 on the device (as the serving path
     passes it): the serving shape, the split path at (1, 32768) (the
     reference's decode_32k) and at (2, 4096) with windows that leave most
-    splits empty. Each launch's variant (one split or several) is checked
+    splits empty. Then lm_encdec's caches: Whisper's cross cache and its
+    self-attention cache (hd 64, G = 1), InternVL's heads (G = 8) over 24
+    rows and over the rows it serves from (``served_cache_rows``), every
+    kv_len. Each launch's variant (one split or several) is checked
     against ``num_splits``; a bfloat16 output is also held to one bfloat16
     step of its largest value (``lm_within_a_bf16_step``)."""
     cases = [(SERVE_REQUESTS, SERVE_PROMPT + SERVE_NEW, n, 16, 8, 128, 0,
@@ -2699,6 +2736,22 @@ def lm_decode_cases(gen, dtype):
               (1, 32768, 20001, *PHI3_HEADS, 96, 1000, False),
               (2, 4096, 3000, *PHI3_HEADS, 96, 300, True),
               (3, 40, 39, 4, 2, 96, 5, False)]
+    # Whisper's cross cache (every one of its 1500 rows, kv_len an int, as
+    # the step passes it) and its self-attention cache at every kv_len on
+    # the device (G = 1 at hd 64); InternVL's heads (G = 8: each KV row read
+    # for two blocks of four heads) over a 24-row cache and over the cache
+    # lm_encdec serves from (its patch rows, then the text), at every kv_len
+    # on the device
+    cases += [(SERVE_REQUESTS, WHISPER_FRAMES, WHISPER_FRAMES,
+               *WHISPER_HEADS, 64, 0, False)]
+    whisper_rows = served_cache_rows(WHISPER_ARCH)
+    cases += [(SERVE_REQUESTS, whisper_rows, n, *WHISPER_HEADS, 64, 0, True)
+              for n in range(1, whisper_rows + 1)]
+    cases += [(SERVE_REQUESTS, SERVE_PROMPT + SERVE_NEW, n, *INTERNVL_HEADS,
+               128, 0, True) for n in range(1, SERVE_PROMPT + SERVE_NEW + 1)]
+    internvl_rows = served_cache_rows(INTERNVL_ARCH)
+    cases += [(SERVE_REQUESTS, internvl_rows, n, *INTERNVL_HEADS, 128, 0,
+               True) for n in range(1, internvl_rows + 1)]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = []
     for B, Smax, kvl, H, KV, hd, win, on_device in cases:
@@ -2843,27 +2896,6 @@ def lm_counts_since_reset(variants: dict, **want) -> tuple:
     return {k: counts[k] for k in LM_KERNELS}, by_variant
 
 
-def eager_serve(model, params, reqs) -> tuple:
-    """decode_batch's greedy loop without its graph: ``Model.prefill`` and
-    ``Model.decode_step`` with Python-int positions, every launch from
-    Python. Returns (tokens (B, new) int32, wall seconds)."""
-    S, new = len(reqs[0].prompt), max(r.max_new for r in reqs)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    prompts = torch.as_tensor(np.stack([r.prompt for r in reqs]),
-                              dtype=torch.int64, device=DEV)
-    cache, logits = model.prefill(params, {"tokens": prompts},
-                                  max_seq=S + new)
-    tok = torch.argmax(logits[:, -1:], dim=-1)
-    outs = []
-    for i in range(new):
-        outs.append(tok[:, 0])
-        logits, cache = model.decode_step(params, cache, tok, S + i)
-        tok = torch.argmax(logits, dim=-1)
-    out = torch.stack(outs, dim=1).to(torch.int32).cpu().numpy()
-    return out, time.perf_counter() - t0
-
-
 def phase_lm_main_path() -> dict:
     """(a) serving: decode_batch at serve.py's defaults; (b) production
     prefill: build_prefill_step on 4 x 2048 tokens; each counted on its own
@@ -2915,6 +2947,29 @@ MOE_GROUPS = ((SERVE_REQUESTS, True), (MOE_LAYER_T, True),
 MOE_HEADS = (32, 8)
 #: (query heads, KV heads) of phi3-mini-3.8b, at head dim 96
 PHI3_HEADS = (32, 32)
+#: (query heads, KV heads) of whisper-large-v3 (head dim 64) and of
+#: internvl2-76b (head dim 128), and Whisper's frames a request
+WHISPER_HEADS, INTERNVL_HEADS, WHISPER_FRAMES = (20, 20), (64, 8), 1500
+
+
+def served_cache_rows(arch: str) -> int:
+    """The rows of the self-attention cache lm_encdec serves ``arch``
+    from: its vision prefix, the prompt and the new tokens."""
+    return get_lm_config(arch).vision_prefix_len + SERVE_PROMPT + SERVE_NEW
+
+
+def internvl_mean_kv_len() -> int:
+    """The mean kv_len of InternVL's replayed text steps in lm_encdec: the
+    text steps run at kv_len P + 1 ... P + SERVE_PROMPT + SERVE_NEW, the
+    first of them captured, not replayed."""
+    P = get_lm_config(INTERNVL_ARCH).vision_prefix_len
+    return P + (2 + SERVE_PROMPT + SERVE_NEW) // 2
+
+
+def internvl_prefill_rows() -> int:
+    """The sequence of InternVL's prefill step in lm_encdec: its patch
+    rows, then PREFILL_S tokens."""
+    return get_lm_config(INTERNVL_ARCH).vision_prefix_len + PREFILL_S
 
 
 def moe_cfg(repeats: int, **over):
@@ -2923,13 +2978,25 @@ def moe_cfg(repeats: int, **over):
 
 
 def step_weight_bytes(params, batch: int) -> int:
-    """Bytes a decode step must read: every weight once (the expert GEMMs
-    run every expert's C slots, so all experts' weights are read), of an
-    untied embedding table only the batch's rows."""
+    """Bytes a decode step must read: every weight of the decoder once (the
+    expert GEMMs run every expert's C slots, so all experts' weights are
+    read), of an untied embedding table only the batch's rows, of a learned
+    position table one row; not the encoder, which a step does not run, nor
+    a cross-attention's wk and wv, whose products the cross cache holds."""
     def leaves(tree):
         for v in tree.values():
             yield from leaves(v) if isinstance(v, dict) else (v,)
-    total = sum(t.numel() * t.element_size() for t in leaves(params))
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+    total = sum(nbytes(t) for t in leaves(params))
+    total -= sum(nbytes(t) for t in leaves(params.get("encoder", {})))
+    for slot in params["layers"].values():
+        if "xattn" in slot:
+            total -= nbytes(slot["xattn"]["wk"]) + nbytes(slot["xattn"]["wv"])
+    if "pos_embed" in params:
+        pe = params["pos_embed"]
+        total -= nbytes(pe) - pe.shape[1] * pe.element_size()
     emb = params["tok_embed"]
     if "lm_head" in params:
         total -= (emb.shape[0] - batch) * emb.shape[1] * emb.element_size()
@@ -3130,17 +3197,62 @@ def recurrent_state_bytes(cache: dict) -> int:
     return total
 
 
-def kv_bytes_per_replayed_step(cache: dict, steps: int) -> float:
+def kv_bytes_per_replayed_step(cache: dict, steps: int,
+                               first: int = 0) -> float:
     """Mean bytes of K and V that a replayed step of a ``steps``-step
-    decode moves, over a cache of ``steps`` positions: at position p (1 ..
-    steps - 1, the replays) each layer of attention reads its p cached rows
-    of K and V and writes one, kv_len = p + 1 rows in all; their mean is
-    (steps + 2) / 2."""
-    row_bytes = sum(
-        (slot["k"].numel() * slot["k"].element_size()
-         + slot["v"].numel() * slot["v"].element_size()) / steps
-        for slot in cache["layers"].values() if "k" in slot)
-    return row_bytes * (steps + 2) / 2
+    decode at positions ``first`` ... ``first + steps - 1`` moves, the
+    first step the graph's capture: at position p (the replays) each layer
+    of attention reads its p cached rows of K and V and writes one, p + 1
+    rows in all; their mean is first + (steps + 2) / 2. A layer's cross
+    cache (xk, xv) is read whole every step."""
+    rows = first + (steps + 2) / 2
+    total = 0.0
+    for slot in cache["layers"].values():
+        for name, t in slot.items():
+            nbytes = t.numel() * t.element_size()
+            if name in ("k", "v"):
+                total += nbytes / t.shape[2] * rows   # (R, B, Smax, KV, hd)
+            elif name in ("xk", "xv"):
+                total += nbytes
+    return total
+
+
+def counted_prefill(phase: str, arch: str, model, params, inputs: dict,
+                    rng, variants: dict, *, rms_norm: int,
+                    flash_attention: int, **extra) -> dict:
+    """``build_prefill_step`` at PREFILL_B x PREFILL_S tokens drawn from
+    ``rng``, behind ``inputs`` (frames or patch embeddings), warmed once,
+    then counted on its own: every count at 0 just before, and just after
+    ``rms_norm`` and ``flash_attention`` launches by ``variants``
+    (:func:`lm_counts_since_reset`), finite float32 logits (B, 1, Vpad).
+    Says and returns its line: wall seconds, prompt tokens/s, peak GiB."""
+    cfg = model.cfg
+    step = build_prefill_step(model)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S)),
+        dtype=torch.int64, device=DEV), **inputs}
+    step(params, batch)                                     # warm
+    reset_all_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts, by_variant = lm_counts_since_reset(
+        variants, rms_norm=rms_norm, flash_attention=flash_attention)
+    if logits.shape != (PREFILL_B, 1, cfg.padded_vocab) or \
+            logits.dtype != torch.float32 or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} prefill logits {tuple(logits.shape)} "
+                             f"{logits.dtype} or not finite")
+    prefill = dict(batch=PREFILL_B, seq=PREFILL_S, wall_seconds=prefill_s,
+                   tokens_per_second=PREFILL_B * PREFILL_S / prefill_s,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   **extra, launches=counts, launches_by_variant=by_variant)
+    say(phase, path="steps.build_prefill_step", arch=arch,
+        repeats=cfg.repeats, card=card_line(), **prefill)
+    return prefill
 
 
 def lm_serve_and_prefill(phase: str, arch: str, model, params, rng, *,
@@ -3188,7 +3300,11 @@ def lm_serve_and_prefill(phase: str, arch: str, model, params, rng, *,
         raise AssertionError(f"{arch} decode_batch returned {tokens.shape} "
                              f"{tokens.dtype} in [{tokens.min()}, "
                              f"{tokens.max()}]")
-    eager_tokens, eager_s = eager_serve(model, params, reqs)
+    eager_tokens, eager_walls = serve_with_inputs(model, params, {
+        "tokens": torch.as_tensor(np.stack([r.prompt for r in reqs]),
+                                  dtype=torch.int64, device=DEV)},
+        model.decode_step)
+    eager_s = sum(eager_walls)
     if not np.array_equal(tokens, eager_tokens):
         raise AssertionError(f"{arch} decode_batch's tokens differ from the "
                              f"eager loop's in "
@@ -3225,35 +3341,12 @@ def lm_serve_and_prefill(phase: str, arch: str, model, params, rng, *,
     say(phase, path="serve.decode_batch", arch=arch, repeats=cfg.repeats,
         layers=cfg.n_layers, params=model.param_count(),
         param_dtype=cfg.param_dtype, card=card_line(), **extra, **serve)
-    step = build_prefill_step(model)
-    batch = {"tokens": torch.as_tensor(
-        rng.integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S)),
-        dtype=torch.int64, device=DEV)}
-    step(params, batch)                                     # warm
-    reset_all_counts()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    logits = step(params, batch)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
     want = {"rms_norm": {rms_variant: norms}}
     if attn:
         want["flash_attention"] = {"tc_bf16": attn}
-    prefill_counts, prefill_variants = lm_counts_since_reset(
-        want, rms_norm=norms, flash_attention=attn)
-    if logits.shape != (PREFILL_B, 1, cfg.padded_vocab) or \
-            logits.dtype != torch.float32 or \
-            not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"{arch} prefill logits {tuple(logits.shape)} "
-                             f"{logits.dtype} or not finite")
-    prefill = dict(batch=PREFILL_B, seq=PREFILL_S, wall_seconds=prefill_s,
-                   tokens_per_second=PREFILL_B * PREFILL_S / prefill_s,
-                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   **(prefill_extra or {}), launches=prefill_counts,
-                   launches_by_variant=prefill_variants)
-    say(phase, path="steps.build_prefill_step", arch=arch,
-        repeats=cfg.repeats, card=card_line(), **prefill)
+    prefill = counted_prefill(phase, arch, model, params, {}, rng, want,
+                              rms_norm=norms, flash_attention=attn,
+                              **(prefill_extra or {}))
     return dict(serve=serve, prefill=prefill)
 
 
@@ -3269,17 +3362,20 @@ def profile_decode(model, params, rng, arch: str, **extra) -> None:
 
 
 def float32_parity(phase: str, arch: str, model32, params32, rng,
-                   **extra) -> None:
+                   inputs=None, **extra) -> None:
     """tests/test_models_smoke.py's parity at full width in float32: the
     last position's logits of ``forward`` against sequential prefill (one
     decode step a token, the recurrent state carried in a float32 cache),
-    within 1e-3 max|logit| + 1e-3."""
+    within 1e-3 max|logit| + 1e-3. ``inputs``: the batch's frames or
+    patch embeddings (``model_inputs``), where the config takes them."""
     cfg = model32.cfg
     tk = torch.as_tensor(rng.integers(0, cfg.vocab_size, (PARITY_B, PARITY_S)),
                          dtype=torch.int64, device=DEV)
-    fwd, aux = model32.forward(params32, {"tokens": tk})
+    batch = {"tokens": tk, **(inputs or {})}
+    fwd, aux = model32.forward(params32, batch)
     fwd = fwd[:, -1]
-    _cache, dec = model32.prefill(params32, {"tokens": tk}, max_seq=PARITY_S,
+    prefix = batch["vis_embeds"].shape[1] if "vis_embeds" in batch else 0
+    _cache, dec = model32.prefill(params32, batch, max_seq=prefix + PARITY_S,
                                   dtype=torch.float32)
     diff = float((fwd - dec[:, 0]).abs().max())
     tol = 1e-3 * float(fwd.abs().max()) + 1e-3
@@ -3372,9 +3468,9 @@ def phase_lm_recurrent() -> dict:
     cfg = get_lm_config(PHI3_ARCH)
     model = build_lm_model(cfg)
     params, init_s = init_weights(model, REC_SEED + 3)
-    # width 3072 has no register kernel: every RMSNorm is the generic one
+    # width 3072 has a register kernel since the encoder-decoder slice
     out = lm_serve_and_prefill("lm_recurrent", PHI3_ARCH, model, params, rng,
-                               rms_variant="generic",
+                               rms_variant="row_in_registers",
                                extra=dict(init_seconds=init_s,
                                           head_dim=cfg.hd))
     runs["phi3_serve"], runs["phi3_prefill"] = out["serve"], out["prefill"]
@@ -3383,6 +3479,262 @@ def phase_lm_recurrent() -> dict:
     say("lm_recurrent", path="done", arch=PHI3_ARCH,
         seconds=time.perf_counter() - t0)
     say("lm_recurrent", path="phase_done",
+        seconds=time.perf_counter() - t_phase)
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# Phase lm_encdec: the encoder-decoder (whisper-large-v3: its encoder over
+# audio frames, a cross-attention in every decoder layer, learned positions)
+# and the vision prefix (internvl2-76b: patch embeddings before the text),
+# each served and prefilled at full width.
+# ---------------------------------------------------------------------------
+
+ENCDEC_SEED = 0
+WHISPER_ARCH, INTERNVL_ARCH = "whisper-large-v3", "internvl2-76b"
+#: InternVL's depth served: 8 of its 80 layers (8.95 B parameters, 17.9 GB
+#: in bf16; all 80 are 70.55 B, 141 GB, above the card's 80 GB)
+INTERNVL_REPEATS = 8
+#: InternVL's float32 parity: its first 2 layers (3.82 B parameters,
+#: 15.3 GB)
+INTERNVL_PARITY_REPEATS = 2
+#: frames and patch embeddings: normal draws times this
+#: (tests/test_models_smoke.py draws them so)
+INPUT_SCALE = 0.02
+
+
+def model_inputs(cfg, batch: int, gen, dtype=torch.bfloat16) -> dict:
+    """The audio frames (B, encoder_seq_len, D) or the patch embeddings (B,
+    vision_prefix_len, D) that ``cfg`` takes beside its tokens, drawn on the
+    card from ``gen`` and scaled by INPUT_SCALE; {} for a config that takes
+    neither. The JAX package stubs both frontends: its configs take these
+    embeddings precomputed."""
+    out = {}
+    if cfg.is_encoder_decoder:
+        out["frames"] = lm_randn(gen, (batch, cfg.encoder_seq_len,
+                                       cfg.d_model), dtype, INPUT_SCALE)
+    if cfg.vision_prefix_len:
+        out["vis_embeds"] = lm_randn(gen, (batch, cfg.vision_prefix_len,
+                                           cfg.d_model), dtype, INPUT_SCALE)
+    return out
+
+
+def serve_with_inputs(model, params, batch: dict, step) -> tuple:
+    """The greedy loop of ``serve.decode_batch`` over a batch that carries
+    frames or patch embeddings beside its tokens (``decode_batch`` takes
+    tokens alone, as the JAX package's does): ``Model.prefill(...,
+    step=)`` — Whisper encodes and writes its cross caches first, InternVL
+    runs its patch rows as steps on embeddings — then SERVE_NEW steps, every
+    step through ``step``. Returns (tokens (B, SERVE_NEW) int32, wall
+    seconds of (before the first step, the prefix's steps, the text's
+    steps))."""
+    P = batch["vis_embeds"].shape[1] if "vis_embeds" in batch else 0
+    S = batch["tokens"].shape[1]
+    marks = {}
+
+    def run(params, cache, tokens, pos, embeds=None):
+        kind = "tokens" if embeds is None else "embeds"
+        if kind not in marks:
+            torch.cuda.synchronize()
+            marks[kind] = time.perf_counter()
+        return step(params, cache, tokens, pos, embeds=embeds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, logits = model.prefill(params, batch, max_seq=P + S + SERVE_NEW,
+                                  step=run)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    outs = []
+    for i in range(SERVE_NEW):
+        outs.append(tok[:, 0])
+        logits, cache = run(params, cache, tok, P + S + i)
+        tok = torch.argmax(logits, dim=-1)
+    out = torch.stack(outs, dim=1).to(torch.int32).cpu().numpy()
+    end = time.perf_counter()
+    first = marks.get("embeds", marks["tokens"])
+    return out, (first - t0, marks["tokens"] - first, end - marks["tokens"])
+
+
+def encdec_serve_and_prefill(arch: str, model, params, rng, gen, *,
+                             extra: dict) -> dict:
+    """(1) Serving at serve.py's defaults (24 requests, prompt 16, 8 new
+    tokens) behind the config's frames or patch embeddings
+    (:func:`serve_with_inputs`), every step after the first of its kind a
+    replay of ``GraphedDecodeStep``'s graphs (InternVL's prefix: a second
+    graph, on embeddings), its tokens equal to the eager loop's; (2)
+    ``build_prefill_step`` at 4 x 2048 behind the same inputs. Each counted
+    on its own, every count at 0 just before and exact just after: a step
+    runs the norm before each mixer, cross-attention and FFN and the final
+    norm, and one flash decode a self-attention and a cross-attention;
+    Whisper's encoder, once, the norms of its layers and its final norm and
+    one flash attention a layer; the prefill the decoder's norms and one
+    flash attention (``tc_bf16``) a self-attention and a cross-attention,
+    after the encoder's. Every RMSNorm is ``row_in_registers``. The text
+    step's byte bound: :func:`step_weight_bytes`, and the K and V rows and
+    whole cross caches a replayed step reads
+    (:func:`kv_bytes_per_replayed_step`). Returns dict(serve=...,
+    prefill=...)."""
+    cfg = model.cfg
+    P = cfg.vision_prefix_len
+    layers = cfg.repeats * len(cfg.pattern)
+    cross = cfg.repeats * sum(m == "xattn" for m, _f in cfg.pattern)
+    norms = 2 * layers + cross + 1
+    enc_layers = cfg.n_encoder_layers if cfg.is_encoder_decoder else 0
+    enc_norms = 2 * enc_layers + 1 if enc_layers else 0
+    text_steps = SERVE_PROMPT + SERVE_NEW
+    steps = P + text_steps
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    decode_variants = Counter()
+    for smax, n in ((steps, layers), (cfg.encoder_seq_len, cross)):
+        if n:
+            split = fd.num_splits(SERVE_REQUESTS, cfg.n_heads, cfg.n_kv_heads,
+                                  smax, sms)[0] > 1
+            decode_variants[fd.VARIANTS[split]] += steps * n
+    prompts = rng.integers(1, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT))
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
+                                       device=DEV),
+             **model_inputs(cfg, SERVE_REQUESTS, gen)}
+    serve_with_inputs(model, params, batch, GraphedDecodeStep(model))  # warm
+    reset_all_counts()
+    graphed = GraphedDecodeStep(model)
+    tokens, (before_s, prefix_s, text_s) = serve_with_inputs(
+        model, params, batch, graphed)
+    serve_s = before_s + prefix_s + text_s
+    rms = enc_norms + steps * norms
+    want = {"rms_norm": {"row_in_registers": rms},
+            "flash_decode": dict(decode_variants)}
+    if enc_layers:
+        want["flash_attention"] = {"tc_bf16": enc_layers}
+    serve_counts, serve_variants = lm_counts_since_reset(
+        want, rms_norm=rms, flash_decode=steps * (layers + cross),
+        flash_attention=enc_layers)
+    graphs = graphed.stats()["graphs"]
+    if set(graphs) != ({"tokens", "embeds"} if P else {"tokens"}) or \
+            graphs["tokens"]["replays"] != text_steps - 1 or \
+            (P and graphs["embeds"]["replays"] != P - 1):
+        raise AssertionError(f"{arch}: the graphs replayed {graphs}")
+    if tokens.shape != (SERVE_REQUESTS, SERVE_NEW) or tokens.min() < 0 or \
+            tokens.max() >= cfg.padded_vocab:
+        raise AssertionError(f"{arch} served {tokens.shape} tokens in "
+                             f"[{tokens.min()}, {tokens.max()}]")
+    eager_tokens, eager_walls = serve_with_inputs(model, params, batch,
+                                                  model.decode_step)
+    if not np.array_equal(tokens, eager_tokens):
+        raise AssertionError(f"{arch}: the graphs' tokens differ from the "
+                             f"eager loop's in "
+                             f"{int((tokens != eager_tokens).sum())} places")
+    tg = graphs["tokens"]
+    text_replay_ms = (text_s - tg["warmup_seconds"] - tg["capture_seconds"]) \
+        / tg["replays"] * 1e3
+    weight_bytes = step_weight_bytes(params, SERVE_REQUESTS)
+    cache = model.init_cache(SERVE_REQUESTS, steps)
+    kv_bytes = kv_bytes_per_replayed_step(cache, text_steps, first=P)
+    del cache
+    serve = dict(requests=SERVE_REQUESTS, prompt=SERVE_PROMPT,
+                 new_tokens=SERVE_NEW, prefix_rows=P, decode_steps=steps,
+                 wall_seconds=serve_s,
+                 tokens_per_second=SERVE_REQUESTS * SERVE_NEW / serve_s,
+                 seconds_before_the_first_step=before_s,
+                 prefix_steps_seconds=prefix_s, text_steps_seconds=text_s,
+                 graphs=graphs, ms_per_replayed_step=text_replay_ms,
+                 step_weight_bytes=weight_bytes, step_kv_bytes=kv_bytes,
+                 step_bound_ms=(weight_bytes + kv_bytes)
+                 / HBM_BYTES_PER_S * 1e3,
+                 step_bound_ms_weights_only=weight_bytes
+                 / HBM_BYTES_PER_S * 1e3,
+                 eager_loop_wall_seconds=sum(eager_walls),
+                 eager_loop_seconds=dict(zip(
+                     ("before_the_first_step", "prefix_steps",
+                      "text_steps"), eager_walls)),
+                 eager_loop_ms_per_text_step=eager_walls[2] / text_steps
+                 * 1e3,
+                 tokens_equal_the_eager_loop=True,
+                 launches=serve_counts, launches_by_variant=serve_variants,
+                 launches_per_replay=tg["launches_per_replay"][0],
+                 sample=tokens[0].tolist())
+    if P:
+        eg = graphs["embeds"]
+        serve["ms_per_replayed_prefix_step"] = (
+            prefix_s - eg["warmup_seconds"] - eg["capture_seconds"]) \
+            / eg["replays"] * 1e3
+    say("lm_encdec", path="serve.prefill_and_greedy_steps", arch=arch,
+        repeats=cfg.repeats, layers=cfg.n_layers,
+        encoder_layers=enc_layers, params=model.param_count(),
+        param_dtype=cfg.param_dtype, card=card_line(), **extra, **serve)
+    rms, attn = enc_norms + norms, enc_layers + layers + cross
+    prefill = counted_prefill(
+        "lm_encdec", arch, model, params, model_inputs(cfg, PREFILL_B, gen),
+        rng, {"rms_norm": {"row_in_registers": rms},
+              "flash_attention": {"tc_bf16": attn}},
+        rms_norm=rms, flash_attention=attn, prefix_rows=P,
+        encoder_frames=cfg.encoder_seq_len if enc_layers else 0)
+    return dict(serve=serve, prefill=prefill)
+
+
+def phase_lm_encdec() -> dict:
+    """whisper-large-v3 whole (32 encoder and 32 decoder layers) and
+    internvl2-76b at ``INTERNVL_REPEATS`` of its 80 layers, at full width,
+    bf16 random weights from a seed on the card: each served and prefilled
+    (:func:`encdec_serve_and_prefill`); where a decode step's time goes,
+    eager and replayed; the float32 parity of forward and sequential prefill (Whisper
+    whole; InternVL's first ``INTERNVL_PARITY_REPEATS`` layers, cast from
+    the served weights after they are freed). Returns the counted runs by
+    ``LM_PATHS`` key."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(ENCDEC_SEED)
+    gen = torch.Generator(device=DEV).manual_seed(ENCDEC_SEED)
+    runs = {}
+    # ---- whisper-large-v3 ---------------------------------------------------
+    t0 = time.perf_counter()
+    cfg = get_lm_config(WHISPER_ARCH)
+    model = build_lm_model(cfg)                       # device=None: the card
+    params, init_s = init_weights(model, ENCDEC_SEED)
+    out = encdec_serve_and_prefill(
+        WHISPER_ARCH, model, params, rng, gen,
+        extra=dict(init_seconds=init_s, encoder_frames=cfg.encoder_seq_len,
+                   head_dim=cfg.hd))
+    runs["whisper_serve"], runs["whisper_prefill"] = (out["serve"],
+                                                      out["prefill"])
+    profile_decode(model, params, rng, WHISPER_ARCH)
+    params32 = tree_to(params, torch.float32)               # exact
+    del params, model
+    torch.cuda.empty_cache()
+    model32 = build_lm_model(dataclasses.replace(cfg, param_dtype="float32"))
+    float32_parity("lm_encdec", WHISPER_ARCH, model32, params32, rng,
+                   inputs=model_inputs(cfg, PARITY_B, gen),
+                   encoder_frames=cfg.encoder_seq_len)
+    del params32, model32
+    torch.cuda.empty_cache()
+    say("lm_encdec", path="done", arch=WHISPER_ARCH,
+        seconds=time.perf_counter() - t0)
+    # ---- internvl2-76b: 8 of 80 layers --------------------------------------
+    t0 = time.perf_counter()
+    full = get_lm_config(INTERNVL_ARCH)
+    cfg = dataclasses.replace(full, repeats=INTERNVL_REPEATS)
+    model = build_lm_model(cfg)
+    params, init_s = init_weights(model, ENCDEC_SEED + 1)
+    out = encdec_serve_and_prefill(
+        INTERNVL_ARCH, model, params, rng, gen,
+        extra=dict(init_seconds=init_s, layers_of_the_config=full.n_layers,
+                   prefix_step="a second CUDA graph, on embeddings"))
+    runs["internvl_serve"], runs["internvl_prefill"] = (out["serve"],
+                                                        out["prefill"])
+    profile_decode(model, params, rng, INTERNVL_ARCH, repeats=cfg.repeats)
+    parity_params = {k: (tree_to(_first(v, INTERNVL_PARITY_REPEATS),
+                                 torch.float32) if k == "layers"
+                         else v.float())
+                     for k, v in params.items()}
+    del params, model
+    torch.cuda.empty_cache()
+    model32 = build_lm_model(dataclasses.replace(
+        cfg, repeats=INTERNVL_PARITY_REPEATS, param_dtype="float32"))
+    float32_parity("lm_encdec", INTERNVL_ARCH, model32, parity_params, rng,
+                   inputs=model_inputs(cfg, PARITY_B, gen),
+                   repeats=INTERNVL_PARITY_REPEATS)
+    del parity_params, model32
+    torch.cuda.empty_cache()
+    say("lm_encdec", path="done", arch=INTERNVL_ARCH,
+        seconds=time.perf_counter() - t0)
+    say("lm_encdec", path="phase_done",
         seconds=time.perf_counter() - t_phase)
     return runs
 
@@ -3475,17 +3827,48 @@ def lm_rates(row: dict, kernel: str, key: tuple, variant: str) -> dict:
                 earlier_ms=EARLIER_MS.get((kernel, key)))
 
 
+def l2_bytes() -> int:
+    """The card's L2 (50 MB on an H100) where torch reports it."""
+    return getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                   50 * 2**20)
+
+
+def cold_sets(make, set_bytes: int) -> list:
+    """``make()`` called often enough that the sets' bytes, ``set_bytes``
+    each (one call's inputs and output), reach twice the card's L2 (at least
+    two sets): a timed call that cycles through them (:func:`rotating`)
+    finds in L2 nothing that the calls before it left there, so that its
+    time is that of the memory its bound counts."""
+    return [make() for _ in range(max(2, -(-2 * l2_bytes() // set_bytes)))]
+
+
+def rotating(fn, sets: list):
+    """A call of ``fn(*set)`` on each of ``sets`` in turn; the outputs of
+    the last len(sets) calls stay alive, so that no call writes a buffer
+    that a recent call wrote."""
+    turn = iter(range(2**62))
+    outs = [None] * len(sets)
+
+    def call():
+        i = next(turn) % len(sets)
+        outs[i] = fn(*sets[i])
+    return call
+
+
 def lm_time_rms(gen, R: int, D: int, reps: int) -> dict:
+    """Each call on rows of its own, beyond L2 (:func:`cold_sets`)."""
     dt = torch.bfloat16
-    x, s = lm_randn(gen, (R, D), dt, 3.0), lm_randn(gen, (D,), dt)
+    s = lm_randn(gen, (D,), dt)
     # read x and scale, write out; square, add, two multiplies per element
     bound, by, detail = lm_bound((2 * R * D + D) * 2, 4 * R * D, dt)
+    xs = cold_sets(lambda: (lm_randn(gen, (R, D), dt, 3.0),), detail["bytes"])
     row = dict(shape=dict(rows=R, D=D, dtype="bfloat16"),
-               **lm_times(lambda: ops.rms_norm(x, s, 1e-6),
-                          lambda: rn.rms_norm_ref(x, s, 1e-6),
-                          lambda: torch.nn.functional.rms_norm(
-                              x, (D,), s, 1e-6), reps, reps),
-               bound_ms=bound, bound_by=by, bound_detail=detail)
+               **lm_times(rotating(lambda x: ops.rms_norm(x, s, 1e-6), xs),
+                          rotating(lambda x: rn.rms_norm_ref(x, s, 1e-6), xs),
+                          rotating(lambda x: torch.nn.functional.rms_norm(
+                              x, (D,), s, 1e-6), xs), reps, reps),
+               bound_ms=bound, bound_by=by, bound_detail=detail,
+               buffer_sets=len(xs))
     tpr = rn.threads_per_row(R, D, dt)
     variant = (f"row_in_registers, {tpr} threads a row" if tpr
                else "generic")
@@ -3493,26 +3876,41 @@ def lm_time_rms(gen, R: int, D: int, reps: int) -> dict:
 
 
 def lm_time_attention(gen, B: int, S: int, reps: int, H: int = 16,
-                      KV: int = 8, hd: int = 128) -> dict:
-    """Causal attention of B x S tokens; qwen3-1.7b's heads unless given
-    (mixtral-8x7b: 32 and 8; its window of 4096 masks nothing at S =
-    2048; phi3-mini-3.8b: 32 and 32 of 96)."""
+                      KV: int = 8, hd: int = 128, Skv: int = None,
+                      causal: bool = True) -> dict:
+    """Attention of B x S query tokens over ``Skv`` keys (default S);
+    causal unless told; qwen3-1.7b's heads unless given (mixtral-8x7b: 32
+    and 8; its window of 4096 masks nothing at S = 2048; phi3-mini-3.8b: 32
+    and 32 of 96; whisper-large-v3: 20 and 20 of 64, non-causal, its
+    encoder over 1500 frames and its cross-attention; internvl2-76b: 64 and
+    8)."""
     dt = torch.bfloat16
-    q = lm_randn(gen, (B, S, H, hd), dt)
-    k, v = lm_randn(gen, (B, S, KV, hd), dt), lm_randn(gen, (B, S, KV, hd), dt)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    pairs = S * (S + 1) // 2                       # causal (q, k) pairs
-    bound, by, detail = lm_bound(2 * (2 * q.numel() + 2 * k.numel()),
-                                 B * H * pairs * 4 * hd, dt)
-    row = dict(shape=dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype="bfloat16",
-                          causal=True),
+    Skv = S if Skv is None else Skv
+    # the (q, k) pairs the masks keep
+    pairs = S * (S + 1) // 2 if causal else S * Skv
+    bound, by, detail = lm_bound(2 * (2 * B * S * H * hd + 2 * B * Skv * KV
+                                      * hd), B * H * pairs * 4 * hd, dt)
+    sets = cold_sets(lambda: (lm_randn(gen, (B, S, H, hd), dt),
+                              lm_randn(gen, (B, Skv, KV, hd), dt),
+                              lm_randn(gen, (B, Skv, KV, hd), dt)),
+                     detail["bytes"])
+    # SDPA's (B, heads, S, hd) layout of the same sets
+    tsets = [tuple(t.transpose(1, 2).contiguous() for t in qkv)
+             for qkv in sets]
+    row = dict(shape=dict(B=B, S=S, Skv=Skv, H=H, KV=KV, hd=hd,
+                          dtype="bfloat16", causal=causal),
                **lm_times(
-                   lambda: ops.flash_attention(q, k, v),
-                   lambda: fa.flash_attention_ref(q, k, v),
-                   lambda: torch.nn.functional.scaled_dot_product_attention(
-                       qt, kt, vt, is_causal=True, enable_gqa=True),
+                   rotating(lambda q, k, v: ops.flash_attention(
+                       q, k, v, causal=causal), sets),
+                   rotating(lambda q, k, v: fa.flash_attention_ref(
+                       q, k, v, causal=causal), sets),
+                   rotating(lambda q, k, v: torch.nn.functional.
+                            scaled_dot_product_attention(
+                                q, k, v, is_causal=causal, enable_gqa=True),
+                            tsets),
                    reps, 2),
-               bound_ms=bound, bound_by=by, bound_detail=detail)
+               bound_ms=bound, bound_by=by, bound_detail=detail,
+               buffer_sets=len(sets))
     return {**row, **lm_rates(row, "flash_attention", (B, S, H, KV),
                               ATTN_VARIANT[dt])}
 
@@ -3523,25 +3921,34 @@ def lm_time_decode(gen, B: int, Smax: int, kv_len: int, reps: int,
     it; qwen3-1.7b's heads unless given (mixtral-8x7b: 32 and 8;
     phi3-mini-3.8b: 32 and 32 of 96)."""
     dt = torch.bfloat16
-    q = lm_randn(gen, (B, 1, H, hd), dt)
-    kc, vc = (lm_randn(gen, (B, Smax, KV, hd), dt) for _ in range(2))
     kv = torch.tensor(kv_len, dtype=torch.int32, device=DEV)
-    qt = q.transpose(1, 2).contiguous()
-    kt, vt = (c[:, :kv_len].transpose(1, 2).contiguous() for c in (kc, vc))
     # q in, the kv_len valid rows of both caches, out
-    bound, by, detail = lm_bound(2 * (2 * q.numel() + 2 * B * kv_len * KV * hd),
-                                 B * H * kv_len * 4 * hd, dt)
+    bound, by, detail = lm_bound(2 * (2 * B * H * hd + 2 * B * kv_len * KV
+                                      * hd), B * H * kv_len * 4 * hd, dt)
+    sets = cold_sets(lambda: (lm_randn(gen, (B, 1, H, hd), dt),
+                              lm_randn(gen, (B, Smax, KV, hd), dt),
+                              lm_randn(gen, (B, Smax, KV, hd), dt)),
+                     detail["bytes"])
+    # SDPA's (B, heads, S, hd) layout of q and the valid rows
+    tsets = [(q.transpose(1, 2).contiguous(),
+              *(c[:, :kv_len].transpose(1, 2).contiguous() for c in (kc, vc)))
+             for q, kc, vc in sets]
     splits, rows = fd.num_splits(B, H, KV, Smax, torch.cuda.
                                  get_device_properties(0).multi_processor_count)
     row = dict(shape=dict(B=B, Smax=Smax, kv_len=kv_len, H=H, KV=KV, hd=hd,
                           dtype="bfloat16", kv_len_on_device=True,
                           splits=splits, rows_per_split=rows),
                **lm_times(
-                   lambda: ops.flash_decode(q, kc, vc, kv),
-                   lambda: fd.decode_attention_ref(q, kc, vc, kv_len),
-                   lambda: torch.nn.functional.scaled_dot_product_attention(
-                       qt, kt, vt, enable_gqa=True), reps, reps),
-               bound_ms=bound, bound_by=by, bound_detail=detail)
+                   rotating(lambda q, kc, vc: ops.flash_decode(q, kc, vc, kv),
+                            sets),
+                   rotating(lambda q, kc, vc: fd.decode_attention_ref(
+                       q, kc, vc, kv_len), sets),
+                   rotating(lambda q, k, v: torch.nn.functional.
+                            scaled_dot_product_attention(q, k, v,
+                                                         enable_gqa=True),
+                            tsets), reps, reps),
+               bound_ms=bound, bound_by=by, bound_detail=detail,
+               buffer_sets=len(sets))
     return {**row, **lm_rates(row, "flash_decode", (B, Smax, H, KV),
                               fd.VARIANTS[splits > 1])}
 
@@ -3754,16 +4161,23 @@ LM_PATHS = (("serve", "serve.decode_batch"),
             ("jamba_serve", f"serve.decode_batch {JAMBA_ARCH}"),
             ("jamba_prefill", f"steps.build_prefill_step {JAMBA_ARCH}"),
             ("phi3_serve", f"serve.decode_batch {PHI3_ARCH}"),
-            ("phi3_prefill", f"steps.build_prefill_step {PHI3_ARCH}"))
+            ("phi3_prefill", f"steps.build_prefill_step {PHI3_ARCH}"),
+            ("whisper_serve", f"serve.prefill_and_greedy_steps {WHISPER_ARCH}"),
+            ("whisper_prefill", f"steps.build_prefill_step {WHISPER_ARCH}"),
+            ("internvl_serve",
+             f"serve.prefill_and_greedy_steps {INTERNVL_ARCH}"),
+            ("internvl_prefill", f"steps.build_prefill_step {INTERNVL_ARCH}"))
 
 
 def phase_lm_timing(main: dict) -> list:
     """Each kernel at the main paths' shapes (qwen3-1.7b's first, then
-    mixtral-8x7b's), the fixed cost of a launch in a graph, qwen3-1.7b's
+    mixtral-8x7b's, phi3-mini-3.8b's, whisper-large-v3's and
+    internvl2-76b's), the fixed cost of a launch in a graph, qwen3-1.7b's
     decode profile; returns the kernels line's LM entries. ``main``: the
-    counted runs of phases lm_main_path and lm_moe (``LM_PATHS``)."""
+    counted runs of the LM phases (``LM_PATHS``)."""
     gen = torch.Generator(device=DEV).manual_seed(LM_SEED + 1)
     serve_kv = SERVE_PROMPT + SERVE_NEW
+    ivl_rows = served_cache_rows(INTERNVL_ARCH)
     H, KV = MOE_HEADS
     shapes = {
         "rms_norm": [lm_time_rms(gen, PREFILL_B * PREFILL_S, 2048, 50),
@@ -3771,16 +4185,37 @@ def phase_lm_timing(main: dict) -> list:
                      lm_time_rms(gen, SERVE_REQUESTS, 2048, 200),
                      lm_time_rms(gen, PREFILL_B * PREFILL_S, 4096, 50),
                      lm_time_rms(gen, SERVE_REQUESTS, 4096, 200),
-                     # phi3-mini-3.8b's width: the generic kernel
+                     # phi3-mini-3.8b's width (the generic kernel before
+                     # this slice)
                      lm_time_rms(gen, PREFILL_B * PREFILL_S, 3072, 50),
                      lm_time_rms(gen, SERVE_REQUESTS, 3072, 200),
                      # xlstm-350m's width
-                     lm_time_rms(gen, SERVE_REQUESTS, 1024, 200)],
+                     lm_time_rms(gen, SERVE_REQUESTS, 1024, 200),
+                     # whisper-large-v3's and internvl2-76b's widths
+                     lm_time_rms(gen, PREFILL_B * PREFILL_S, 1280, 50),
+                     lm_time_rms(gen, SERVE_REQUESTS, 1280, 200),
+                     lm_time_rms(gen, PREFILL_B * PREFILL_S, 8192, 50),
+                     lm_time_rms(gen, SERVE_REQUESTS, 8192, 200)],
         "flash_attention": [lm_time_attention(gen, PREFILL_B, PREFILL_S, 10),
                             lm_time_attention(gen, PREFILL_B, PREFILL_S, 10,
                                               H, KV),
                             lm_time_attention(gen, PREFILL_B, PREFILL_S, 10,
-                                              *PHI3_HEADS, hd=96)],
+                                              *PHI3_HEADS, hd=96),
+                            # Whisper's encoder and cross-attention
+                            lm_time_attention(gen, PREFILL_B, WHISPER_FRAMES,
+                                              10, *WHISPER_HEADS, hd=64,
+                                              causal=False),
+                            lm_time_attention(gen, PREFILL_B, PREFILL_S, 10,
+                                              *WHISPER_HEADS, hd=64,
+                                              Skv=WHISPER_FRAMES,
+                                              causal=False),
+                            # Whisper's decoder self-attention; InternVL's
+                            # G = 8 over its patch rows and text
+                            lm_time_attention(gen, PREFILL_B, PREFILL_S, 10,
+                                              *WHISPER_HEADS, hd=64),
+                            lm_time_attention(gen, PREFILL_B,
+                                              internvl_prefill_rows(), 10,
+                                              *INTERNVL_HEADS)],
         "flash_decode": [lm_time_decode(gen, SERVE_REQUESTS, serve_kv,
                                         serve_kv, 200),
                          lm_time_decode(gen, SERVE_REQUESTS, 2048, 2048, 50),
@@ -3790,7 +4225,19 @@ def phase_lm_timing(main: dict) -> list:
                          lm_time_decode(gen, SERVE_REQUESTS, serve_kv,
                                         serve_kv, 200, *PHI3_HEADS, hd=96),
                          lm_time_decode(gen, 1, 32768, 32768, 50,
-                                        *PHI3_HEADS, hd=96)],
+                                        *PHI3_HEADS, hd=96),
+                         # Whisper's cross cache and self-attention
+                         # cache; InternVL's serving cache at the mean
+                         # kv_len of a replayed text step
+                         lm_time_decode(gen, SERVE_REQUESTS, WHISPER_FRAMES,
+                                        WHISPER_FRAMES, 200, *WHISPER_HEADS,
+                                        hd=64),
+                         lm_time_decode(gen, SERVE_REQUESTS, serve_kv,
+                                        serve_kv, 200, *WHISPER_HEADS,
+                                        hd=64),
+                         lm_time_decode(gen, SERVE_REQUESTS, ivl_rows,
+                                        internvl_mean_kv_len(), 200,
+                                        *INTERNVL_HEADS)],
     }
     for kernel, rows in shapes.items():
         for r in rows:
@@ -3953,6 +4400,9 @@ def main():
     # 6c. the recurrent mixers (xlstm-350m, jamba-v0.1-52b) and head dim 96
     # (phi3-mini-3.8b) at full width
     lm_main.update(timed("lm_recurrent", phase_lm_recurrent))
+    # 6d. the encoder-decoder (whisper-large-v3) and the vision prefix
+    # (internvl2-76b) at full width
+    lm_main.update(timed("lm_encdec", phase_lm_encdec))
     entries += timed("lm_timing", phase_lm_timing, lm_main)
     say("done", seconds=round(time.perf_counter() - t_start, 1),
         phase_seconds=phase_seconds)

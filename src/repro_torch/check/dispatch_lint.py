@@ -105,9 +105,11 @@ SYNC_FREE = (("core/engine.py", "advance"),
              ("models/moe.py", "_route_stats"))
 
 #: the architectures whose reduced decode step the lint records: a dense
-#: one, a MoE one, and the recurrent mixers (xLSTM; Mamba beside attention
-#: and MoE in Jamba)
-DECODE_ARCHS = ("qwen3-1.7b", "mixtral-8x7b", "xlstm-350m", "jamba-v0.1-52b")
+#: one, a MoE one, the recurrent mixers (xLSTM; Mamba beside attention and
+#: MoE in Jamba), the encoder-decoder's (Whisper: cross-attention, learned
+#: positions) and a vision model's (InternVL)
+DECODE_ARCHS = ("qwen3-1.7b", "mixtral-8x7b", "xlstm-350m", "jamba-v0.1-52b",
+                "whisper-large-v3", "internvl2-76b")
 
 
 def tiny_models() -> List[Tuple[str, object]]:

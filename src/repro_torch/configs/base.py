@@ -119,7 +119,7 @@ class ArchConfig:
         return dataclasses.replace(self, **base)
 
 
-#: the architectures this port runs; the JAX package knows more
+#: the architectures this port runs: every one of the JAX package's
 _REGISTRY: Dict[str, str] = {
     "qwen3-1.7b": "repro_torch.configs.qwen3_1p7b",
     "deepseek-67b": "repro_torch.configs.deepseek_67b",
@@ -129,13 +129,8 @@ _REGISTRY: Dict[str, str] = {
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "xlstm-350m": "repro_torch.configs.xlstm_350m",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
-}
-
-#: the JAX package's other architectures, and what they wait for in the port
-_NOT_YET = {
-    "whisper-large-v3": "ROADMAP Queue A 8.5 (the xattn mixer, the encoder, "
-                        "learned positions, non-causal encoder attention)",
-    "internvl2-76b": "ROADMAP Queue A 8.6 (the vision prefix)",
+    "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
+    "internvl2-76b": "repro_torch.configs.internvl2_76b",
 }
 
 
@@ -144,9 +139,6 @@ def list_archs():
 
 
 def get_config(name: str) -> ArchConfig:
-    if name in _NOT_YET:
-        raise KeyError(f"{name!r} is not ported yet: it comes with "
-                       f"{_NOT_YET[name]}; available: {list_archs()}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; available: {list_archs()}")
     mod = importlib.import_module(_REGISTRY[name])

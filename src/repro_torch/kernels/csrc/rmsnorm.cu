@@ -13,10 +13,12 @@
 // A decode step's few rows (24 x 2048) are bound by latency instead: one
 // round trip to memory and a reduction.
 //
-// Design for that, for the row widths D of REG_WIDTHS (the serving path's
-// 2048 and 128, and 256 ... 4096): the row lives in registers. TPR threads
-// share a row (a template parameter, 16 ... 256), each holding NV = D / (VEC
-// * TPR) 16-byte vectors of it (1 to 8; VEC = 8 bfloat16 or 4 float32):
+// Design for that, for the row widths D of REG_WIDTHS (the powers of two
+// 128 ... 4096, and the widths of the served models that are not: 1280,
+// Whisper's; 3072, phi3-mini's; 8192, InternVL's): the row lives in
+// registers. TPR threads share a row (a template parameter, a power of two
+// from 16 to 256 that divides the row's NVEC 16-byte vectors), each holding
+// NV = NVEC / TPR of them (1 to 8; VEC = 8 bfloat16 or 4 float32 a vector):
 // thread j of the row holds vectors j, j + TPR, ..., so each load and store
 // instruction of a warp covers contiguous 16-byte pieces. x is read from
 // device memory once, all NV loads issued before the first use; the sum of
@@ -25,10 +27,12 @@
 // stores. Each thread loads its NV vectors of `scale` once and reuses them
 // across the rows of a grid-stride loop over groups of 256 / TPR rows, on a
 // grid of as many blocks as fit on the card at once. The launcher picks TPR
-// (threads_per_row below): one warp a row (two or four for the widest rows,
-// so that NV <= 8) when there are rows enough to fill the SMs, else as many
-// threads a row as make one to four loads each. D = 128 in bfloat16 is
-// 16 vectors: two rows a warp, no lane idle.
+// (threads_per_row below): one warp a row (more for the widest rows, so
+// that NV <= 8) when there are rows enough to fill the SMs, else as many
+// threads a row as divide the row, up to a block. D = 128 in bfloat16 is
+// 16 vectors: two rows a warp, no lane idle. A row of 160 vectors (1280 in
+// bfloat16) has 32 as its largest power-of-two divisor: one warp, NV = 5;
+// 384 (3072 in bfloat16) takes 64 threads (NV = 6) or 128 (NV = 3).
 //
 // Any other D (and every D that is not a multiple of 16 bytes) takes the
 // generic kernel: one warp a row, two passes over the row, scalar accesses
@@ -183,15 +187,33 @@ int sm_count() {
     return n;
 }
 
-// The two thread counts a row of width D may take. A row is NVEC 16-byte
-// vectors. MANY: one warp a row, or as many warps as keep each thread at 8
-// vectors or fewer. FEW (for few rows): as many threads a row, up to a block,
-// as make one to four loads each.
+// The least power of two t >= from with n / t <= most (t <= cap).
+constexpr int least_pow2(int from, int n, int most, int cap) {
+    return (from >= cap || n <= from * most) ? from
+                                             : least_pow2(2 * from, n, most,
+                                                          cap);
+}
+
+// The largest power of two that divides n, at most cap.
+constexpr int pow2_divisor(int n, int cap) {
+    return (n % 2 || cap == 1) ? 1 : 2 * pow2_divisor(n / 2, cap / 2);
+}
+
+// The two thread counts a row of width D may take, both powers of two that
+// divide the row's NVEC 16-byte vectors. FEW (for few rows): the largest
+// such count up to a block, so each thread makes as few loads as the row
+// allows. MANY: one warp a row, or as many warps as keep each thread at 8
+// vectors or fewer (at most FEW); a row of fewer than 32 vectors, a thread
+// a vector.
 template <class T, int D> struct Width {
     static constexpr int NVEC = D * (int)sizeof(T) / 16;
+    static_assert(NVEC * 16 == D * (int)sizeof(T), "D");
+    static constexpr int FEW = pow2_divisor(NVEC, BLOCK);
     static constexpr int MANY =
-        NVEC < 32 ? NVEC : (NVEC / 8 > 32 ? NVEC / 8 : 32);
-    static constexpr int FEW = NVEC < BLOCK ? NVEC : BLOCK;
+        NVEC < 32 ? NVEC : least_pow2(32, NVEC, 8, FEW);
+    static_assert(NVEC % FEW == 0 && NVEC % MANY == 0 && MANY <= FEW
+                  && (MANY <= 32 || MANY % 32 == 0), "threads a row");
+    static_assert(NVEC / MANY <= 8, "vectors a thread");
 };
 
 // Threads a row: MANY, unless that leaves fewer blocks than the card has
@@ -239,8 +261,11 @@ int with_width(int D, F f, G other) {
         case 256: return f(std::integral_constant<int, 256>{});
         case 512: return f(std::integral_constant<int, 512>{});
         case 1024: return f(std::integral_constant<int, 1024>{});
+        case 1280: return f(std::integral_constant<int, 1280>{});
         case 2048: return f(std::integral_constant<int, 2048>{});
+        case 3072: return f(std::integral_constant<int, 3072>{});
         case 4096: return f(std::integral_constant<int, 4096>{});
+        case 8192: return f(std::integral_constant<int, 8192>{});
         default: return other();
     }
 }
@@ -269,8 +294,8 @@ int tpr_of(long long rows, int D) {
 extern "C" {
 
 // x, out: [rows, D] contiguous; scale: [D]; all of one dtype (lm::DType);
-// 16-byte aligned. D one of 128, 256, ..., 4096 takes the register kernel,
-// any other D the generic one.
+// 16-byte aligned. D one of 128, 256, ..., 4096, 1280, 3072 and 8192 takes
+// the register kernel, any other D the generic one.
 int rmsnorm_launch(const void* x, const void* scale, void* out,
                    long long rows, int D, float eps, int dtype, void* stream) {
     if (rows <= 0 || D <= 0) return (int)cudaErrorInvalidValue;

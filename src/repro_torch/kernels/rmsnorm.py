@@ -33,7 +33,7 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 
 #: row widths whose kernel keeps the row in registers (the cases of
 #: ``csrc/rmsnorm.cu::with_width``)
-REG_WIDTHS = (128, 256, 512, 1024, 2048, 4096)
+REG_WIDTHS = (128, 256, 512, 1024, 1280, 2048, 3072, 4096, 8192)
 VARIANTS = ("row_in_registers", "generic")
 
 

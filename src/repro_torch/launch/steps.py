@@ -26,9 +26,11 @@ def check_model_device(model, device) -> None:
 
 def build_prefill_step(model, device=None):
     """``prefill_step(params, batch)`` -> next-token logits (B, 1, Vpad) in
-    float32: ``Model.forward`` over the whole prompt, the head applied to the
-    last position only (the JAX package slices the full logits; the other
-    positions' logits are never read). ``device=None`` means the card."""
+    float32: ``Model.forward`` over the whole prompt (behind its vision
+    prefix ``vis_embeds``, after the encoder over its ``frames``, where the
+    config has them), the head applied to the last position only (the JAX
+    package slices the full logits; the other positions' logits are never
+    read). ``device=None`` means the card."""
     check_model_device(model, device)
 
     def prefill_step(params, batch):
@@ -53,19 +55,21 @@ class GraphedDecodeStep:
     (``launch/serve.py``). Capture and replay, not compilation: the graph
     holds the same hand-written kernels and library calls as an eager step.
 
-    Call it as ``decode_step``: ``step(params, cache, tokens, pos)`` ->
-    (logits, cache), ``pos`` a Python int. The first call runs the step
-    eagerly on a side stream with its position as a device int32 (the
-    warm-up, ``torch.cuda.graphs``' practice: it builds the kernel libraries
-    at first use and creates cuBLAS's handles), then captures one step
-    against that call's params and cache, reading the tokens (B, 1) and the
-    position from static buffers on the card. Every later call copies its
-    tokens and position into those buffers and replays the graph, so it
-    must pass the same params and cache (the graph holds their addresses).
-    A replay returns the graph's static logits, which the next replay
-    overwrites: clone them to keep them.
+    Call it as ``decode_step``: ``step(params, cache, tokens, pos,
+    embeds=None)`` -> (logits, cache), ``pos`` a Python int. A step on
+    tokens and a step on ``embeds`` (a vision prefix's rows during prefill)
+    are two graphs, each captured at its first call: that call runs the
+    step eagerly on a side stream with its position as a device int32 (the
+    warm-up, ``torch.cuda.graphs``' practice: it builds the kernel
+    libraries at first use and creates cuBLAS's handles), then captures one
+    step against that call's params and cache, reading the tokens (B, 1),
+    the embeddings (B, 1, D) and the position from static buffers on the
+    card. Every later call copies its inputs into those buffers and replays
+    its graph, so it must pass the same params and cache (the graphs hold
+    their addresses). A replay returns the graph's static logits, which the
+    next replay overwrites: clone them to keep them.
 
-    Launch counts stay true: the wrappers' counters tick while the graph is
+    Launch counts stay true: the wrappers' counters tick while a graph is
     captured, not while it is replayed, so the runner takes the capture's
     launches back out of the counters and adds them once a replay. A
     failure to capture or to replay raises; nothing falls back to eager
@@ -77,38 +81,75 @@ class GraphedDecodeStep:
             raise ValueError(f"a CUDA graph needs a model on the card, this "
                              f"one lives on {model.device}")
         self.model = model
+        self._params = self._cache = None
+        #: "tokens" / "embeds" -> that step's captured graph
+        self.graphs = {}
+
+    def __call__(self, params, cache, tokens, pos: int, embeds=None):
+        if self.graphs and (params is not self._params
+                            or cache is not self._cache):
+            raise ValueError("the graph was captured against other params "
+                             "or another cache")
+        self._params, self._cache = params, cache
+        kind = "tokens" if embeds is None else "embeds"
+        if kind not in self.graphs:
+            self.graphs[kind] = _CapturedStep(self.model)
+            return self.graphs[kind].warm_up_and_capture(
+                params, cache, tokens, pos, embeds)
+        return self.graphs[kind].replay(cache, tokens, pos, embeds)
+
+    def stats(self) -> dict:
+        """Warm-up and capture seconds and replays, summed over the graphs;
+        the token step's launches a replay, as ``ops.counts_since`` gives
+        them (None before its capture); and each graph's own numbers."""
+        each = {kind: g.stats() for kind, g in self.graphs.items()}
+        tokens = each.get("tokens", {})
+        return dict(
+            warmup_seconds=sum(g["warmup_seconds"] for g in each.values()),
+            capture_seconds=sum(g["capture_seconds"] for g in each.values()),
+            replays=sum(g["replays"] for g in each.values()),
+            launches_per_replay=tokens.get("launches_per_replay"),
+            graphs=each)
+
+
+class _CapturedStep:
+    """One decode step (on tokens, or on embeddings) as a CUDA graph."""
+
+    def __init__(self, model):
+        self.model = model
         self.graph = None
         self.warmup_seconds = self.capture_seconds = 0.0
         self.replays = 0
         #: launches of one replay, as ``ops.counts_since`` gives them
         self.launches_per_replay = None
 
-    def __call__(self, params, cache, tokens, pos: int):
-        if self.graph is None:
-            return self._warm_up_and_capture(params, cache, tokens, pos)
-        if params is not self._params or cache is not self._cache:
-            raise ValueError("the graph was captured against other params "
-                             "or another cache")
+    def replay(self, cache, tokens, pos: int, embeds):
         self._tokens.copy_(tokens)
+        if embeds is not None:
+            self._embeds.copy_(embeds)
         self._pos.fill_(pos)
         self.graph.replay()
         ops.add_counts(self.launches_per_replay)
         self.replays += 1
         return self._logits, cache
 
-    def _warm_up_and_capture(self, params, cache, tokens, pos: int):
+    def warm_up_and_capture(self, params, cache, tokens, pos: int, embeds):
         dev = self.model.device
-        self._params, self._cache = params, cache
         self._tokens = torch.empty(tokens.shape, dtype=tokens.dtype,
                                    device=dev)
         self._tokens.copy_(tokens)
+        self._embeds = None
+        if embeds is not None:
+            self._embeds = torch.empty(embeds.shape, dtype=embeds.dtype,
+                                       device=dev)
+            self._embeds.copy_(embeds)
         self._pos = torch.full((), pos, dtype=torch.int32, device=dev)
         t0 = time.perf_counter()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             logits, _ = self.model.decode_step(params, cache, self._tokens,
-                                               self._pos)
+                                               self._pos, self._embeds)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
@@ -116,7 +157,7 @@ class GraphedDecodeStep:
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self._logits, _ = self.model.decode_step(
-                params, cache, self._tokens, self._pos)
+                params, cache, self._tokens, self._pos, self._embeds)
         self.launches_per_replay = ops.counts_since(before)
         ops.add_counts(self.launches_per_replay, times=-1)
         torch.cuda.synchronize(dev)

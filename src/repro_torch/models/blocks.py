@@ -7,11 +7,11 @@ residual-pre-norm; ``parallel_block`` (command-r) computes attention and FFN
 from the same normed input. The RMSNorm before every mixer and FFN goes
 through the port's kernel.
 
-Mixers: ``attn``, ``mamba`` (``models/ssm.py``), ``mlstm`` and ``slstm``
-(``models/xlstm.py``); ffn ``dense``, ``moe`` and ``none``. Mixer ``xattn``
-(the encoder-decoder's cross-attention, ROADMAP Queue A 8.5) and
-context-parallel decode (``cp_axes``, Queue A 10) raise
-``NotImplementedError``.
+Mixers: ``attn``, ``xattn`` (self-attention, then cross-attention over the
+encoder's output: Whisper's decoder), ``mamba`` (``models/ssm.py``),
+``mlstm`` and ``slstm`` (``models/xlstm.py``); ffn ``dense``, ``moe`` and
+``none``. With ``learned_pos`` no attention applies RoPE. Context-parallel
+decode (``cp_axes``, ROADMAP Queue A 10) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,27 +29,18 @@ from repro_torch.models.layers import (apply_rope, dense, device_of,
 from repro_torch.models.mlp import mlp_apply, mlp_init
 
 
-#: the mixers the port runs
-MIXERS = ("attn", "mamba", "mlstm", "slstm")
-#: what a mixer or feature that is not ported yet waits for
-WAITS_FOR = {"xattn": "ROADMAP Queue A 8.5 (Whisper: the xattn mixer and "
-                      "the encoder)",
-             "cp_axes": "ROADMAP Queue A 10 (mesh and sharding)"}
-
-
-def not_ported(what: str, item: str = "ROADMAP Queue A 8") -> \
-        NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with a later slice of the "
-        f"language-model substrate ({item})")
+#: the mixers and FFNs of a slot
+MIXERS = ("attn", "xattn", "mamba", "mlstm", "slstm")
+FFNS = ("dense", "moe", "none")
 
 
 def check_slot(mixer: str, ffn: str) -> None:
+    """Raises ``ValueError`` on a mixer or FFN no config has (the JAX
+    package's ``ValueError(mixer)``)."""
     if mixer not in MIXERS:
-        raise not_ported(f"mixer {mixer!r}",
-                         WAITS_FOR.get(mixer, "ROADMAP Queue A 8"))
-    if ffn not in ("dense", "moe", "none"):
-        raise not_ported(f"ffn {ffn!r}")
+        raise ValueError(f"unknown mixer {mixer!r}; the mixers are {MIXERS}")
+    if ffn not in FFNS:
+        raise ValueError(f"unknown ffn {ffn!r}; the FFNs are {FFNS}")
 
 
 def _mamba_dims(cfg: ArchConfig) -> ssm_mod.MambaDims:
@@ -61,7 +52,9 @@ def _xlstm_dims(cfg: ArchConfig) -> xlstm_mod.XlstmDims:
     return xlstm_mod.xlstm_dims(cfg.d_model, cfg.n_heads)
 
 
-def _attn_init(gen: Optional[torch.Generator], cfg: ArchConfig, dtype) -> Dict:
+def _attn_init(gen: Optional[torch.Generator], cfg: ArchConfig, dtype,
+               cross: bool = False) -> Dict:
+    """One attention's projections; a cross-attention has no q/k norms."""
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     p = {
         "wq": init_dense(gen, D, H * hd, dtype),
@@ -69,7 +62,7 @@ def _attn_init(gen: Optional[torch.Generator], cfg: ArchConfig, dtype) -> Dict:
         "wv": init_dense(gen, D, KV * hd, dtype),
         "wo": init_dense(gen, H * hd, D, dtype),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = init_scale(hd, dtype, device_of(gen))
         p["k_norm"] = init_scale(hd, dtype, device_of(gen))
     return p
@@ -81,13 +74,16 @@ def slot_init(gen: Optional[torch.Generator], cfg: ArchConfig, mixer: str, ffn: 
     on the meta device, shapes only)."""
     check_slot(mixer, ffn)
     p: Dict = {"norm1": init_scale(cfg.d_model, dtype, device_of(gen))}
-    if mixer == "attn":
+    if mixer in ("attn", "xattn"):
         p["attn"] = _attn_init(gen, cfg, dtype)
+    if mixer == "xattn":
+        p["xnorm"] = init_scale(cfg.d_model, dtype, device_of(gen))
+        p["xattn"] = _attn_init(gen, cfg, dtype, cross=True)
     elif mixer == "mamba":
         p["mamba"] = ssm_mod.mamba_init(gen, _mamba_dims(cfg), dtype)
     elif mixer == "mlstm":
         p["mlstm"] = xlstm_mod.mlstm_init(gen, _xlstm_dims(cfg), dtype)
-    else:
+    elif mixer == "slstm":
         p["slstm"] = xlstm_mod.slstm_init(gen, _xlstm_dims(cfg), dtype)
     if ffn != "none":
         p["norm2"] = init_scale(cfg.d_model, dtype, device_of(gen))
@@ -108,8 +104,8 @@ def _ffn_init(gen: Optional[torch.Generator], cfg: ArchConfig, kind: str,
 # ---------------------------------------------------------------------------
 
 def _qkv(p: Dict, cfg: ArchConfig, x, positions):
-    """Projections, qk-norm and RoPE of one attention layer: q (B,S,H,hd),
-    k and v (B,S,KV,hd)."""
+    """Projections, qk-norm and RoPE (none with ``learned_pos``) of one
+    self-attention: q (B,S,H,hd), k and v (B,S,KV,hd)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = dense(x, p["wq"]).reshape(B, S, H, hd)
@@ -118,30 +114,48 @@ def _qkv(p: Dict, cfg: ArchConfig, x, positions):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if not cfg.learned_pos:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def _attention_apply(p: Dict, cfg: ArchConfig, x, positions, *,
-                     causal: bool):
-    """x (B,S,D) -> (B,S,D)."""
+                     causal: bool, kv_override=None):
+    """x (B,S,D) -> (B,S,D). ``kv_override``: (k, v) of a cross-attention,
+    projected already; q then has no norm and no RoPE."""
     B, S, _ = x.shape
-    q, k, v = _qkv(p, cfg, x, positions)
+    if kv_override is None:
+        q, k, v = _qkv(p, cfg, x, positions)
+    else:
+        q = dense(x, p["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
+        k, v = kv_override
     o = attn_mod.chunked_attention(q, k, v, causal=causal,
                                    window=cfg.sliding_window)
     return dense(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"])
 
 
+def cross_kv(p: Dict, cfg: ArchConfig, enc_out):
+    """A cross-attention's k and v (B, Senc, KV, hd) from the encoder's
+    output (B, Senc, D)."""
+    B, Senc, _ = enc_out.shape
+    shape = (B, Senc, cfg.n_kv_heads, cfg.hd)
+    return (dense(enc_out, p["wk"]).reshape(shape),
+            dense(enc_out, p["wv"]).reshape(shape))
+
+
 def slot_apply(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x, positions,
-               *, causal: bool = True) -> Tuple[torch.Tensor, object]:
-    """One layer over a whole sequence. Returns (x, aux): the MoE auxiliary
-    loss times ``router_aux_coef``, a float32 tensor of one element, or the
-    Python float 0.0 for a layer without experts (the JAX package's
-    ``jnp.float32(0.0)``, with no tensor made for it)."""
+               *, causal: bool = True,
+               enc_out=None) -> Tuple[torch.Tensor, object]:
+    """One layer over a whole sequence; an ``xattn`` layer also attends
+    (non-causal) over ``enc_out`` (B, Senc, D), the encoder's output.
+    Returns (x, aux): the MoE auxiliary loss times ``router_aux_coef``, a
+    float32 tensor of one element, or the Python float 0.0 for a layer
+    without experts (the JAX package's ``jnp.float32(0.0)``, with no tensor
+    made for it)."""
     check_slot(mixer, ffn)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if mixer == "attn":
+    if mixer in ("attn", "xattn"):
         mix_out = _attention_apply(p["attn"], cfg, h, positions,
                                    causal=causal)
     elif mixer == "mamba":
@@ -153,21 +167,33 @@ def slot_apply(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x, positions,
     else:
         mix_out = xlstm_mod.slstm_apply(p["slstm"], h, _xlstm_dims(cfg),
                                         max(cfg.ssm_chunk, 16))
-    return _residual(p, cfg, ffn, x, mix_out, h, _ffn_apply)
+
+    def cross(x):
+        hx = rms_norm(x, p["xnorm"], cfg.norm_eps)
+        return x + _attention_apply(p["xattn"], cfg, hx, positions,
+                                    causal=False,
+                                    kv_override=cross_kv(p["xattn"], cfg,
+                                                         enc_out))
+    return _residual(p, cfg, ffn, x, mix_out, h, _ffn_apply,
+                     cross if mixer == "xattn" else None)
 
 
-def _residual(p: Dict, cfg: ArchConfig, ffn: str, x, mix_out, h, ffn_fn):
+def _residual(p: Dict, cfg: ArchConfig, ffn: str, x, mix_out, h, ffn_fn,
+              cross=None):
     """(the layer's output, the FFN's aux) from its input ``x``, the mixer's
     output and the normed input ``h``: ``x + mix_out + ffn(h)`` in a
-    parallel block (command-r, one norm), else ``x + mix_out`` and its
-    normed FFN added, in the JAX package's order of the adds.
+    parallel block (command-r, one norm), else ``x + mix_out``, then the
+    cross-attention's ``cross(x)`` of an ``xattn`` layer, then its normed
+    FFN added, in the JAX package's order of the adds.
     ``ffn_fn(p, cfg, kind, h)`` gives (the FFN's output, its aux)."""
-    if ffn == "none":
-        return x + mix_out, 0.0
-    if cfg.parallel_block:
+    if cfg.parallel_block and ffn != "none":
         f_out, aux = ffn_fn(p, cfg, ffn, h)
         return x + mix_out + f_out, aux
     x = x + mix_out
+    if cross is not None:
+        x = cross(x)
+    if ffn == "none":
+        return x, 0.0
     f_out, aux = ffn_fn(p, cfg, ffn, rms_norm(x, p["norm2"], cfg.norm_eps))
     return x + f_out, aux
 
@@ -202,8 +228,10 @@ def _ffn_output(p: Dict, cfg: ArchConfig, kind: str, h):
 def slot_cache_init(cfg: ArchConfig, mixer: str, batch: int, max_seq: int,
                     dtype, device=None) -> Dict:
     """One layer's decode cache: k and v (B, max_seq, KV, hd) of ``dtype``
-    for ``attn``; the recurrent state of the other mixers (float32, but
-    Mamba's conv window, of ``dtype``), as in the JAX package."""
+    for ``attn``, and for ``xattn`` also xk and xv (B, encoder_seq_len, KV,
+    hd), the cross-attention's keys and values; the recurrent state of the
+    other mixers (float32, but Mamba's conv window, of ``dtype``), as in the
+    JAX package."""
     check_slot(mixer, "none")
     if mixer == "mamba":
         return ssm_mod.mamba_cache_init(_mamba_dims(cfg), batch, dtype,
@@ -212,9 +240,12 @@ def slot_cache_init(cfg: ArchConfig, mixer: str, batch: int, max_seq: int,
         return xlstm_mod.mlstm_cache_init(_xlstm_dims(cfg), batch, device)
     if mixer == "slstm":
         return xlstm_mod.slstm_cache_init(_xlstm_dims(cfg), batch, device)
-    shape = (batch, max_seq, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    rows = {"k": max_seq, "v": max_seq}
+    if mixer == "xattn":
+        rows.update(xk=cfg.encoder_seq_len, xv=cfg.encoder_seq_len)
+    return {name: torch.zeros((batch, n, cfg.n_kv_heads, cfg.hd),
+                              dtype=dtype, device=device)
+            for name, n in rows.items()}
 
 
 def decode_position(pos, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -245,9 +276,11 @@ def slot_decode(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x,
 
     An ``attn`` layer writes the token's k and v into ``cache`` in place
     (cast to the cache's dtype) and attends over the cache's first ``pos +
-    1`` positions; a recurrent layer writes its new state into ``cache`` in
-    place. Returns (x, cache, aux), aux as :func:`slot_apply` gives it (a
-    MoE layer routes the batch's B tokens as one group of its own).
+    1`` positions; an ``xattn`` layer then also attends over all
+    ``encoder_seq_len`` rows of its cross cache xk/xv; a recurrent layer
+    writes its new state into ``cache`` in place. Returns (x, cache, aux),
+    aux as :func:`slot_apply` gives it (a MoE layer routes the batch's B
+    tokens as one group of its own).
     """
     return _decode(p, cfg, mixer, ffn, x, cache, pos, cp_axes, kv_len,
                    _ffn_apply)
@@ -268,11 +301,12 @@ def _decode(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x, cache: Dict,
             pos, cp_axes, kv_len, ffn_fn):
     check_slot(mixer, ffn)
     if cp_axes:
-        raise not_ported("context-parallel decode (cp_axes)",
-                         WAITS_FOR["cp_axes"])
+        raise NotImplementedError(
+            "context-parallel decode (cp_axes) is not ported yet: it comes "
+            "with ROADMAP Queue A 10 (mesh and sharding)")
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if mixer == "attn":
-        B = x.shape[0]
+    B = x.shape[0]
+    if mixer in ("attn", "xattn"):
         if kv_len is None:
             pos, kv_len = decode_position(pos, x.device)
         q, k, v = _qkv(p["attn"], cfg, h, pos.expand(B, 1))
@@ -291,5 +325,14 @@ def _decode(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x, cache: Dict,
     else:
         mix_out, cache = xlstm_mod.slstm_decode_step(p["slstm"], h, cache,
                                                      _xlstm_dims(cfg))
-    x, aux = _residual(p, cfg, ffn, x, mix_out, h, ffn_fn)
+
+    def cross(x):
+        hx = rms_norm(x, p["xnorm"], cfg.norm_eps)
+        q = dense(hx, p["xattn"]["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
+        o = attn_mod.decode_attention(q, cache["xk"], cache["xv"],
+                                      cfg.encoder_seq_len)
+        return x + dense(o.reshape(B, 1, cfg.n_heads * cfg.hd),
+                         p["xattn"]["wo"])
+    x, aux = _residual(p, cfg, ffn, x, mix_out, h, ffn_fn,
+                       cross if mixer == "xattn" else None)
     return x, cache, aux

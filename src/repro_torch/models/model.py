@@ -1,28 +1,30 @@
-"""Unified model for the decoder-only configurations the port runs:
-parameters, forward, cache init, single-token decode, sequential prefill.
+"""Unified model: parameters, forward, cache init, single-token decode,
+sequential prefill, for every configuration of the JAX package.
 
 As in the JAX package, one class covers the ``pattern × repeats`` layer
-stack of any mixers ``models/blocks.py`` runs (attention, Mamba, mLSTM,
-sLSTM; dense and MoE FFNs); the parameters are a nested dict of tensors
-whose leaves are stacked over ``repeats`` (the same tree as the JAX
-package's, so weights carry across leaf for leaf, see
+stack of any mixers ``models/blocks.py`` runs (attention, cross-attention,
+Mamba, mLSTM, sLSTM; dense and MoE FFNs), the encoder-decoder wiring
+(Whisper: an encoder of non-causal attention layers over precomputed frame
+embeddings, learned positions, a cross-attention in every decoder layer)
+and the vision prefix (InternVL: precomputed patch embeddings before the
+text); the frontends are stubs in the JAX package too. The parameters are a
+nested dict of tensors whose leaves are stacked over ``repeats`` (the same
+tree as the JAX package's, so weights carry across leaf for leaf, see
 ``models/interop.py``). The layers run in a Python loop over the stack;
 every RMSNorm, attention and decode-attention goes through the port's
-kernels. The decode cache holds each layer's KV cache or recurrent state,
-stacked the same way, and a decode step writes it in place.
-
-A config with an encoder (the JAX package's ``_encode``,
-``_write_cross_cache``) or learned positions (Whisper, ROADMAP Queue A 8.5)
-or a vision prefix (InternVL, Queue A 8.6) is refused with
-``NotImplementedError`` until its slice.
+kernels. The decode cache holds each layer's KV cache (and cross cache) or
+recurrent state, stacked the same way, and a decode step writes it in
+place.
 
 Batch dict keys: ``tokens`` (B, S) integer token ids; ``labels`` (B, S)
-next-token targets for :meth:`Model.loss_fn`.
+next-token targets for :meth:`Model.loss_fn`; ``vis_embeds`` (B, P, D) the
+patch-embedding prefix (vision configs); ``frames`` (B, Senc, D) the audio
+frame embeddings (encoder-decoder configs).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -51,16 +53,6 @@ class Model:
     the CPU)."""
 
     def __init__(self, cfg: ArchConfig, device=None):
-        for flag, what, item in (
-                (cfg.is_encoder_decoder,
-                 "the encoder (_encode, _write_cross_cache)",
-                 "ROADMAP Queue A 8.5"),
-                (cfg.vision_prefix_len, "vision prefixes",
-                 "ROADMAP Queue A 8.6"),
-                (cfg.learned_pos, "learned positions",
-                 "ROADMAP Queue A 8.5")):
-            if flag:
-                raise blk.not_ported(f"{cfg.name}: {what}", item)
         for mixer, ffn in cfg.pattern:
             blk.check_slot(mixer, ffn)
         self.cfg = cfg
@@ -89,12 +81,23 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = init_dense(gen, cfg.d_model,
                                            cfg.padded_vocab, dt)
-        layers = {}
-        for j, (mixer, ffn) in enumerate(cfg.pattern):
-            slots = [blk.slot_init(gen, cfg, mixer, ffn, dt)
-                     for _ in range(cfg.repeats)]
-            layers[f"slot{j}"] = _stack(slots)
-        params["layers"] = layers
+        if cfg.learned_pos:
+            params["pos_embed"] = init_embed(gen, max(cfg.max_position, 1),
+                                             cfg.d_model, dt)
+
+        def stack_slots(pattern, repeats):
+            return {f"slot{j}": _stack([blk.slot_init(gen, cfg, mixer, ffn,
+                                                      dt)
+                                        for _ in range(repeats)])
+                    for j, (mixer, ffn) in enumerate(pattern)}
+        params["layers"] = stack_slots(cfg.pattern, cfg.repeats)
+        if cfg.is_encoder_decoder:
+            params["encoder"] = {
+                "layers": stack_slots(_ENCODER_PATTERN, cfg.n_encoder_layers),
+                "norm": init_scale(cfg.d_model, dt, device_of(gen)),
+                "pos": init_embed(gen, max(cfg.encoder_seq_len, 1),
+                                  cfg.d_model, dt),
+            }
         return params
 
     def param_shapes(self) -> Dict:
@@ -109,26 +112,61 @@ class Model:
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
+    def _encode(self, params: Dict, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder over frame embeddings (B, Senc, D) of the param
+        dtype: learned positions added, ``n_encoder_layers`` non-causal
+        attention layers, the final norm."""
+        cfg, enc = self.cfg, params["encoder"]
+        B, Senc, _ = frames.shape
+        x = frames + enc["pos"][None, :Senc]
+        positions = torch.arange(Senc, dtype=torch.int32,
+                                 device=x.device).expand(B, Senc)
+        (mixer, ffn), = _ENCODER_PATTERN
+        for r in range(cfg.n_encoder_layers):
+            x, _ = blk.slot_apply(_layer(enc["layers"], r)["slot0"], cfg,
+                                  mixer, ffn, x, positions, causal=False)
+        return rms_norm(x, enc["norm"], cfg.norm_eps)
+
+    def _prefix(self, batch: Dict) -> int:
+        """Rows of the vision prefix in ``batch`` (0 without one)."""
+        if self.cfg.vision_prefix_len and "vis_embeds" in batch:
+            return batch["vis_embeds"].shape[1]
+        return 0
+
     def hidden_states(self, params: Dict,
                       batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(the final-normed hidden states (B, S, D) of ``forward``, the MoE
-        auxiliary loss summed over the layers: a float32 tensor of one
-        element, 0 for a model without experts)."""
+        """(the final-normed hidden states (B, S, D) of ``forward`` at the
+        text positions, the MoE auxiliary loss summed over the layers: a
+        float32 tensor of one element, 0 for a model without experts). A
+        vision prefix runs before the text, positions counted over the
+        whole sequence, and its rows are dropped after the final norm; an
+        encoder-decoder encodes ``frames`` first and every cross-attention
+        reads the encoder's output."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        B, S = tokens.shape
+        B = tokens.shape[0]
         x = embed(tokens, params["tok_embed"])
+        prefix = self._prefix(batch)
+        if prefix:
+            x = torch.cat([batch["vis_embeds"].to(x.dtype), x], dim=1)
+        S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
+        if cfg.learned_pos:
+            x = x + params["pos_embed"][None, :S]
+        enc_out = (self._encode(params, batch["frames"].to(x.dtype))
+                   if cfg.is_encoder_decoder else None)
         aux = 0.0
         for r in range(cfg.repeats):
             slot_params = _layer(params["layers"], r)
             for j, (mixer, ffn) in enumerate(cfg.pattern):
                 x, a = blk.slot_apply(slot_params[f"slot{j}"], cfg, mixer,
-                                      ffn, x, positions, causal=cfg.causal)
+                                      ffn, x, positions, causal=cfg.causal,
+                                      enc_out=enc_out)
                 aux = aux + a
         aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
-        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return x[:, prefix:], aux
 
     def head(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
         """Logits (..., Vpad) in float32 from hidden states."""
@@ -138,7 +176,7 @@ class Model:
 
     def forward(self, params: Dict,
                 batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (logits (B, S, Vpad) float32, moe_aux), as the JAX
+        """Returns (logits (B, S_text, Vpad) float32, moe_aux), as the JAX
         package's ``forward``: ``moe_aux`` is the sum over the layers of
         each MoE layer's auxiliary loss times ``router_aux_coef``, a float32
         tensor of one element (0 without experts)."""
@@ -172,12 +210,16 @@ class Model:
         return cache
 
     def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor,
-                    pos) -> Tuple[torch.Tensor, Dict]:
+                    pos, embeds: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Dict]:
         """tokens (B, 1); pos: the position of this token, a Python int or,
         as the JAX package's traced ``jnp.int32``, an int32 tensor of one
         element on this model's device. A tensor is read on the device only
-        (the cache write, RoPE, every ``flash_decode``'s ``kv_len``), so the
-        step can be captured in a CUDA graph and replayed at any position.
+        (the cache write, RoPE, the learned position's row, every
+        ``flash_decode``'s ``kv_len``), so the step can be captured in a
+        CUDA graph and replayed at any position. ``embeds`` (B, 1, D), cast
+        to the param dtype, takes the place of the tokens' embedding (the
+        vision prefix's positions during prefill).
         Writes this token's keys and values, or each recurrent layer's new
         state, into ``cache`` in place (the JAX package returns a new cache;
         updating in place saves a copy of the cache per step). Returns
@@ -188,7 +230,10 @@ class Model:
         """
         cfg = self.cfg
         pos, kv_len = blk.decode_position(pos, self.device)
-        x = embed(tokens, params["tok_embed"])
+        x = (embed(tokens, params["tok_embed"]) if embeds is None
+             else embeds.to(_dtype(cfg)).contiguous())  # may be a slice
+        if cfg.learned_pos:
+            x = x + params["pos_embed"].index_select(0, pos)[None]
         for r in range(cfg.repeats):
             slot_params = _layer(params["layers"], r)
             slot_cache = _layer(cache["layers"], r)
@@ -204,21 +249,58 @@ class Model:
                                                           torch.Tensor]:
         """Sequential prefill via decode steps (the reference path of the
         serving loop; production prefill runs ``forward``), the port's
-        counterpart of the JAX package's ``lax.scan``. ``step(params, cache,
-        tokens, pos)`` runs each step (default ``self.decode_step``;
-        ``serve.decode_batch`` passes a CUDA-graph runner). Returns (cache,
-        logits (B, 1, Vpad) of the last prompt token)."""
+        counterpart of the JAX package's ``lax.scan``. An encoder-decoder
+        first encodes ``batch["frames"]`` and writes every layer's cross
+        cache; a vision prefix of P rows runs first, one step a row with
+        ``embeds=`` and zero tokens at positions 0 ... P - 1, the text then
+        at P + i. ``step(params, cache, tokens, pos, embeds=None)`` runs
+        each step (default ``self.decode_step``; ``serve.decode_batch``
+        passes a CUDA-graph runner; ``embeds`` is only passed to the
+        prefix's steps). Returns (cache, logits (B, 1, Vpad) of the last
+        prompt token)."""
         tokens = batch["tokens"]
         B, S = tokens.shape
-        if max_seq < S:
-            raise ValueError(f"prefill cache too small: {max_seq} < {S}")
+        prefix = self._prefix(batch)
+        if max_seq < S + prefix:
+            raise ValueError(f"prefill cache too small: {max_seq} < "
+                             f"{S + prefix}")
         step = self.decode_step if step is None else step
         cache = self.init_cache(B, max_seq, dtype)
+        if self.cfg.is_encoder_decoder:
+            self._write_cross_cache(params, cache, self._encode(
+                params, batch["frames"].to(_dtype(self.cfg))))
+        if prefix:
+            vis = batch["vis_embeds"]
+            zeros = torch.zeros((B, 1), dtype=tokens.dtype,
+                                device=self.device)
+            for i in range(prefix):
+                _, cache = step(params, cache, zeros, i,
+                                embeds=vis[:, i:i + 1])
         logits = torch.zeros((B, 1, self.cfg.padded_vocab),
                              dtype=torch.float32, device=self.device)
         for i in range(S):
-            logits, cache = step(params, cache, tokens[:, i:i + 1], i)
+            logits, cache = step(params, cache, tokens[:, i:i + 1],
+                                 prefix + i)
         return cache, logits
+
+    def _write_cross_cache(self, params: Dict, cache: Dict,
+                           enc_out: torch.Tensor) -> None:
+        """Project the encoder's output into every decoder layer's cross
+        cache xk/xv, in place (cast to the cache's dtype)."""
+        cfg = self.cfg
+        for j, (mixer, _f) in enumerate(cfg.pattern):
+            if mixer != "xattn":
+                continue
+            slot_cache = cache["layers"][f"slot{j}"]
+            for r in range(cfg.repeats):
+                xattn = _layer(params["layers"][f"slot{j}"], r)["xattn"]
+                k, v = blk.cross_kv(xattn, cfg, enc_out)
+                slot_cache["xk"][r].copy_(k)
+                slot_cache["xv"][r].copy_(v)
+
+
+#: the encoder's layer: self-attention (non-causal) and a dense FFN
+_ENCODER_PATTERN = (("attn", "dense"),)
 
 
 def build_model(cfg: ArchConfig, device=None) -> Model:

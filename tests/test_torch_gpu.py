@@ -6,7 +6,8 @@ package's kernel tolerances, flash decode also with a device kv_len replayed
 in a CUDA graph and on its split path, and the gradient through each wrapper;
 the reduced models (dense, MoE, parallel block, the recurrent mixers) on the
 card against the CPU, and ``decode_batch``'s graph against the eager loop
-(dense, MoE, recurrent); head dim 96 in both attention kernels; the
+(dense, MoE, recurrent, Whisper's encoder-decoder, InternVL's vision
+prefix on two graphs); head dim 96 in both attention kernels; the
 simulation daemon on the card answering a client process;
 ``ws_sim_cuda(grid_chunk=)`` against the unchunked launch, and the dispatch
 lint's host-sync counts of the decode step and of an event-loop step on the
@@ -211,30 +212,39 @@ def test_rms_norm_kernel_on_the_card(dtype):
 # more row groups than the card holds at once (the grid-stride loop); each
 # width then takes both of its thread counts (a few rows: many threads a row)
 _RMS_ROWS = (1, 24, 17000)
+#: (D, bytes an element) -> the launcher's threads a row for many rows and
+#: for few: powers of two that divide the row's 16-byte vectors, at most 8
+#: vectors a thread (``csrc/rmsnorm.cu::Width``)
+_RMS_THREADS = {(128, 2): (16, 16), (128, 4): (32, 32), (256, 2): (32, 32),
+                (256, 4): (32, 64), (512, 2): (32, 64), (512, 4): (32, 128),
+                (1024, 2): (32, 128), (1024, 4): (32, 256),
+                (1280, 2): (32, 32), (1280, 4): (64, 64),
+                (2048, 2): (32, 256), (2048, 4): (64, 256),
+                (3072, 2): (64, 128), (3072, 4): (128, 256),
+                (4096, 2): (64, 256), (4096, 4): (128, 256),
+                (8192, 2): (128, 256), (8192, 4): (256, 256)}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [128, 256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("D", [128, 256, 512, 1024, 1280, 2048, 3072, 4096,
+                               8192])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rms_norm_register_kernel_at_every_width(D, dtype):
     _need_card()
     from repro_torch.kernels import rmsnorm
     gen = torch.Generator(device="cuda").manual_seed(D)
     tol = 1e-6 if dtype == torch.float32 else 2e-2
-    tprs = set()
+    many, few = _RMS_THREADS[(D, torch.empty((), dtype=dtype).element_size())]
     for R in _RMS_ROWS:
         x = _lm_randn(gen, (R, D), dtype, 3.0)
         s = _lm_randn(gen, (D,), dtype)
-        tpr = rmsnorm.threads_per_row(R, D, dtype)
-        assert tpr > 0
-        tprs.add(tpr)
+        assert rmsnorm.threads_per_row(R, D, dtype) == \
+            (many if R == _RMS_ROWS[-1] else few)
         n = rmsnorm.rms_norm.launches_by_variant["row_in_registers"]
         got = rmsnorm.rms_norm(x, s)
         torch.cuda.synchronize()
         assert rmsnorm.rms_norm.launches_by_variant["row_in_registers"] == n + 1
         _hold(got, rmsnorm.rms_norm_ref(x, s), tol)
-    nvec = D * x.element_size() // 16
-    assert len(tprs) == (1 if nvec <= 32 else 2)
 
 
 # B, Sq, Skv, H, KV, hd, causal, window, q_offset: ragged Sq / Skv (33, 100,
@@ -262,6 +272,14 @@ _ATTENTION_CASES = [
     (1, 100, 257, 8, 4, 64, False, 0, 0),
     (1, 128, 128, 4, 2, 128, False, 50, 0),
     (2, 1, 40, 4, 2, 128, True, 0, 39),
+    # Whisper's encoder (non-causal over 1500 frames: a ragged last tile),
+    # cross-attention (Sq != Skv) and decoder self-attention, 20 heads of
+    # 64; InternVL's G = 8, also over its 256 patch rows and 2048 tokens
+    (1, 1500, 1500, 20, 20, 64, False, 0, 0),
+    (1, 300, 1500, 20, 20, 64, False, 0, 0),
+    (1, 300, 300, 20, 20, 64, True, 0, 0),
+    (1, 512, 512, 64, 8, 128, True, 0, 0),
+    (1, 2304, 2304, 64, 8, 128, True, 0, 0),
 ]
 
 
@@ -293,17 +311,25 @@ def test_flash_attention_kernel_on_the_card(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_kernel_on_the_card(dtype):
     """Every kv_len of a short cache, a window, and a float32 q against a
-    cache of ``dtype`` (the serving path's bf16 cache beside f32 q)."""
+    cache of ``dtype`` (the serving path's bf16 cache beside f32 q); G = 8
+    at InternVL's heads, also over the 280 rows it serves from at a few
+    kv_len, Whisper's self-attention cache (G = 1, hd 64) and its cross
+    cache of 1500 rows at a few kv_len."""
     _need_card()
     from repro_torch.kernels import decode_attention as fd
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for B, Smax, H, KV, hd, win in ((3, 24, 16, 8, 128, 0),
-                                    (2, 40, 4, 2, 16, 5)):
+    for B, Smax, H, KV, hd, win, lens in (
+            (3, 24, 16, 8, 128, 0, range(1, 25)),
+            (2, 40, 4, 2, 16, 5, range(1, 41)),
+            (2, 24, 64, 8, 128, 0, range(1, 25)),
+            (2, 280, 64, 8, 128, 0, (1, 24, 257, 269, 280)),
+            (2, 24, 20, 20, 64, 0, range(1, 25)),
+            (2, 1500, 20, 20, 64, 0, (1, 777, 1500))):
         kc = _lm_randn(gen, (B, Smax, KV, hd), dtype)
         vc = _lm_randn(gen, (B, Smax, KV, hd), dtype)
         for qdt in (dtype, torch.float32):
             q = _lm_randn(gen, (B, 1, H, hd), qdt)
-            for kv_len in range(1, Smax + 1):
+            for kv_len in lens:
                 n = fd.flash_decode.launches
                 got = fd.flash_decode(q, kc, vc, kv_len, window=win)
                 torch.cuda.synchronize()
@@ -579,6 +605,79 @@ def _reduced_on_the_card_against_the_cpu(arch):
     np.testing.assert_array_equal(
         decode_batch(mc, pc, reqs, device="cpu"),
         decode_batch(mg, pg, reqs))
+
+
+def _greedy(model, params, batch, new, step):
+    """``Model.prefill(step=)`` and ``new`` greedy steps through ``step``
+    (as chip_smoke.py's ``lm_encdec`` serves): the tokens (B, new)."""
+    S = batch["tokens"].shape[1]
+    prefix = batch["vis_embeds"].shape[1] if "vis_embeds" in batch else 0
+    cache, logits = model.prefill(params, batch, max_seq=prefix + S + new,
+                                  step=step)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    out = []
+    for i in range(new):
+        out.append(tok[:, 0])
+        logits, cache = step(params, cache, tok, prefix + S + i)
+        tok = torch.argmax(logits, dim=-1)
+    return torch.stack(out, 1).cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "internvl2-76b"])
+def test_encdec_and_vision_prefix_models_on_the_card(arch):
+    """Whisper's encoder, cross-attention and learned positions, InternVL's
+    vision prefix, reduced, in float32: forward logits on the card against
+    the CPU; greedy tokens of the prefill and decode steps replayed from
+    ``GraphedDecodeStep``'s graphs (InternVL: one on embeddings for the
+    prefix, one on tokens) equal to the eager loop's on the card and on the
+    CPU, with the eager loop's launch counts."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import GraphedDecodeStep
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              param_dtype="float32")
+    mc, mg = build_model(cfg, device="cpu"), build_model(cfg)
+    pc = mc.init_params(torch.Generator(device="cpu").manual_seed(3))
+
+    def to_card(t):
+        return {k: to_card(v) if isinstance(v, dict) else v.cuda()
+                for k, v in t.items()}
+    pg = to_card(pc)
+    rng = np.random.default_rng(0)
+    B, S, new = 6, 16, 8
+    batch = {"tokens": torch.as_tensor(rng.integers(1, cfg.vocab_size,
+                                                    (B, S)))}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.encoder_seq_len, cfg.d_model)) * 0.02,
+            dtype=torch.float32)
+    if cfg.vision_prefix_len:
+        batch["vis_embeds"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.vision_prefix_len, cfg.d_model)) * 0.02,
+            dtype=torch.float32)
+    card = {k: v.cuda() for k, v in batch.items()}
+    a, _ = mc.forward(pc, batch)
+    b, _ = mg.forward(pg, card)
+    assert float((a - b.cpu()).abs().max()) < 1e-4 * float(a.abs().max())
+    ops.reset_counts()
+    eager = _greedy(mg, pg, card, new, mg.decode_step)
+    eager_counts = (ops.launch_counts(), ops.variant_counts())
+    ops.reset_counts()
+    graphed = GraphedDecodeStep(mg)
+    np.testing.assert_array_equal(_greedy(mg, pg, card, new, graphed), eager)
+    assert (ops.launch_counts(), ops.variant_counts()) == eager_counts
+    steps = cfg.vision_prefix_len + S + new
+    assert graphed.stats()["replays"] == steps - len(graphed.graphs)
+    assert set(graphed.graphs) == ({"tokens", "embeds"}
+                                   if cfg.vision_prefix_len else {"tokens"})
+    np.testing.assert_array_equal(
+        _greedy(mc, pc, batch, new, mc.decode_step), eager)
 
 
 @pytest.mark.gpu

@@ -78,7 +78,8 @@ def test_port_has_the_expected_modules():
                  "configs/command_r_35b.py", "configs/mixtral_8x7b.py",
                  "configs/phi35_moe_42b.py", "models/xlstm.py",
                  "models/ssm.py", "configs/xlstm_350m.py",
-                 "configs/jamba_v01_52b.py"):
+                 "configs/jamba_v01_52b.py", "configs/whisper_large_v3.py",
+                 "configs/internvl2_76b.py"):
         assert want in names, want
     for other in ("examples/quickstart_torch.py",
                   "examples/paper_sweep_torch.py",
@@ -134,6 +135,16 @@ for arch in ("mixtral-8x7b", "command-r-35b", "xlstm-350m",
     loss, met = m.loss_fn(p, {"tokens": torch.ones(2, 8, dtype=torch.int64),
                               "labels": torch.ones(2, 8, dtype=torch.int64)})
     assert torch.isfinite(loss) and set(met) == {"loss", "xent", "moe_aux"}
+for arch, key, rows in (("whisper-large-v3", "frames", "encoder_seq_len"),
+                        ("internvl2-76b", "vis_embeds", "vision_prefix_len")):
+    cfg = get_config(arch).reduced()
+    m = build_model(cfg, device="cpu")
+    p = m.init_params(torch.Generator().manual_seed(0))
+    batch = {"tokens": torch.ones(2, 8, dtype=torch.int64),
+             key: torch.zeros(2, getattr(cfg, rows), cfg.d_model)}
+    cache, lg = m.prefill(p, batch, max_seq=cfg.vision_prefix_len + 8)
+    assert lg.shape == (2, 1, cfg.padded_vocab)
+    assert build_prefill_step(m, device="cpu")(p, batch).shape == lg.shape
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", bad)
