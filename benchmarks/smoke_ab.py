@@ -14,8 +14,10 @@ Phases run in the order given: ``paths`` (the store-backed main-path
 sweeps), ``query`` (the query path; needs ``paths`` before it), ``lint``,
 ``benches``, ``lm`` (the language-model main path), ``lm_moe``
 (mixtral-8x7b at full width), ``lm_recurrent`` (xlstm-350m,
-jamba-v0.1-52b and phi3-mini-3.8b at full width) and ``lm_encdec``
-(whisper-large-v3 and internvl2-76b at full width). Each run first
+jamba-v0.1-52b and phi3-mini-3.8b at full width), ``lm_encdec``
+(whisper-large-v3 and internvl2-76b at full width) and ``lm_train``
+(qwen3-1.7b trained at full width: ms a steady step, tokens/s, the
+checkpoint's save and load seconds). Each run first
 builds its checkout's kernels (cached in that checkout's ``build/``). A
 checkout's ``chip_smoke.py`` must define the phases its arm names. Needs a
 card; ``--out`` keeps each run's full output.
@@ -61,6 +63,8 @@ with tempfile.TemporaryDirectory(prefix="smoke_ab_") as tmp:
             cs.phase_lm_recurrent()
         elif ph == "lm_encdec":
             cs.phase_lm_encdec()
+        elif ph == "lm_train":
+            cs.phase_lm_train()
         else:
             raise SystemExit("unknown phase " + ph)
         print(json.dumps({"phase": "smoke_ab", "ran": ph,
@@ -71,6 +75,11 @@ with tempfile.TemporaryDirectory(prefix="smoke_ab_") as tmp:
 DECODE_KEYS = ("wall_seconds", "tokens_per_second", "warmup_seconds",
                "capture_seconds", "ms_per_replayed_step",
                "eager_loop_ms_per_step")
+
+
+#: what a run reports from phase lm_train's step and checkpoint lines
+TRAIN_KEYS = ("steady_step_ms", "tokens_per_second", "peak_gib",
+              "save_seconds", "load_seconds")
 
 
 def summarize(lines: list) -> dict:
@@ -95,6 +104,11 @@ def summarize(lines: list) -> dict:
                    "lm_encdec": f"{d.get('arch')} prefill"}.get(
                        d["phase"], "prefill")
             out[f"{key}_wall_seconds"] = d["wall_seconds"]
+        elif d.get("phase") == "lm_train" and d.get("path") in (
+                "fault.run_training", "checkpoint"):
+            for k in TRAIN_KEYS:
+                if k in d:
+                    out[f"train_{k}"] = d[k]
         elif d.get("step") == "parity_and_rate":
             out["query_per_second"] = d["queries_per_second"]
             out["query_per_second_without_replay"] = \

@@ -28,6 +28,9 @@ width. Then the encoder-decoder and the vision prefix: ``whisper-large-v3``
 whole (its encoder over 1500 frames, a cross-attention in each decoder
 layer, learned positions) and ``internvl2-76b`` (a prefix of 256 patch
 embeddings, 8 of its 80 layers), each served and prefilled at full width.
+Then training: ``qwen3-1.7b`` trained at full width through the port's
+training entry points, its checkpoint, the float32 parity of a train step,
+and ``examples/train_lm_torch.py``'s command line.
 
 Phases, one JSON line each (and after each a ``phase_seconds`` line with
 its wall seconds): ``build`` (seconds, ptxas's registers and spills,
@@ -115,6 +118,16 @@ weights without the cross wk/wv, the whole cross caches, the K and V rows
 — the prefill at 4 x 2048 behind the same inputs, the profile of a
 replayed step, the float32 parity of forward and sequential prefill for
 Whisper whole and InternVL's first two layers),
+``lm_train`` (qwen3-1.7b at full width, bf16, 2 x 2048 tokens a step:
+10 steps through ``train.build_state_and_step`` and ``fault.run_training``
+with ms a steady step, tokens/s, peak GiB, exact launches a step — 113
+``rms_norm``, 28 ``flash_attention``, none in the backward —, a falling
+loss and the step's operation bound; run_training's final checkpoint of
+≈ 24 GB, saved and restored onto the card bit for bit, with its seconds; a
+steady step under torch.profiler, grouped by kind of kernel, and its parts
+timed alone; the float32 parity of a train step against the CPU at 2
+layers, ``microbatches=2`` against 1; ``examples/train_lm_torch.py``'s
+command line — 200 steps, one restart — and a reduced ``--compress`` run),
 ``lm_timing`` (one line per kernel and shape: the kernel, its
 plain version and one PyTorch call as a yardstick, each as device time from
 a replayed CUDA graph, its bound, the rate it reached and its share of the
@@ -136,6 +149,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -182,8 +196,18 @@ from repro_torch.kernels.ref import ws_sim_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.serve import Request, decode_batch  # noqa: E402
 from repro_torch.launch.steps import (GraphedDecodeStep,  # noqa: E402
-                                     build_prefill_step)
+                                     build_prefill_step, build_train_step,
+                                     loss_and_grads)
 from repro_torch.models import build_model as build_lm_model  # noqa: E402
+from repro_torch.models.layers import logits_f32, softmax_xent  # noqa: E402
+from repro_torch import tree as tr  # noqa: E402
+from repro_torch.checkpoint import ckpt as ckpt_mod  # noqa: E402
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, batch_at  # noqa: E402
+from repro_torch.launch import train as ptrain  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.runtime.fault import (TrainLoopConfig,  # noqa: E402
+                                       run_training)
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.check import dispatch_lint as dl  # noqa: E402
@@ -201,6 +225,7 @@ from benchmarks import paper_torch as pt  # noqa: E402
 from examples import paper_sweep_torch as ps  # noqa: E402
 from examples import quickstart_torch as qs  # noqa: E402
 from examples import serve_lm_torch  # noqa: E402
+from examples import train_lm_torch  # noqa: E402
 
 DEV = "cuda"
 # float32 products in full float32 (these are PyTorch's defaults for a matrix
@@ -410,6 +435,14 @@ def divisible_cases(stats):
                                         "divisible per-row budgets",
                                         REMOTE_PROB)
     stats.add("ws_sim_divisible", scn)
+    # the main path's later sweeps (two clusters, LOCAL_FIRST): the plain
+    # chunk held here, beside the other groups; phase ``timing`` times the
+    # first sweep's plain version alone
+    for sw_ in MAIN_PATHS["divisible"]["sweeps"][1:]:
+        scn = plain_chunk_scenario(sw_)
+        hold_against_plain(sweep_model(sw_), scn,
+                           f"the main-path chunk of {sw_['name']}")
+        stats.add("ws_sim_divisible", scn)
 
 
 def dag_cases(stats):
@@ -719,7 +752,9 @@ def check_common(g: sw.GridResult, name: str):
 
 #: each path: the body it must launch and its sweeps; a sweep names its
 #: topology, its ``sweep`` arguments, its invariants, the rows held against
-#: the numpy twin and the chunk whose plain version is timed
+#: the numpy twin and the chunk held against the plain version (timed alone
+#: for a path's first sweep, phase ``timing``; a later sweep's in phase
+#: ``kernels``)
 MAIN_PATHS = {
     "divisible": dict(body="ws_sim_divisible", sweeps=(
         dict(name="one_cluster_p256",
@@ -767,6 +802,15 @@ def sweep_model(s) -> "sw.eng.TaskModel":
         kw.pop(k)
     lam = [l for e in kw.pop("lam_list") for l in sw.lam_pair(e)]
     return sw.resolve_model(s["topo"](), lam_list=lam, backend="cuda", **kw)
+
+
+def plain_chunk_scenario(s) -> "sw.Scenario":
+    """Sweep ``s``'s chunk ``plain_chunk`` as a scenario on the card."""
+    topo, kw = s["topo"](), s["kw"]
+    rows = sw.grid_rows(kw.get("W_list", (0,)), kw["lam_list"], kw["reps"])
+    lo = s["plain_chunk"] * kw["chunk_size"]
+    return sw.scenario_from_rows(rows.slice(lo, lo + kw["chunk_size"]),
+                                 remote_prob=topo.remote_prob, device=DEV)
 
 
 def grid_against_twin(g: sw.GridResult, model, rows, name: str):
@@ -1453,11 +1497,12 @@ def time_kernel_ms(model, scn, reps: int) -> float:
 
 def time_body(path: str, main: dict, reps: int) -> dict:
     """One body: the kernel alone on every chunk its main path launches,
-    then — on the chunk of each sweep whose plain version is timed (the
-    chunk with the fewest steps, so that the plain version, which takes one
-    step of every row per event, ends in time) — the kernel beside its
-    plain version. The first sweep's timed chunk is the shape the
-    ``kernels`` line reports, with its bound."""
+    then — on the first sweep's ``plain_chunk`` (the chunk with the fewest
+    steps, so that the plain version, which takes one step of every row per
+    event, ends in time) — its plain version, alone on the card, and the
+    kernel held to it bit for bit. That chunk is the shape the ``kernels``
+    line reports, with its bound. (A later sweep's plain chunk is held in
+    phase ``kernels``.)"""
     spec = MAIN_PATHS[path]
     body = spec["body"]
     per_chunk, shapes = [], []
@@ -1482,7 +1527,7 @@ def time_body(path: str, main: dict, reps: int) -> dict:
                 ns_per_event_longest_row=ms * 1e6 / longest,
                 events_per_second=ev / ms * 1e3,
                 ms_before=WS_MS_BEFORE.get((s["name"], lam))))
-            if ci == s["plain_chunk"]:
+            if s is spec["sweeps"][0] and ci == s["plain_chunk"]:
                 shapes.append((s, model, scn, per_chunk[-1]))
     for s, model, scn, chunk in shapes:
         torch.cuda.synchronize()
@@ -2598,6 +2643,16 @@ def lm_rms_cases(gen, dtype):
     shapes += tuple((R, D) for D in rn.REG_WIDTHS for R in (1, 24, 17000))
     shapes += tuple((R, D) for D in (1280, 3072, 8192)
                     for R in (SERVE_REQUESTS, PREFILL_B * PREFILL_S))
+    # lm_train's forwards: the full-width step (TRAIN_B x TRAIN_S rows), the
+    # float32 parity (TRAIN_PARITY_B x TRAIN_PARITY_S), the reduced
+    # example (TRAIN_EXAMPLE_B x TRAIN_EXAMPLE_S rows of 64, q/k norms of
+    # 16: the generic kernel)
+    for rows, D, hd, H, KV in ((TRAIN_B * TRAIN_S, 2048, 128, 16, 8),
+                               (TRAIN_PARITY_B * TRAIN_PARITY_S, 2048, 128,
+                                16, 8),
+                               (TRAIN_EXAMPLE_B * TRAIN_EXAMPLE_S, 64, 16, 4,
+                                2)):
+        shapes += ((rows, D), (rows * H, hd), (rows * KV, hd))
     tol = LM_TOL[("rms_norm", dtype)]
     out = []
     for R, D in shapes:
@@ -2667,7 +2722,14 @@ def lm_attention_cases(gen, dtype):
              (PREFILL_B, PREFILL_S, PREFILL_S, *WHISPER_HEADS, 64, True, 0,
               0),
              (PREFILL_B, internvl_prefill_rows(), internvl_prefill_rows(),
-              *INTERNVL_HEADS, 128, True, 0, 0))
+              *INTERNVL_HEADS, 128, True, 0, 0),
+             # lm_train's forwards: the full-width step, the float32
+             # parity, the reduced example (4 / 2 heads of 16)
+             (TRAIN_B, TRAIN_S, TRAIN_S, 16, 8, 128, True, 0, 0),
+             (TRAIN_PARITY_B, TRAIN_PARITY_S, TRAIN_PARITY_S, 16, 8, 128,
+              True, 0, 0),
+             (TRAIN_EXAMPLE_B, TRAIN_EXAMPLE_S, TRAIN_EXAMPLE_S, 4, 2, 16,
+              True, 0, 0))
     tol = LM_TOL[("attention", dtype)]
     out = []
     for B, Sq, Skv, H, KV, hd, causal, win, qo in cases:
@@ -3739,6 +3801,434 @@ def phase_lm_encdec() -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# Phase lm_train: qwen3-1.7b trained at full width through the port's
+# training entry points (train.build_state_and_step, fault.run_training),
+# its checkpoint saved and restored, the float32 parity of a train step,
+# examples/train_lm_torch.py's command line.
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_SEED = 0
+#: the global batch of a full-width step: 2 x 2048 tokens (4096 a step)
+TRAIN_B, TRAIN_S = 2, 2048
+#: 10 steps at lr 1e-3 (warm-up 1 step, then the cosine): at 3e-4 the
+#: loss of 10 steps does not move beyond the batches' noise (first five
+#: 12.3985, last five 12.3983 on an H100), at 3e-3 it rises; at 1e-3 it
+#: falls by ≈ 0.2
+TRAIN_STEPS, TRAIN_LR = 10, 1e-3
+#: the float32 parity: full width cut to 2 layers, batch 2 x 128
+TRAIN_PARITY_REPEATS, TRAIN_PARITY_B, TRAIN_PARITY_S = 2, 2, 128
+#: the example's command line (reduced qwen3) and its --compress twin
+TRAIN_EXAMPLE_B, TRAIN_EXAMPLE_S = 8, 128
+TRAIN_COMPRESS_STEPS = 30
+#: device kernels of a train step by kind, the first pattern that matches a
+#: kernel's name taking it (:func:`train_groups`)
+TRAIN_GROUPS = {
+    "rms_norm kernel": r"rmsnorm_(regs|generic)_kernel",
+    "flash_attention kernel": r"(fa_tc|flash_attention)_kernel",
+    "gemm (cuBLAS)": r"gemm|nvjet|xmma|cutlass|cublas|sm90_",
+    "softmax and log-sum-exp": r"softmax|logsumexp",
+    "reductions": r"reduce",
+    "copies and casts": r"(?i)copy|memcpy|memset|cat_|catarray|fill",
+    "index and scatter": r"index|scatter|gather|embedding",
+    "elementwise": r"elementwise|vectorized|unrolled",
+}
+
+
+def train_groups(rows) -> dict:
+    """Device ms a step of each TRAIN_GROUPS kind, and ``other``, from
+    :func:`profile_window`'s rows of every kernel."""
+    by_group = dict.fromkeys(list(TRAIN_GROUPS) + ["other"], 0.0)
+    for name, ms, _c in rows:
+        by_group[next((g for g, pat in TRAIN_GROUPS.items()
+                       if re.search(pat, name)), "other")] += ms
+    return by_group
+
+
+def train_rms_per_step(cfg) -> int:
+    """RMSNorm launches of a train step's forward: norm1, norm2 and, with
+    q/k norms, q_norm and k_norm a layer, then the final norm (the backward
+    is the plain version's gradient: no launch)."""
+    return cfg.n_layers * (4 if cfg.qk_norm else 2) + 1
+
+
+def train_step_bound(model, B: int, S: int) -> dict:
+    """The least time a train step of B x S tokens could take on the card:
+    the larger of (a) its operations at the bf16 peak — 6 per weight of a
+    product (the forward's 2, the backward's 4) per token, every weight but
+    the embedding table (a lookup), plus causal attention's two products
+    (2 B S^2 H hd a layer forward, counting half of S^2, and twice that
+    backward) — and (b) its bytes at the HBM rate: AdamW reads and writes
+    every weight and both float32 moments and reads the gradient (22 bytes
+    a bf16 weight), and the head's float32 logits are written and read
+    once each way."""
+    cfg = model.cfg
+    shapes = model.param_shapes()
+    n_weights = sum(math.prod(s) for path, (s, _d) in
+                    tr.flatten_with_path(shapes)
+                    if path[-1] != "tok_embed" and len(s) >= 2)
+    n_all = model.param_count()
+    attn = 6 * B * S * S * cfg.n_heads * cfg.hd * cfg.n_layers
+    flops = 6 * n_weights * B * S + attn
+    elt = 2 if cfg.param_dtype == "bfloat16" else 4
+    nbytes = n_all * (3 * elt + 16) + 4 * B * S * cfg.padded_vocab * 3
+    ops_ms = flops / FLOPS_PER_S[torch.bfloat16] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(flops=flops, weights_in_products=n_weights,
+                attention_flops=attn, bytes=nbytes, ops_ms=ops_ms,
+                bytes_ms=bytes_ms, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def train_full_width() -> dict:
+    """(1) qwen3-1.7b at full width, bf16, all its layers: TRAIN_STEPS
+    steps of TRAIN_B x TRAIN_S tokens through ``build_state_and_step`` and
+    ``run_training``, the calls ``train.main`` makes, every count at 0 just
+    before; each step launches exactly train_rms_per_step RMSNorms and one
+    attention a layer; the loss falls. (2) run_training's final checkpoint
+    of the state (bf16 weights stored as float32, float32 moments), its
+    seconds and bytes, then ``load_checkpoint`` onto the card: every leaf
+    bit-equal to the state in memory. (3) One steady step under
+    torch.profiler, and its parts timed on their own. Returns the counted
+    run."""
+    cfg = get_lm_config(TRAIN_ARCH)
+    shape = ShapeSpec("train", TRAIN_S, TRAIN_B, "train")
+    opt = adamw.AdamWConfig(lr=TRAIN_LR,
+                            warmup_steps=max(TRAIN_STEPS // 10, 1),
+                            total_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    model, state, step_fn = ptrain.build_state_and_step(cfg, opt, False,
+                                                        seed=TRAIN_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    bound = train_step_bound(model, TRAIN_B, TRAIN_S)
+    rms, attn = train_rms_per_step(cfg), cfg.n_layers
+    last, marks, counts = {}, [], []
+
+    def kept_step(st, batch):
+        new, met = step_fn(st, batch)
+        last["state"] = new
+        return new, met
+
+    def on_metrics(step, _m):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts.append(ops.launch_counts())
+
+    def batch_fn(step):
+        return batch_at(cfg, shape, step, DataConfig(seed=TRAIN_SEED + 99))
+
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="ws_train_ckpt_"))
+    try:
+        free_gb = shutil.disk_usage(ckpt_dir).free / 1e9
+        reset_all_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_start = time.perf_counter()
+        out = run_training(
+            TrainLoopConfig(total_steps=TRAIN_STEPS,
+                            ckpt_every=TRAIN_STEPS + 1,
+                            ckpt_dir=str(ckpt_dir)),
+            kept_step, state, batch_fn, on_metrics=on_metrics)
+        t_end = time.perf_counter()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        launched, by_variant = lm_counts_since_reset(
+            {"rms_norm": {"row_in_registers": TRAIN_STEPS * rms},
+             "flash_attention": {"tc_bf16": TRAIN_STEPS * attn}},
+            rms_norm=TRAIN_STEPS * rms, flash_attention=TRAIN_STEPS * attn)
+        prev = dict.fromkeys(LM_KERNELS, 0)
+        for i, c in enumerate(counts):
+            step_counts = {k: c[k] - prev[k] for k in LM_KERNELS}
+            if step_counts != {"rms_norm": rms, "flash_attention": attn,
+                               "flash_decode": 0}:
+                raise AssertionError(f"train step {i} launched "
+                                     f"{step_counts}")
+            prev = c
+        losses = out["losses"]
+        first, final = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        if not (out["final_step"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS
+                and all(math.isfinite(x) for x in losses) and final < first):
+            raise AssertionError(f"full-width training: {out}")
+        step_s = [b - a for a, b in zip(marks, marks[1:])]
+        steady_ms = float(np.median(step_s)) * 1e3
+        run = dict(launches=launched, launches_by_variant=by_variant)
+        say("lm_train", path="fault.run_training", arch=TRAIN_ARCH,
+            layers=cfg.n_layers, params=model.param_count(),
+            param_dtype=cfg.param_dtype, batch=TRAIN_B, seq=TRAIN_S,
+            tokens_per_step=TRAIN_B * TRAIN_S, steps=TRAIN_STEPS, lr=TRAIN_LR,
+            init_seconds=init_s, first_step_ms=(marks[0] - t_start) * 1e3,
+            step_ms=[s * 1e3 for s in step_s],
+            steady_step_ms=steady_ms,
+            tokens_per_second=TRAIN_B * TRAIN_S / (steady_ms / 1e3),
+            step_bound=bound,
+            share_of_bound=bound["bound_ms"] / steady_ms, peak_gib=peak_gib,
+            losses=losses, loss_first5=first, loss_last5=final,
+            launches_per_step={"rms_norm": rms, "flash_attention": attn},
+            **run, card=card_line())
+        # ---- (2) the final checkpoint, restored onto the card -------------
+        save_s = t_end - marks[-1]
+        stored = sum(f.stat().st_size for f in ckpt_dir.rglob("*.npy"))
+        final_state = last.pop("state")
+        del state
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, back, _ = ckpt_mod.load_checkpoint(ckpt_dir, final_state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        pairs = list(zip(tr.flatten_with_path(back),
+                         tr.flatten_with_path(final_state)))
+        unequal = [p for (p, a), (_q, b) in pairs
+                   if not (a.device == b.device and a.dtype == b.dtype
+                           and torch.equal(a, b))]
+        if step != TRAIN_STEPS - 1 or unequal:
+            raise AssertionError(f"checkpoint of step {step}: leaves "
+                                 f"{unequal[:5]} differ from the state")
+        say("lm_train", path="checkpoint", arch=TRAIN_ARCH,
+            leaves=len(pairs), bytes_on_disk=stored,
+            gb_on_disk=stored / 1e9, temp_dir_free_gb_before=free_gb,
+            save_seconds=save_s, save_gb_per_s=stored / 1e9 / save_s,
+            load_seconds=load_s, load_gb_per_s=stored / 1e9 / load_s,
+            bit_equal_leaves=len(pairs), card=card_line())
+        del back, pairs
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    # ---- (3) where a steady step goes ---------------------------------------
+    batch = batch_fn(TRAIN_STEPS)
+
+    def run_steps(_first, n):
+        st = final_state
+        for _ in range(n):
+            st, met = step_fn(st, batch)
+        return met["loss"]
+    prof, rows = profile_window(run_steps, steps=1)
+    say("lm_profile", what="train step, full width", arch=TRAIN_ARCH,
+        card=card_line(), **prof,
+        device_ms_per_step_by_group=train_groups(rows))
+    say("lm_train", path="parts of a step", arch=TRAIN_ARCH,
+        steady_step_ms=steady_ms, card=card_line(),
+        **train_step_parts(model, final_state, batch, opt))
+    del final_state
+    torch.cuda.empty_cache()
+    return run
+
+
+def train_step_parts(model, state, batch, opt) -> dict:
+    """The parts of a full-width train step, each timed on its own with
+    CUDA events (:func:`eager_ms`, so their sum need not be the step): the
+    forward with autograd recording, forward and backward, AdamW alone
+    against its byte bound, one layer's attention gradient (the kernel's
+    forward, then the plain version's forward and backward, as the step
+    runs it) times the layers, and the head's product with the
+    cross-entropy, forward and backward, whose gradients are held against
+    the float32 copies' (:func:`head_grad_check`)."""
+    cfg = model.cfg
+    params, opt_state = state["params"], state["opt"]
+
+    def forward():
+        leaves = [p.detach().requires_grad_(True) for p in tr.leaves(params)]
+        it = iter(leaves)
+        with torch.enable_grad():
+            model.loss_fn(tr.tree_map(lambda _l: next(it), params), batch)
+    fwd_ms = eager_ms(forward, 3)
+    fwd_bwd_ms = eager_ms(lambda: loss_and_grads(model, params, batch), 3)
+    grads = loss_and_grads(model, params, batch)[2]
+    adamw_ms = eager_ms(lambda: adamw.apply(opt, params, opt_state, grads),
+                        3)
+    n = model.param_count()
+    adamw_bound_ms = n * 22 / HBM_BYTES_PER_S * 1e3
+    del grads
+    gen = torch.Generator(device=DEV).manual_seed(TRAIN_SEED + 3)
+    B, S, H, KV, hd = TRAIN_B, TRAIN_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    qkv = [lm_randn(gen, (B, S, h, hd), torch.bfloat16) for h in (H, KV, KV)]
+    w = lm_randn(gen, (B, S, H, hd), torch.bfloat16)
+
+    def attention_grad():
+        leaves = [t.clone().requires_grad_(True) for t in qkv]
+        with torch.enable_grad():
+            out = ops.flash_attention(*leaves)
+            torch.autograd.grad((out * w).sum(), leaves)
+    attn_ms = eager_ms(attention_grad, 3)
+    x = lm_randn(gen, (B, S, cfg.d_model), torch.bfloat16)
+    head = params["lm_head"]
+    labels = batch["labels"]
+
+    def head_grads(product):
+        xs, hs = x.clone().requires_grad_(True), head.detach().requires_grad_(
+            True)
+        with torch.enable_grad():
+            loss = softmax_xent(product(xs, hs), labels)
+            return torch.autograd.grad(loss, [xs, hs])
+    head_ms = eager_ms(lambda: head_grads(logits_f32), 3)
+    head_check = head_grad_check(
+        head_grads(logits_f32),
+        head_grads(lambda a, b: a.float() @ b.float()))
+    return dict(forward_ms=fwd_ms, forward_backward_ms=fwd_bwd_ms,
+                backward_ms=fwd_bwd_ms - fwd_ms, adamw_ms=adamw_ms,
+                adamw_bound_ms=adamw_bound_ms,
+                attention_layer_fwd_plain_bwd_ms=attn_ms,
+                attention_all_layers_ms=attn_ms * cfg.n_layers,
+                head_and_cross_entropy_ms=head_ms,
+                head_grads_vs_float32_copies=head_check)
+
+
+def head_grad_check(got, want) -> dict:
+    """The full-width bf16 head's gradients (x's and the head's) through
+    ``logits_f32`` on the card against the float32 copies' product's: each
+    element within one bf16 step of its own value plus 1e-5 of the largest
+    (float32 sums in other orders, then each rounded to bf16)."""
+    out = {}
+    for name, g, w in zip(("x", "head"), got, want):
+        w = w.float()
+        diff = (g.float() - w).abs()
+        scale = float(w.abs().max())
+        ok = bool((diff <= 2 ** -7 * w.abs() + 1e-5 * scale).all())
+        out[name] = dict(max_abs_err=float(diff.max()), largest=scale,
+                         unequal_share=float((diff > 0).float().mean()))
+        if not ok:
+            raise AssertionError(f"the head's {name} gradient is off the "
+                                 f"float32 copies' by more than one bf16 "
+                                 f"step: {out[name]}")
+    return out
+
+
+def train_float32_parity() -> None:
+    """The full-width config cut to TRAIN_PARITY_REPEATS layers in float32
+    (the same weights on the card and on the CPU, drawn on the card):
+    ``loss_and_grads`` — the loss within 1e-5 and every gradient leaf
+    within 1e-4 of its largest element of the CPU's plain path; two steps
+    of ``build_train_step`` — loss, grad_norm and lr within 1e-4; and
+    ``microbatches=2`` against 1 on the card — loss within 1e-5, grad_norm
+    within 1e-4 (float32 sums in other orders)."""
+    cfg = dataclasses.replace(get_lm_config(TRAIN_ARCH),
+                              repeats=TRAIN_PARITY_REPEATS,
+                              param_dtype="float32")
+    shape = ShapeSpec("parity", TRAIN_PARITY_S, TRAIN_PARITY_B, "train")
+    opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                            total_steps=TRAIN_STEPS)
+    gpu = build_lm_model(cfg)
+    cpu = build_lm_model(cfg, device="cpu")
+    params = gpu.init_params(torch.Generator(device=DEV).manual_seed(
+        TRAIN_SEED))
+    models = {"cuda": (gpu, params),
+              "cpu": (cpu, tr.tree_map(lambda t: t.cpu(), params))}
+    batches = {d: [batch_at(cfg, shape, k, device=m.device) for k in range(2)]
+               for d, (m, _p) in models.items()}
+    t0 = time.perf_counter()
+    got = {d: loss_and_grads(m, p, batches[d][0])
+           for d, (m, p) in models.items()}
+    grad_s = time.perf_counter() - t0
+    loss_err = abs(float(got["cuda"][0]) - float(got["cpu"][0]))
+    worst = 0.0
+    for (path, a), (_q, b) in zip(tr.flatten_with_path(got["cuda"][2]),
+                                  tr.flatten_with_path(got["cpu"][2])):
+        scale = float(b.abs().max())
+        share = float((a.cpu() - b).abs().max()) / (1e-4 * scale)
+        worst = max(worst, share)
+        if not share <= 1.0:
+            raise AssertionError(f"float32 gradient {path}: {share} of "
+                                 f"1e-4 x {scale}")
+    if not loss_err <= 1e-5 * abs(float(got["cpu"][0])):
+        raise AssertionError(f"float32 loss: {got['cuda'][0]} on the card, "
+                             f"{got['cpu'][0]} on the CPU")
+    del got
+    steps = {}
+    for d, (m, p) in models.items():
+        step = build_train_step(m, opt, device=m.device)
+        st, mets = adamw.init(p), []
+        for k in range(2):
+            p, st, met = step(p, st, batches[d][k])
+            mets.append({k_: float(v) for k_, v in met.items()})
+        steps[d] = mets
+    for a, b in zip(steps["cuda"], steps["cpu"]):
+        for key in ("loss", "grad_norm", "lr"):
+            if not abs(a[key] - b[key]) <= 1e-4 * abs(b[key]):
+                raise AssertionError(f"float32 train step {key}: {a[key]} "
+                                     f"on the card, {b[key]} on the CPU")
+    mb = {}
+    for n_mb in (1, 2):
+        step = build_train_step(gpu, opt, microbatches=n_mb)
+        mb[n_mb] = {k: float(v) for k, v in
+                    step(params, adamw.init(params), batches["cuda"][0])[2]
+                    .items()}
+    if not (abs(mb[2]["loss"] - mb[1]["loss"]) <= 1e-5 * abs(mb[1]["loss"])
+            and abs(mb[2]["grad_norm"] - mb[1]["grad_norm"])
+            <= 1e-4 * mb[1]["grad_norm"]):
+        raise AssertionError(f"microbatches 2 against 1 on the card: {mb}")
+    say("lm_train", path="parity", arch=TRAIN_ARCH, layers=cfg.n_layers,
+        params=gpu.param_count(), param_dtype="float32",
+        batch=TRAIN_PARITY_B, seq=TRAIN_PARITY_S,
+        loss_abs_diff=loss_err, worst_gradient_share_of_tol=worst,
+        gradient_tol="1e-4 x max|leaf|", grads_seconds_both=grad_s,
+        train_steps={"cuda": steps["cuda"], "cpu": steps["cpu"]},
+        microbatches={"1": mb[1], "2": mb[2]}, card=card_line())
+
+
+def train_example() -> dict:
+    """examples/train_lm_torch.py's command line through ``train.main`` on
+    the card in a fresh checkpoint directory (reduced qwen3, 200 steps,
+    8 x 128, a failure at step 57): one restart, step 200, the loss falling
+    (``main`` asserts it); every count at 0 just before, each step run
+    (re-run steps included) launching its RMSNorms and attentions. Then a
+    reduced ``--compress`` run of TRAIN_COMPRESS_STEPS steps. Returns the
+    example's counted run."""
+    cfg = get_lm_config(TRAIN_ARCH).reduced()
+    rms, attn = train_rms_per_step(cfg), cfg.n_layers
+    argv = list(train_lm_torch.ARGV)
+    runs = {}
+    for name, make_argv in (
+            ("example", lambda d: argv[:argv.index("--ckpt-dir") + 1] + [d]
+             + argv[argv.index("--ckpt-dir") + 2:]),
+            ("compress", lambda d: ["--arch", TRAIN_ARCH, "--reduced",
+                                    "--steps", str(TRAIN_COMPRESS_STEPS),
+                                    "--batch", str(TRAIN_EXAMPLE_B),
+                                    "--seq", str(TRAIN_EXAMPLE_S),
+                                    "--lr", "3e-3", "--compress",
+                                    "--ckpt-dir", d])):
+        with tempfile.TemporaryDirectory(prefix="ws_train_example_") as d:
+            reset_all_counts()
+            t0 = time.perf_counter()
+            out, text = quiet(lambda: ptrain.main(make_argv(d)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ran = len(out["losses"])
+            launched, by_variant = lm_counts_since_reset(
+                {}, rms_norm=ran * rms, flash_attention=ran * attn)
+            n_steps = TRAIN_COMPRESS_STEPS if name == "compress" else 200
+            want_restarts = 0 if name == "compress" else 1
+            if out["final_step"] != n_steps or \
+                    out["restarts"] != want_restarts:
+                raise AssertionError(f"train.main {name}: {out['final_step']}"
+                                     f" steps, {out['restarts']} restarts")
+            runs[name] = dict(launches=launched,
+                              launches_by_variant=by_variant)
+            say("lm_train", path=f"train.main {name}", arch=cfg.name,
+                argv=make_argv("<tmp>"), steps_run=ran,
+                restarts=out["restarts"], final_step=out["final_step"],
+                loss_first5=float(np.mean(out["losses"][:5])),
+                loss_last5=float(np.mean(out["losses"][-5:])),
+                wall_seconds=wall, printed=text.strip().splitlines()[-1],
+                **runs[name], card=card_line())
+    return runs["example"]
+
+
+def phase_lm_train() -> dict:
+    """Training on the card: qwen3-1.7b at full width with its checkpoint
+    and profile (:func:`train_full_width`), the float32 parity of a train
+    step (:func:`train_float32_parity`), examples/train_lm_torch.py's
+    command line and a compressed run (:func:`train_example`). Returns the
+    counted runs by ``LM_PATHS`` key."""
+    t0 = time.perf_counter()
+    runs = {"train": train_full_width()}
+    train_float32_parity()
+    torch.cuda.empty_cache()
+    runs["train_example"] = train_example()
+    say("lm_train", path="phase_done", seconds=time.perf_counter() - t0)
+    return runs
+
+
 def eager_ms(fn, reps: int) -> float:
     """CUDA events around ``reps`` calls launched from Python: for a small
     kernel this is the rate at which the host launches calls, not the
@@ -3954,6 +4444,7 @@ def lm_time_decode(gen, B: int, Smax: int, kv_len: int, reps: int,
 
 
 PROFILE_STEPS = 8      # decode steps in each profiled window
+PROFILE_TOP = 25       # kernels by time on a profiled window's line
 #: host calls that start device work (kernels, graphs, copies, fills)
 HOST_LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|MemcpyAsync|"
                          r"MemsetAsync|LaunchKernelExC)")
@@ -4009,15 +4500,14 @@ def window_records(prof) -> tuple:
         lead_in
 
 
-def lost_device_records(host, ran) -> list:
+def lost_device_records(host, ran, steps: int = PROFILE_STEPS) -> list:
     """The device records that a window's trace lost. A kernel launch, copy
     or fill must have one record; a graph launch as many as the window's
     fullest replay of that graph, whose kernel names tell which ones a
     shorter replay lost. One dict per lost record: the host call's index in
     the window, its name and the kernel that ran there (for an eager step,
     the kernel of the call at its place in another step)."""
-    per_step = len(host) // PROFILE_STEPS if len(host) % PROFILE_STEPS == 0 \
-        else 0
+    per_step = len(host) // steps if len(host) % steps == 0 else 0
     fullest = {}
     for h, recs in zip(host, ran):
         if "Graph" in h.name() and len(recs) > len(fullest.get(h.name(), [])):
@@ -4038,12 +4528,15 @@ def lost_device_records(host, ran) -> list:
     return lost
 
 
-def profile_window(run_steps) -> dict:
-    """torch.profiler over one window of PROFILE_STEPS serving-path decode
-    steps (``run_steps(first_pos, n)``): device time by kernel against the
-    window's own wall time, the device operations and the host's launch
-    calls a step. The profiler adds host time of its own, so the window's
-    unprofiled twin (the next PROFILE_STEPS steps) is timed beside it.
+def profile_window(run_steps, steps: int = PROFILE_STEPS) -> tuple:
+    """torch.profiler over one window of ``steps`` steps (``run_steps(
+    first_pos, n)``: serving-path decode steps, or train steps): device time
+    by kernel against the window's own wall time, the device operations
+    and the host's launch calls a step, and the PROFILE_TOP kernels by time.
+    Returns that summary and every kernel's (name, ms a step, launches in
+    the window), slowest first. The profiler adds host time of its own, so
+    the window's unprofiled twin (the next ``steps`` steps) is timed beside
+    it.
 
     The launches that the wrappers counted in the window must be the
     kernels the trace saw run, wrapper by wrapper (``TRACED_KERNEL``): for
@@ -4070,16 +4563,16 @@ def profile_window(run_steps) -> dict:
             time.sleep(LEAD_IN_S)
             with torch.profiler.record_function(WINDOW):
                 t0 = time.perf_counter()
-                logits = run_steps(3, PROFILE_STEPS)
+                logits = run_steps(3, steps)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
             time.sleep(LEAD_IN_S)
         counted = ops.counts_since(before)[0]
         if not bool(torch.isfinite(logits).all()):
-            raise AssertionError("bf16 decode step: non-finite logits")
+            raise AssertionError("profiled steps: non-finite output")
         host, ran, stray, lead_in = window_records(prof)
         lead_in_lost.append(lead_in)
-        lost = lost_device_records(host, ran)
+        lost = lost_device_records(host, ran, steps)
         if not lost:
             break
         lost_by_try.append(lost[:8] + [{"lost": len(lost)}])
@@ -4104,27 +4597,30 @@ def profile_window(run_steps) -> dict:
     host_calls = dict(Counter(h.name() for h in host))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run_steps(3 + PROFILE_STEPS, PROFILE_STEPS)
+    run_steps(3 + steps, steps)
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    n = PROFILE_STEPS
-    return dict(steps=n, wall_ms_per_step_profiled=wall_ms / n,
-                wall_ms_per_step=plain_wall_ms / n,
-                device_ms_per_step=device_ms / n if rows else "not measured",
-                # one window: its traced device time over its own wall time
-                device_idle_share=(1 - device_ms / wall_ms) if rows
-                else "not measured",
-                device_idle_share_unprofiled=(1 - device_ms / plain_wall_ms)
-                if rows else "not measured",
-                kernel_launches_per_step=sum(r[2] for r in rows) / n,
-                traced_wrapper_launches_equal_the_counts=traced,
-                traces_that_lost_device_records=lost_by_try,
-                lead_in_records_lost=lead_in_lost,
-                window_records_without_a_call=[r.name()[:80] for r in stray],
-                host_launch_calls_per_step=sum(host_calls.values()) / n,
-                host_launch_calls=host_calls,
-                top=[dict(name=n_[:80], ms_per_step=ms / n, count=c)
-                     for n_, ms, c in rows[:12]])
+    n = steps
+    summary = dict(steps=n, wall_ms_per_step_profiled=wall_ms / n,
+                   wall_ms_per_step=plain_wall_ms / n,
+                   device_ms_per_step=device_ms / n if rows
+                   else "not measured",
+                   # one window: its traced device time over its own wall time
+                   device_idle_share=(1 - device_ms / wall_ms) if rows
+                   else "not measured",
+                   device_idle_share_unprofiled=(1 - device_ms / plain_wall_ms)
+                   if rows else "not measured",
+                   kernel_launches_per_step=sum(r[2] for r in rows) / n,
+                   traced_wrapper_launches_equal_the_counts=traced,
+                   traces_that_lost_device_records=lost_by_try,
+                   lead_in_records_lost=lead_in_lost,
+                   window_records_without_a_call=[r.name()[:80]
+                                                  for r in stray],
+                   host_launch_calls_per_step=sum(host_calls.values()) / n,
+                   host_launch_calls=host_calls,
+                   top=[dict(name=n_[:80], ms_per_step=ms / n, count=c)
+                        for n_, ms, c in rows[:PROFILE_TOP]])
+    return summary, [(n_, ms / n, c) for n_, ms, c in rows]
 
 
 def lm_profile_decode_steps(model, params, tok) -> dict:
@@ -4145,7 +4641,7 @@ def lm_profile_decode_steps(model, params, tok) -> dict:
             for pos in range(first, first + n):
                 logits, _ = step(params, cache, tok, pos)
             return logits
-        out[name] = profile_window(run_steps)
+        out[name], _rows = profile_window(run_steps)
         del step, cache
     return out
 
@@ -4166,7 +4662,9 @@ LM_PATHS = (("serve", "serve.decode_batch"),
             ("whisper_prefill", f"steps.build_prefill_step {WHISPER_ARCH}"),
             ("internvl_serve",
              f"serve.prefill_and_greedy_steps {INTERNVL_ARCH}"),
-            ("internvl_prefill", f"steps.build_prefill_step {INTERNVL_ARCH}"))
+            ("internvl_prefill", f"steps.build_prefill_step {INTERNVL_ARCH}"),
+            ("train", f"fault.run_training {TRAIN_ARCH}"),
+            ("train_example", "train.main examples/train_lm_torch.py"))
 
 
 def phase_lm_timing(main: dict) -> list:
@@ -4195,7 +4693,9 @@ def phase_lm_timing(main: dict) -> list:
                      lm_time_rms(gen, PREFILL_B * PREFILL_S, 1280, 50),
                      lm_time_rms(gen, SERVE_REQUESTS, 1280, 200),
                      lm_time_rms(gen, PREFILL_B * PREFILL_S, 8192, 50),
-                     lm_time_rms(gen, SERVE_REQUESTS, 8192, 200)],
+                     lm_time_rms(gen, SERVE_REQUESTS, 8192, 200),
+                     # lm_train's full-width step
+                     lm_time_rms(gen, TRAIN_B * TRAIN_S, 2048, 50)],
         "flash_attention": [lm_time_attention(gen, PREFILL_B, PREFILL_S, 10),
                             lm_time_attention(gen, PREFILL_B, PREFILL_S, 10,
                                               H, KV),
@@ -4215,7 +4715,9 @@ def phase_lm_timing(main: dict) -> list:
                                               *WHISPER_HEADS, hd=64),
                             lm_time_attention(gen, PREFILL_B,
                                               internvl_prefill_rows(), 10,
-                                              *INTERNVL_HEADS)],
+                                              *INTERNVL_HEADS),
+                            # lm_train's full-width step
+                            lm_time_attention(gen, TRAIN_B, TRAIN_S, 10)],
         "flash_decode": [lm_time_decode(gen, SERVE_REQUESTS, serve_kv,
                                         serve_kv, 200),
                          lm_time_decode(gen, SERVE_REQUESTS, 2048, 2048, 50),
@@ -4403,6 +4905,9 @@ def main():
     # 6d. the encoder-decoder (whisper-large-v3) and the vision prefix
     # (internvl2-76b) at full width
     lm_main.update(timed("lm_encdec", phase_lm_encdec))
+    # 6e. training: qwen3-1.7b at full width, its checkpoint, the float32
+    # parity of a train step, the example's command line
+    lm_main.update(timed("lm_train", phase_lm_train))
     entries += timed("lm_timing", phase_lm_timing, lm_main)
     say("done", seconds=round(time.perf_counter() - t_start, 1),
         phase_seconds=phase_seconds)

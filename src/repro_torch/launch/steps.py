@@ -1,9 +1,10 @@
-"""Step builders: prefill and decode of the serving path, and the decode
-step as one CUDA graph (:class:`GraphedDecodeStep`).
+"""The steps: the train step (:func:`build_train_step`), prefill and
+decode of the serving path, and the decode step as one CUDA graph
+(:class:`GraphedDecodeStep`).
 
-The JAX package's ``launch/steps.py`` also builds the train step and plans
-and lowers (arch × shape × mesh) cells with activation and context-parallel
-shardings; those come with the training and mesh slices.
+The JAX package's ``launch/steps.py`` also plans and lowers (arch × shape ×
+mesh) cells with activation and context-parallel shardings (``act_spec``,
+``plan_cell``); those come with the mesh slice (Queue A 10).
 """
 from __future__ import annotations
 
@@ -11,8 +12,10 @@ import time
 
 import torch
 
+from repro_torch import tree as tr
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.optim import adamw
 
 
 def check_model_device(model, device) -> None:
@@ -22,6 +25,72 @@ def check_model_device(model, device) -> None:
     if dev.type != model.device.type:
         raise ValueError(f"the model lives on {model.device}, the caller "
                          f"asked for {dev}")
+
+
+def loss_and_grads(model, params, batch):
+    """(loss, metrics, grads): ``Model.loss_fn`` and its gradient with
+    respect to every leaf of ``params`` (``torch.autograd.grad``; a leaf the
+    loss does not reach gets zeros, as ``jax.grad`` gives). ``params`` is
+    not written: the gradient is taken on detached views of its leaves.
+    On the card each kernel's gradient is its plain version's
+    (``kernels/_lm.py::KernelWithPlainBackward``)."""
+    flat = tr.leaves(params)
+    leaves = [p.detach().requires_grad_(True) for p in flat]
+    it = iter(leaves)
+    p = tr.tree_map(lambda _leaf: next(it), params)
+    with torch.enable_grad():
+        loss, metrics = model.loss_fn(p, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    it = iter(grads)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tr.tree_map(lambda _leaf: next(it), params))
+
+
+def build_train_step(model, opt_cfg: adamw.AdamWConfig,
+                     microbatches: int = 1, device=None):
+    """``train_step(params, opt_state, batch)`` -> (params, opt_state,
+    metrics): the gradient of ``Model.loss_fn`` (:func:`loss_and_grads`),
+    then ``adamw.apply``. Metrics: ``loss``, ``xent``, ``moe_aux``,
+    ``grad_norm`` and ``lr``. ``microbatches > 1`` is gradient
+    accumulation: the batch split on dim 0, the gradients summed in float32
+    and divided by ``microbatches``; the metrics are then the mean loss as
+    ``loss`` and ``xent`` and a ``moe_aux`` of 0, as the JAX package's scan.
+    The step writes into none of its arguments. ``device=None`` means the
+    card (and raises without one); the model must live there."""
+    check_model_device(model, device)
+
+    def train_step(params, opt_state, batch):
+        if microbatches <= 1:
+            loss, metrics, grads = loss_and_grads(model, params, batch)
+        else:
+            def split(x):
+                if x.shape[0] % microbatches:
+                    raise ValueError(f"a batch of {x.shape[0]} does not "
+                                     f"split into {microbatches} "
+                                     f"microbatches")
+                return x.reshape((microbatches, x.shape[0] // microbatches)
+                                 + tuple(x.shape[1:]))
+            mb = {k: split(v) for k, v in batch.items()}
+            grads = tr.tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=model.device)
+            for i in range(microbatches):
+                l_i, _m, g = loss_and_grads(
+                    model, params, {k: v[i] for k, v in mb.items()})
+                grads = tr.tree_map(lambda a, gi: a + gi.to(torch.float32),
+                                    grads, g)
+                loss = loss + l_i
+            grads = tr.tree_map(lambda g: g / microbatches, grads)
+            loss = loss / microbatches
+            metrics = {"loss": loss, "xent": loss,
+                       "moe_aux": torch.zeros((), dtype=torch.float32,
+                                              device=model.device)}
+        new_params, new_opt, om = adamw.apply(opt_cfg, params, opt_state,
+                                              grads)
+        return new_params, new_opt, {**metrics, **om}
+    return train_step
 
 
 def build_prefill_step(model, device=None):

@@ -47,13 +47,36 @@ def logits_f32(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     package's ``preferred_element_type=float32``): a bf16 product would round
     the logits and make greedy ties that the reference does not have. On
     the card a bf16 product is written straight to float32 (cuBLAS, float32
-    accumulation), with no float32 copy of the head; elsewhere the float32
-    copies are multiplied (every bf16 product is exact in float32)."""
+    accumulation), with no float32 copy of the head, through
+    :class:`_LogitsF32`; elsewhere the float32 copies are multiplied (every
+    bf16 product is exact in float32)."""
     if x.dtype == head.dtype == torch.bfloat16 and x.is_cuda:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), head,
-                       out_dtype=torch.float32)
+        out = _LogitsF32.apply(x.reshape(-1, x.shape[-1]), head)
         return out.reshape(*x.shape[:-1], head.shape[-1])
     return x.float() @ head.float()
+
+
+class _LogitsF32(torch.autograd.Function):
+    """bf16 (N, D) @ bf16 (D, V) -> float32 (N, V), with the gradient that
+    ``torch.mm(..., out_dtype=)`` lacks: the forward is the product written
+    straight to float32; the backward multiplies the float32 cotangent by
+    the float32 copies of the operands, as the reference's transpose of a
+    float32-preferring product does (and as the CPU path's autograd does),
+    and rounds each gradient to bf16, its operand's type."""
+
+    @staticmethod
+    def forward(ctx, x2, head):
+        ctx.save_for_backward(x2, head)
+        return torch.mm(x2, head, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, head = ctx.saved_tensors
+        gx = (g @ head.float().T).to(x2.dtype) \
+            if ctx.needs_input_grad[0] else None
+        gh = (x2.float().T @ g).to(head.dtype) \
+            if ctx.needs_input_grad[1] else None
+        return gx, gh
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tree as tr
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blk
@@ -42,9 +43,23 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def _layer(tree: Dict, r: int) -> Dict:
-    """Layer ``r`` of a tree stacked over repeats (views, no copy)."""
+    """Layer ``r`` of a tree stacked over repeats, or of its unbound views
+    (views, no copy)."""
     return {k: _layer(v, r) if isinstance(v, dict) else v[r]
             for k, v in tree.items()}
+
+
+def _layers(tree: Dict, n: int) -> list:
+    """The ``n`` layers of a tree stacked over repeats (views, no copy),
+    each leaf unbound once: under autograd the layers' gradients are then
+    stacked in one copy a leaf. Indexing the stack once a layer instead
+    gives each layer's gradient as a zero-filled tensor of the whole stack,
+    summed over the layers: n times the stack's bytes, written n times."""
+    def unbind(t):
+        return {k: unbind(v) if isinstance(v, dict) else torch.unbind(v)
+                for k, v in t.items()}
+    views = unbind(tree)
+    return [_layer(views, r) for r in range(n)]
 
 
 class Model:
@@ -102,12 +117,12 @@ class Model:
 
     def param_shapes(self) -> Dict:
         """The parameter tree as (shape, dtype) leaves, allocating nothing."""
-        return _tree_map(lambda t: (tuple(t.shape), t.dtype),
-                         self._init(None))
+        return tr.tree_map(lambda t: (tuple(t.shape), t.dtype),
+                           self._init(None))
 
     def param_count(self) -> int:
         return int(sum(math.prod(s) for s, _ in
-                       _leaves(self.param_shapes())))
+                       tr.leaves(self.param_shapes())))
 
     # ------------------------------------------------------------------
     # forward
@@ -122,8 +137,8 @@ class Model:
         positions = torch.arange(Senc, dtype=torch.int32,
                                  device=x.device).expand(B, Senc)
         (mixer, ffn), = _ENCODER_PATTERN
-        for r in range(cfg.n_encoder_layers):
-            x, _ = blk.slot_apply(_layer(enc["layers"], r)["slot0"], cfg,
+        for layer in _layers(enc["layers"], cfg.n_encoder_layers):
+            x, _ = blk.slot_apply(layer["slot0"], cfg,
                                   mixer, ffn, x, positions, causal=False)
         return rms_norm(x, enc["norm"], cfg.norm_eps)
 
@@ -157,8 +172,7 @@ class Model:
         enc_out = (self._encode(params, batch["frames"].to(x.dtype))
                    if cfg.is_encoder_decoder else None)
         aux = 0.0
-        for r in range(cfg.repeats):
-            slot_params = _layer(params["layers"], r)
+        for slot_params in _layers(params["layers"], cfg.repeats):
             for j, (mixer, ffn) in enumerate(cfg.pattern):
                 x, a = blk.slot_apply(slot_params[f"slot{j}"], cfg, mixer,
                                       ffn, x, positions, causal=cfg.causal,
@@ -316,17 +330,3 @@ def _stack(trees):
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
     return torch.stack(trees)
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree

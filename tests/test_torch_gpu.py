@@ -9,9 +9,12 @@ card against the CPU, and ``decode_batch``'s graph against the eager loop
 (dense, MoE, recurrent, Whisper's encoder-decoder, InternVL's vision
 prefix on two graphs); head dim 96 in both attention kernels; the
 simulation daemon on the card answering a client process;
-``ws_sim_cuda(grid_chunk=)`` against the unchunked launch, and the dispatch
+``ws_sim_cuda(grid_chunk=)`` against the unchunked launch, the dispatch
 lint's host-sync counts of the decode step and of an event-loop step on the
-card.
+card; and the training path: a reduced train step on the card against the
+CPU with its exact kernel launches, the bf16 logits' gradient, a checkpoint
+of a state on the card restored onto the card, and a failure before the
+first checkpoint restarting from the initial state on the card.
 
 A CUDA kernel has no interpret mode, so these tests carry the ``gpu`` marker
 and skip where there is no CUDA device. This file imports the port alone (no
@@ -1053,3 +1056,152 @@ def test_the_decode_step_copies_nothing_to_the_host():
         assert sum(op.name == dl.SYNC_OP for op in ops) == 1, name
         assert not [op.name for op in ops if op.to_host], name
     assert dl.run(device=dev) == []
+
+
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+def _train_setup(device, compress=False, seed=0):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_state_and_step
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              param_dtype="float32")
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=10)
+    return cfg, opt, build_state_and_step(cfg, opt, compress, seed=seed,
+                                          device=device)
+
+
+def _to(tree, device):
+    from repro_torch import tree as tr
+    return tr.tree_map(lambda t: t.to(device), tree)
+
+
+@pytest.mark.gpu
+def test_a_reduced_train_step_on_the_card_vs_the_cpu():
+    """Two steps of ``build_train_step`` (reduced qwen3, float32) on the
+    card and on the CPU from the same weights and data: loss and gradient
+    norm within 1e-4 (the kernels' float32 forward against the plain
+    versions'), parameters within the AdamW sign hazard's 2 · k · lr; each
+    step launched 4 L + 1 RMSNorms (norm1, q_norm, k_norm, norm2 a layer,
+    the final norm) and L attentions, the backward none."""
+    _need_card()
+    from repro_torch import tree as tr
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    cfg, opt, _ = _train_setup("cpu")
+    cpu_m, gpu_m = build_model(cfg, "cpu"), build_model(cfg)
+    params = cpu_m.init_params(torch.Generator().manual_seed(3))
+    shape = ShapeSpec("t", 64, 4, "train")
+    runs = {}
+    for name, model in (("cpu", cpu_m), ("cuda", gpu_m)):
+        p = _to(params, model.device)
+        st = adamw.init(p)
+        step = build_train_step(model, opt, device=model.device)
+        mets = []
+        for k in range(2):
+            ops.reset_counts()
+            p, st, met = step(p, st, batch_at(cfg, shape, k,
+                                              device=model.device))
+            if name == "cuda":
+                torch.cuda.synchronize()
+                assert ops.launch_counts() == {
+                    "rms_norm": 4 * cfg.n_layers + 1,
+                    "flash_attention": cfg.n_layers, "flash_decode": 0}
+            mets.append({k_: float(v) for k_, v in met.items()})
+        runs[name] = (_to(p, "cpu"), mets)
+    for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+        for key in ("loss", "xent", "grad_norm", "lr"):
+            np.testing.assert_allclose(a[key], b[key], rtol=1e-4, err_msg=key)
+    for a, b in zip(tr.leaves(runs["cuda"][0]), tr.leaves(runs["cpu"][0])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=2 * 2 * opt.lr)
+
+
+@pytest.mark.gpu
+def test_bf16_logits_have_a_gradient_on_the_card():
+    """``layers.logits_f32`` on bf16 CUDA operands under autograd (the
+    product written straight to float32 has no derivative of its own): its
+    logits against the float32 copies' product within 1e-5 of their
+    largest (float32 sums in other orders), its gradients — the float32
+    cotangent times the float32 operands, rounded to bf16 — within one bf16
+    step of each element, plus 1e-5 of the largest for sums that cancel (a
+    cotangent rounded to bf16 first breaks this bound by tens of
+    elements)."""
+    _need_card()
+    from repro_torch.models.layers import logits_f32
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((2, 16, 64), generator=gen, device="cuda").bfloat16()
+    w = torch.randn((64, 1000), generator=gen, device="cuda").bfloat16()
+    lab = torch.randint(0, 1000, (2, 16), generator=gen, device="cuda")
+
+    def grads(fn):
+        xs, ws = (t.clone().requires_grad_(True) for t in (x, w))
+        out = fn(xs, ws)
+        torch.nn.functional.cross_entropy(out.reshape(-1, 1000),
+                                          lab.reshape(-1)).backward()
+        return out.detach(), xs.grad, ws.grad
+
+    got = grads(logits_f32)
+    want = grads(lambda a, b: a.float() @ b.float())
+    assert got[0].dtype == torch.float32
+    scale = float(want[0].abs().max())
+    assert float((got[0] - want[0]).abs().max()) <= 1e-5 * scale
+    for g, w_ in zip(got[1:], want[1:]):
+        assert g.dtype == torch.bfloat16
+        scale = float(w_.float().abs().max())
+        diff = (g.float() - w_.float()).abs()
+        assert bool((diff <= 2 ** -7 * w_.float().abs() + 1e-5 * scale).all())
+
+
+@pytest.mark.gpu
+def test_a_checkpoint_of_a_card_state_restores_onto_the_card(tmp_path):
+    _need_card()
+    from repro_torch import tree as tr
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import batch_at
+    cfg, _opt, (_m, state, step_fn) = _train_setup(None, compress=True)
+    state, _ = step_fn(state, batch_at(cfg, ShapeSpec("t", 32, 2, "train"),
+                                       0))
+    ckpt.save_checkpoint(tmp_path, 0, state)
+    step, back, _ = ckpt.load_checkpoint(tmp_path, state)
+    assert step == 0
+    for a, b in zip(tr.leaves(back), tr.leaves(state)):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_a_failure_before_the_first_checkpoint_on_the_card(tmp_path):
+    """The restart trap on the card: a failure at step 2, before any
+    checkpoint, restarts from the initial state, which no step wrote into;
+    the run ends bit-equal to an uninterrupted one."""
+    _need_card()
+    from repro_torch import tree as tr
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.runtime.fault import (FailureInjector, TrainLoopConfig,
+                                           run_training)
+    finals = []
+    for name, fails in (("a", (2,)), ("b", ())):
+        cfg, _opt, (_m, state, step_fn) = _train_setup(None)
+        before = [t.clone() for t in tr.leaves(state)]
+        out = run_training(
+            TrainLoopConfig(total_steps=5, ckpt_every=10,
+                            ckpt_dir=str(tmp_path / name)),
+            step_fn, state,
+            lambda s: batch_at(cfg, ShapeSpec("t", 32, 2, "train"), s),
+            injector=FailureInjector(fail_at=fails))
+        assert out["restarts"] == len(fails)
+        assert all(torch.equal(a, b)
+                   for a, b in zip(before, tr.leaves(state)))
+        finals.append(ckpt.load_checkpoint(tmp_path / name, state)[1])
+    for a, b in zip(tr.leaves(finals[0]), tr.leaves(finals[1])):
+        assert a.is_cuda and torch.equal(a, b)

@@ -79,11 +79,17 @@ def test_port_has_the_expected_modules():
                  "configs/phi35_moe_42b.py", "models/xlstm.py",
                  "models/ssm.py", "configs/xlstm_350m.py",
                  "configs/jamba_v01_52b.py", "configs/whisper_large_v3.py",
-                 "configs/internvl2_76b.py"):
+                 "configs/internvl2_76b.py", "tree.py", "optim/__init__.py",
+                 "optim/adamw.py", "optim/compression.py",
+                 "data/__init__.py", "data/pipeline.py", "data/_threefry.py",
+                 "checkpoint/__init__.py", "checkpoint/ckpt.py",
+                 "runtime/__init__.py", "runtime/fault.py",
+                 "launch/train.py"):
         assert want in names, want
     for other in ("examples/quickstart_torch.py",
                   "examples/paper_sweep_torch.py",
                   "examples/serve_lm_torch.py",
+                  "examples/train_lm_torch.py",
                   "benchmarks/paper_torch.py",
                   "benchmarks/daemon_torch.py",
                   "benchmarks/run_torch.py",
@@ -227,6 +233,34 @@ print("LEAKED", bad)
 """
 
 
+_CPU_TRAIN = """
+import dataclasses, sys, tempfile
+from repro_torch.checkpoint import ckpt
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.data.pipeline import batch_at
+from repro_torch.launch.train import build_state_and_step
+from repro_torch.optim import adamw
+from repro_torch.runtime.fault import (FailureInjector, TrainLoopConfig,
+                                       run_training)
+cfg = get_config("qwen3-1.7b").reduced()
+model, state, step = build_state_and_step(
+    cfg, adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=6), True,
+    device="cpu")
+shape = ShapeSpec("t", 32, 2, "train")
+with tempfile.TemporaryDirectory() as d:
+    out = run_training(TrainLoopConfig(total_steps=6, ckpt_every=2,
+                                       ckpt_dir=d), step, state,
+                       lambda s: batch_at(cfg, shape, s, device="cpu"),
+                       injector=FailureInjector(fail_at=(3,)))
+    assert ckpt.list_steps(d) == [1, 3, 5]
+assert out["restarts"] == 1 and out["final_step"] == 6
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LEAKED", bad)
+"""
+
+
 def _run_port_alone(script: str, *args: str) -> None:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", script, *args], env=env,
@@ -255,6 +289,12 @@ def test_cpu_paper_surface_in_a_subprocess_loads_neither_jax_nor_repro():
 
 def test_cpu_daemon_client_and_lint_in_a_subprocess_load_neither_jax_nor_repro():
     _run_port_alone(_CPU_DAEMON)
+
+
+def test_cpu_training_in_a_subprocess_loads_neither_jax_nor_repro():
+    """The training path: data, EF-int8 and AdamW steps, a failure, a
+    resume from a checkpoint."""
+    _run_port_alone(_CPU_TRAIN)
 
 
 def _skip_if_cuda():
@@ -453,9 +493,20 @@ def test_no_silent_cpu_run_of_the_language_model_path():
     m = build_model(cfg, device="cpu")
     p = m.init_params(torch.Generator().manual_seed(0))
     reqs = [Request(0, np.arange(1, 5, dtype=np.int32), 2)]
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import adamw
+    sys.path.insert(0, str(ROOT))
+    try:
+        from examples import train_lm_torch
+    finally:
+        sys.path.remove(str(ROOT))
     for call in (lambda: decode_batch(m, p, reqs),
                  lambda: build_prefill_step(m),
-                 lambda: build_decode_step(m)):
+                 lambda: build_decode_step(m),
+                 lambda: build_train_step(m, adamw.AdamWConfig()),
+                 lambda: train.main(["--reduced", "--steps", "2"]),
+                 lambda: train.main(train_lm_torch.ARGV)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
