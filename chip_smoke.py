@@ -30,7 +30,9 @@ layer, learned positions) and ``internvl2-76b`` (a prefix of 256 patch
 embeddings, 8 of its 80 layers), each served and prefilled at full width.
 Then training: ``qwen3-1.7b`` trained at full width through the port's
 training entry points, its checkpoint, the float32 parity of a train step,
-and ``examples/train_lm_torch.py``'s command line.
+and ``examples/train_lm_torch.py``'s command line. Then the mesh: the
+mesh-sharded sweep and context-parallel decode on a world of one NCCL rank
+and on four gloo ranks sharing the card.
 
 Phases, one JSON line each (and after each a ``phase_seconds`` line with
 its wall seconds): ``build`` (seconds, ptxas's registers and spills,
@@ -132,9 +134,23 @@ command line — 200 steps, one restart — and a reduced ``--compress`` run),
 plain version and one PyTorch call as a yardstick, each as device time from
 a replayed CUDA graph, its bound, the rate it reached and its share of the
 bound, the variant that ran and its time before its redesign; and the cost
-of a one-element fill in a replayed graph, the fixed cost of a launch there) and ``lm_profile`` (where a decode
+of a one-element fill in a replayed graph, the fixed cost of a launch there), ``lm_profile`` (where a decode
 step's time goes, over a window of eight steps: eager, then replayed from
-the step's graph; device idle share and the host's launch calls a step).
+the step's graph; device idle share and the host's launch calls a step)
+and, last, ``mesh`` (each rank a process of its own, ``python3 chip_smoke.py
+--mesh-rank RANK WORLD INIT DIR``: a world of one NCCL rank — the service's
+sharded p=256 sweep with main_path's keys and npz bytes, each path's first
+sweep less 3 rows through ``run_rows(mesh=)`` equal to ``run_rows()``,
+qwen3-1.7b's context-parallel decode replayed from a CUDA graph with the
+merge's all-reduces in it, beside the step without it (whose tokens are
+lm_main_path's) and beside the step without a mesh whose attention is
+the partials' float64 arithmetic on one shard, which must give the
+context-parallel logits and tokens bit for bit; then four gloo ranks on a
+2 x 2 mesh — the same sweeps equal to world 1's, one launch a sweep a
+rank, the decode with the batch over "data" and the sequence over
+"model", its teacher-forced logits and its greedy tokens equal to world
+1's bit for bit, one layer's attention at (1, 32768, 16 / 8, 128) split
+four ways equal to one shard's and against flash_decode).
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any
 failed phase raises: the exit code is then not 0 and no result line is
@@ -3332,7 +3348,8 @@ def lm_serve_and_prefill(phase: str, arch: str, model, params, rng, *,
     every weight once (of an untied embedding the batch's rows), the
     recurrent state read and written once, and the K and V rows a replayed
     step moves (:func:`kv_bytes_per_replayed_step`). Returns
-    dict(serve=..., prefill=...)."""
+    dict(serve=..., prefill=..., tokens=..., prompts=...): the two runs'
+    lines, the served tokens and the requests' prompts."""
     cfg = model.cfg
     attn = sum(m == "attn" for m, _f in cfg.pattern) * cfg.repeats
     norms = sum(1 if ffn == "none" else 2 for _m, ffn in cfg.pattern) \
@@ -3409,7 +3426,8 @@ def lm_serve_and_prefill(phase: str, arch: str, model, params, rng, *,
     prefill = counted_prefill(phase, arch, model, params, {}, rng, want,
                               rms_norm=norms, flash_attention=attn,
                               **(prefill_extra or {}))
-    return dict(serve=serve, prefill=prefill)
+    return dict(serve=serve, prefill=prefill, tokens=tokens,
+                prompts=np.stack([r.prompt for r in reqs]))
 
 
 def profile_decode(model, params, rng, arch: str, **extra) -> None:
@@ -4829,6 +4847,456 @@ def register_variant_resources() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase mesh: the mesh-sharded sweep and context-parallel decode, on a world
+# of one NCCL rank, then on four gloo ranks sharing the card.
+# ---------------------------------------------------------------------------
+
+#: rows cut from the end of each main path's first sweep for the sharded
+#: runs, so that no row count is a multiple of the four ranks
+MESH_TRIM = 3
+#: context-parallel decode of the served model: the cache's sequence over
+#: "model", the batch over "data" (decode_32k's split)
+MESH_CP = (("model",), ("data",))
+#: one layer's context-parallel attention at long_500k's split: (B, S, H,
+#: KV, hd), the sequence over ("data", "model")
+MESH_ATTN = (1, 32768, 16, 8, 128)
+MESH_TIMEOUT_S = 420
+
+
+def mesh_sweeps() -> dict:
+    """Each main path's first sweep as (model, rows, remote_prob), its last
+    MESH_TRIM rows cut."""
+    out = {}
+    for path, spec in MAIN_PATHS.items():
+        s = spec["sweeps"][0]
+        kw = s["kw"]
+        rows = sw.grid_rows(kw.get("W_list", (0,)), kw["lam_list"],
+                            kw["reps"])
+        out[path] = (sweep_model(s), rows.slice(0, len(rows) - MESH_TRIM),
+                     s["topo"]().remote_prob)
+    return out
+
+
+def grid_npz(g: sw.GridResult) -> dict:
+    out = {f.name: np.asarray(getattr(g, f.name))
+           for f in dataclasses.fields(g) if f.name not in ("p", "extras")}
+    out.update({"extras/" + k: np.asarray(v) for k, v in g.extras.items()})
+    return out
+
+
+def same_grid(got: dict, want: dict, what: str) -> None:
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: fields {sorted(got)} != "
+                             f"{sorted(want)}")
+    for f, v in want.items():
+        if got[f].dtype != v.dtype or not np.array_equal(got[f], v):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def mesh_sharded_sweeps(mesh, world: int, out: Path, ref: Path) -> dict:
+    """Each path's sweep through ``run_rows(mesh=, shard_axes=("data",
+    "model"))`` on the card, every count at 0 just before and read just
+    after; world 1 writes its fields (and holds them to the unsharded
+    ``run_rows``), world 4 holds every field to world 1's."""
+    line = {}
+    for path, (model, rows, rp) in mesh_sweeps().items():
+        body = MAIN_PATHS[path]["body"]
+        ws.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = sw.run_rows(model, rows, remote_prob=rp, mesh=mesh,
+                        shard_axes=("data", "model"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ws.ws_sim_cuda.launches_by_body)
+        if launches != {**dict.fromkeys(launches, 0), body: 1}:
+            raise AssertionError(f"mesh {path}: launches {launches}, "
+                                 f"expected one of {body}")
+        fields = grid_npz(g)
+        if world == 1:
+            plain = grid_npz(sw.run_rows(model, rows, remote_prob=rp))
+            same_grid(fields, plain, f"mesh {path} against run_rows()")
+            np.savez(out / f"sweep_{path}.npz", **fields)
+        else:
+            same_grid(fields, dict(np.load(ref / f"sweep_{path}.npz")),
+                      f"mesh {path} world {world} against world 1")
+        line[path] = dict(rows=len(rows), wall_seconds=wall,
+                          rows_per_second=len(rows) / wall,
+                          launches_by_body=launches,
+                          rows_this_rank=-(-len(rows) // world))
+    return line
+
+
+def forced_logits(model, params, prompts, forced, step, cache=None) -> list:
+    """The logits each new token is chosen from, under teacher forcing: the
+    prompt's last step's, then each step's on the forced token before
+    (``forced``, (B, new)); ``step`` runs every step (``cache``: a
+    context-parallel step's shard). A list of ``new`` (B, Vpad) float32."""
+    S, new = prompts.shape[1], forced.shape[1]
+    cache, logits = model.prefill(params, {"tokens": prompts},
+                                  max_seq=S + new, step=step, cache=cache)
+    out = [logits[:, -1].clone()]
+    for i in range(new - 1):
+        logits, cache = step(params, cache, forced[:, i:i + 1], S + i)
+        out.append(logits[:, -1].clone())
+    return out
+
+
+@contextmanager
+def one_shard_attention():
+    """The serving path's decode attention swapped, for the length of the
+    block, for the context-parallel partials' arithmetic on one shard
+    holding the whole cache (``attention.decode_attention_partial``,
+    float64, normalized as ``merge_partial_attention`` normalizes). On a
+    world of one rank the merge's maximum and sums change nothing, so a
+    step without a mesh run so gives the context-parallel step's logits
+    bit for bit: the witness that what the context-parallel step changes
+    against the served step is the attention's arithmetic, float64 against
+    ``flash_decode``'s, and not the split, the owner's write or the
+    collectives."""
+    from repro_torch.models import attention as attn_mod
+
+    def one_shard(q, k_cache, v_cache, kv_len, *, window=0):
+        o, _m, l = attn_mod.decode_attention_partial(
+            q, k_cache, v_cache, 0, kv_len, window=window)
+        return (o / torch.clamp(l, min=1e-30)[..., None])[:, None] \
+            .to(q.dtype)
+
+    served = attn_mod.decode_attention
+    attn_mod.decode_attention = one_shard
+    try:
+        yield
+    finally:
+        attn_mod.decode_attention = served
+
+
+def mesh_cp_decode(mesh, world: int, work: Path) -> dict:
+    """qwen3-1.7b at full width serving the lm_main_path requests with the
+    KV cache's sequence over "model" and the batch over "data".
+
+    World 1 (NCCL; each step replays one CUDA graph, the merge's
+    all-reduces captured in it) runs, under teacher forcing on
+    lm_main_path's tokens and then greedily: the served step without
+    context parallelism (its forced argmax and its tokens must be
+    lm_main_path's), the context-parallel step, and the step without a
+    mesh whose attention is the partials' arithmetic on one shard
+    (:func:`one_shard_attention`), whose logits and tokens must equal the
+    context-parallel step's bit for bit. The context-parallel logits'
+    distance from the served step's and its tokens equal to lm_main_path's
+    are recorded, not bounded: the witness accounts for them. It writes its
+    forced logits and tokens for world 4.
+
+    World 4 (gloo, on the host; eager steps, each rank its 12 requests and
+    its half of the sequence) must give world 1's forced logits for its
+    requests and world 1's tokens, bit for bit: the float64 partials round
+    alike however the cache is split (``attention.PARTIAL_DTYPE``)."""
+    from repro_torch.launch import mesh as ml
+    ref_lm = np.load(work / "lm_tokens.npz")
+    cfg = get_lm_config(LM_ARCH)
+    model = build_lm_model(cfg)
+    params, _ = init_weights(model, LM_SEED)
+    reqs = [Request(uid=i, prompt=p, max_new=SERVE_NEW)
+            for i, p in enumerate(ref_lm["prompts"])]
+    steps = SERVE_PROMPT + SERVE_NEW
+    norms = 4 * cfg.n_layers + 1
+    cp_kw = dict(cp_axes=MESH_CP, mesh=mesh)
+    # ---- teacher forcing: this rank's requests ---------------------------
+    rows = SERVE_REQUESTS // ml.axis_size(mesh, *MESH_CP[1])
+    lo = ml.shard_index(mesh, MESH_CP[1]) * rows
+    prompts = torch.as_tensor(ref_lm["prompts"][lo:lo + rows],
+                              dtype=torch.int64, device=DEV)
+    forced = torch.as_tensor(ref_lm["tokens"][lo:lo + rows],
+                             dtype=torch.int64, device=DEV)
+    shard = model.init_cache(rows, steps // ml.axis_size(mesh, *MESH_CP[0]))
+
+    def forced_run(step, cache=None):
+        return torch.stack(forced_logits(model, params, prompts, forced,
+                                         step, cache))
+
+    line = {}
+    if world == 1:
+        cp = forced_run(GraphedDecodeStep(model, **cp_kw), shard)
+        plain = forced_run(GraphedDecodeStep(model))
+        if not torch.equal(plain.argmax(-1), forced.T):
+            raise AssertionError("mesh: the plain step's forced tokens are "
+                                 "not lm_main_path's")
+        with one_shard_attention():
+            one = forced_run(GraphedDecodeStep(model))
+        if not torch.equal(one, cp):
+            raise AssertionError(
+                f"mesh: the context-parallel logits are not the one-shard "
+                f"step's: {float((one - cp).abs().max())} apart")
+        d = float((cp - plain).abs().max())
+        line["forced"] = dict(
+            steps=SERVE_NEW, rows=rows, cp_equal_to_one_shard=True,
+            cp_vs_plain_max_abs=d,
+            cp_vs_plain_share_of_max_logit=d / float(plain.abs().max()),
+            cp_argmax_equal_to_plain=int((cp.argmax(-1) ==
+                                          plain.argmax(-1)).sum()))
+        np.save(work / "cp_forced_logits.npy", cp.cpu().numpy())
+        del plain, one
+    else:
+        def cp_step(params, cache, tok, pos, embeds=None):
+            return model.decode_step(params, cache, tok, pos, embeds,
+                                     **cp_kw)
+        cp = forced_run(cp_step, shard)
+        want = torch.from_numpy(np.ascontiguousarray(np.load(
+            work / "cp_forced_logits.npy", mmap_mode="r")[:, lo:lo + rows]
+        )).to(DEV)
+        if not torch.equal(cp, want):
+            raise AssertionError(
+                f"mesh world {world}: the forced logits of requests "
+                f"{lo}-{lo + rows - 1} are not world 1's: "
+                f"{float((cp - want).abs().max())} apart")
+        line["forced"] = dict(steps=SERVE_NEW, rows=rows,
+                              equal_to_world1=True)
+        del want
+    del cp, shard
+    # ---- the served runs, counted ----------------------------------------
+    runs = (("cp", cp_kw, False),)
+    if world == 1:
+        runs = (("plain", {}, False),) + runs + (("one_shard", {}, True),)
+    for name, kw, witness in runs:
+        with one_shard_attention() if witness else contextlib.nullcontext():
+            if world == 1:
+                decode_batch(model, params, reqs, **kw)            # warm
+            reset_all_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens = decode_batch(model, params, reqs, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counted = {"rms_norm": {"row_in_registers": steps * norms}}
+        attn = {}
+        if name == "plain":
+            counted["flash_decode"] = {"single": steps * cfg.n_layers}
+            attn = {"flash_decode": steps * cfg.n_layers}
+        counts, _ = lm_counts_since_reset(counted, rms_norm=steps * norms,
+                                          **attn)
+        if name == "plain" and not np.array_equal(tokens, ref_lm["tokens"]):
+            raise AssertionError("mesh: the plain decode's tokens differ "
+                                 "from lm_main_path's")
+        if name == "cp" and world == 1:
+            np.save(work / "cp_tokens.npy", tokens)
+        if name != "plain":
+            want = np.load(work / "cp_tokens.npy")
+            if not np.array_equal(tokens, want):
+                raise AssertionError(
+                    f"mesh world {world} {name}: tokens differ from world "
+                    f"1's context-parallel tokens in "
+                    f"{int((tokens != want).sum())} places")
+        run = dict(tokens_equal_to_lm_main_path=int(
+            (tokens == ref_lm["tokens"]).sum()), tokens=int(tokens.size),
+            wall_seconds=wall, launches=counts)
+        graph = decode_batch.last_graph
+        run["graph"] = graph is not None
+        if graph is not None:
+            if graph["replays"] != steps - 1:
+                raise AssertionError(f"mesh decode {name}: {graph}")
+            replayed = wall - graph["warmup_seconds"] - \
+                graph["capture_seconds"]
+            run["ms_per_replayed_step"] = replayed / graph["replays"] * 1e3
+        else:
+            run["ms_per_eager_step"] = wall / steps * 1e3
+        line[name] = run
+    del params
+    torch.cuda.empty_cache()
+    return line
+
+
+def mesh_cp_attention(mesh) -> dict:
+    """One layer's attention at MESH_ATTN, the cache split four ways over
+    ("data", "model"), the new row written by its owner at the last
+    position: equal bit for bit to the one-shard arithmetic over the whole
+    cache (:func:`one_shard_attention`), and against flash_decode on the
+    whole cache within the bf16 tolerance."""
+    from repro_torch.launch import mesh as ml
+    from repro_torch.models import attention as attn_mod
+    B, S, H, KV, hd = MESH_ATTN
+    gen = torch.Generator(device=DEV).manual_seed(LM_SEED + 7)
+    q = lm_randn(gen, (B, 1, H, hd), torch.bfloat16)
+    kc = lm_randn(gen, (B, S, KV, hd), torch.bfloat16)
+    vc = lm_randn(gen, (B, S, KV, hd), torch.bfloat16)
+    kn = lm_randn(gen, (B, 1, KV, hd), torch.bfloat16)
+    vn = lm_randn(gen, (B, 1, KV, hd), torch.bfloat16)
+    cp = ("data", "model")
+    n = ml.axis_size(mesh, *cp)
+    i, rows = ml.shard_index(mesh, cp), S // n
+    kl, vl = (c[:, i * rows:(i + 1) * rows].clone() for c in (kc, vc))
+    pos = torch.full((1,), S - 1, dtype=torch.int64, device=DEV)
+    f = attn_mod.make_cp_decode_attention(cp, (), mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, kl, vl = f(q, kl, vl, kn, vn, pos, (pos + 1).int())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    kc[:, S - 1:], vc[:, S - 1:] = kn, vn
+    with one_shard_attention():
+        one = attn_mod.decode_attention(q, kc, vc, pos + 1)
+    if not torch.equal(out, one):
+        raise AssertionError(f"cp attention {MESH_ATTN}: the merged output "
+                             f"is not one shard's: "
+                             f"{float((out - one).abs().max())} apart")
+    want = ops.flash_decode(q, kc, vc, S)
+    case = lm_compare("flash_decode", out, want,
+                      LM_TOL[("attention", torch.bfloat16)],
+                      f"cp attention {MESH_ATTN} over {cp}",
+                      kernel_output=False)
+    owner = i == n - 1
+    if owner and not (torch.equal(kl[:, -1:], kn)
+                      and torch.equal(vl[:, -1:], vn)):
+        raise AssertionError("cp attention: the owner did not write the row")
+    return dict(case, shard_rows=rows, owner_of_the_new_row=owner,
+                equal_to_one_shard=True, seconds=seconds)
+
+
+def run_mesh_rank(rank: int, world: int, init: str, work: str) -> None:
+    """One rank of phase mesh (``python3 chip_smoke.py --mesh-rank RANK
+    WORLD INIT DIR``): world 1 on NCCL, a (1, 1) mesh; world 4 on gloo, a
+    (2, 2) mesh of four processes sharing the card. Writes its line as
+    ``DIR/world<W>_rank<R>.json``."""
+    from repro_torch.launch import mesh as ml
+    work = Path(work)
+    t0 = time.perf_counter()
+    backend = ml.init_world("nccl" if world == 1 else "gloo", rank=rank,
+                            world_size=world, init_method=init)
+    mesh = ml.make_test_mesh((1, 1) if world == 1 else (2, 2),
+                             ("data", "model"))
+    line = dict(rank=rank, world=world, backend=backend,
+                coordinate=ml.coordinate(mesh),
+                start_seconds=time.perf_counter() - t0)
+    if world == 1:
+        line["service_sweep"] = mesh_service_sweep(mesh, work)
+    line["sweeps"] = mesh_sharded_sweeps(mesh, world, work, work)
+    line["decode"] = mesh_cp_decode(mesh, world, work)
+    if world > 1:
+        line["cp_attention"] = mesh_cp_attention(mesh)
+    ml.barrier(mesh)
+    torch.distributed.destroy_process_group()
+    line["seconds"] = time.perf_counter() - t0
+    (work / f"world{world}_rank{rank}.json").write_text(json.dumps(line))
+
+
+def mesh_service_sweep(mesh, work: Path) -> dict:
+    """``SimulationService(mesh=).sweep`` of the divisible main path's p=256
+    sweep on the (1, 1) NCCL mesh: one launch a chunk, and the store's keys
+    and npz bytes those of phase main_path."""
+    s = MAIN_PATHS["divisible"]["sweeps"][0]
+    root = work / "mesh_store"
+    svc = SimulationService(root=root, mesh=mesh)
+    ws.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with pinned_zip_clock():
+        g = svc.sweep(s["topo"](), backend="cuda", **s["kw"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_chunks = math.ceil(len(g) / s["kw"]["chunk_size"])
+    if ws.ws_sim_cuda.launches_by_body["ws_sim_divisible"] != n_chunks or \
+            ws.ws_sim_cuda.launches != n_chunks:
+        raise AssertionError(f"mesh service sweep: "
+                             f"{ws.ws_sim_cuda.launches_by_body}, expected "
+                             f"{n_chunks} launches")
+    keys = sorted(p.stem for p in root.glob("*.npz"))
+    main = work / "main_store"
+    if len(keys) != n_chunks:
+        raise AssertionError(f"mesh service sweep stored {keys}")
+    for k in keys:
+        for ext in (".npz", ".json"):
+            if (root / f"{k}{ext}").read_bytes() != \
+                    (main / f"{k}{ext}").read_bytes():
+                raise AssertionError(f"mesh service sweep: {k}{ext} differs "
+                                     "from phase main_path's")
+    return dict(sweep=s["name"], rows=len(g), chunks=n_chunks,
+                launches=n_chunks, wall_seconds=wall,
+                rows_per_second=len(g) / wall, keys_and_bytes_equal=True)
+
+
+def mesh_world(world: int, work: Path) -> list:
+    """Run the ``world`` ranks of phase mesh, each a process of its own on
+    the card, all started together; a failed or hung rank fails the phase
+    with its output's tail, and every rank is reaped."""
+    from repro_torch.launch import mesh as ml
+    init = f"tcp://localhost:{ml.free_port()}"
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    logs = [work / f"world{world}_rank{r}.log" for r in range(world)]
+    procs = []
+    try:
+        for r, log in enumerate(logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--mesh-rank", str(r), str(world), init, str(work)],
+                    stdout=f, stderr=subprocess.STDOUT, text=True, env=env))
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"mesh world {world} rank {r} exited "
+                                 f"{p.returncode}:\n"
+                                 f"{log.read_text()[-4000:]}")
+    return [json.loads((work / f"world{world}_rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def phase_mesh(work: Path) -> dict:
+    """The mesh on the card, in processes of their own (no process group
+    is left in this one). ``work`` holds phase main_path's divisible store
+    (``main_store``) and lm_main_path's prompts and tokens
+    (``lm_tokens.npz``). (a) A world of one NCCL rank: the service's
+    sharded sweep with main_path's keys and bytes, the three paths'
+    sharded sweeps equal to ``run_rows()``, qwen3-1.7b's context-parallel
+    decode in a CUDA graph beside the served step and the one-shard
+    witness (:func:`mesh_cp_decode`). (b) Four gloo ranks on the one card,
+    a (2, 2) mesh: the same sweeps equal to world 1's field for field,
+    each rank launching one kernel a sweep on its quarter, the decode with
+    the batch over "data" and the sequence over "model" giving world 1's
+    logits and tokens, and one layer's attention at MESH_ATTN
+    (:func:`mesh_cp_attention`). Returns the ``ws_sim`` launches of each
+    rank and world by body."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    one = mesh_world(1, work)[0]
+    say("mesh", **one, card=card_line())
+    four = mesh_world(4, work)
+    for r in four:
+        say("mesh", **r)
+    launches = {b: {"world1": 0, "world4": [0] * 4} for b in BODIES}
+    for path, line in one["sweeps"].items():
+        body = MAIN_PATHS[path]["body"]
+        launches[body]["world1"] += line["launches_by_body"][body]
+        for r in four:
+            launches[body]["world4"][r["rank"]] += \
+                r["sweeps"][path]["launches_by_body"][body]
+    launches["ws_sim_divisible"]["world1_service"] = \
+        one["service_sweep"]["launches"]
+    dec = one["decode"]
+    say("mesh", step="summary", seconds=time.perf_counter() - t0,
+        ms_per_replayed_step={k: dec[k]["ms_per_replayed_step"]
+                              for k in ("plain", "cp", "one_shard")},
+        tokens_equal_to_lm_main_path=dec["cp"]["tokens_equal_to_lm_main_path"],
+        forced_cp_vs_plain=dec["forced"],
+        ms_per_eager_step_world4=[r["decode"]["cp"]["ms_per_eager_step"]
+                                  for r in four],
+        rows_per_second_world1={p: l["rows_per_second"]
+                                for p, l in one["sweeps"].items()},
+        rows_per_second_world4={p: min(r["sweeps"][p]["rows_per_second"]
+                                       for r in four)
+                                for p in one["sweeps"]},
+        ws_sim_launches=launches,
+        cp_attention_max_abs_err=max(r["cp_attention"]["max_abs_err"]
+                                     for r in four),
+        card=card_line())
+    return launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4863,10 +5331,17 @@ def main():
     timed("build", build)
     # 2, 3. each body against its plain version and the oracle
     timed("kernels", phase_kernels_and_oracle)
-    # 4. the main paths, each counted on its own
+    # phase mesh's work directory: its references and its ranks' files
+    mesh_dir = tempfile.TemporaryDirectory(prefix="ws_mesh_")
+    # 4. the main paths, each counted on its own (the zip clock pinned, so
+    # that phase mesh can hold its store to these bytes)
     with tempfile.TemporaryDirectory(prefix="ws_store_") as tmp:
-        main_out = timed("main_path", lambda: {
-            path: drive_path(Path(tmp) / path, path) for path in MAIN_PATHS})
+        with pinned_zip_clock():
+            main_out = timed("main_path", lambda: {
+                path: drive_path(Path(tmp) / path, path)
+                for path in MAIN_PATHS})
+        shutil.copytree(Path(tmp) / "divisible",
+                        Path(mesh_dir.name) / "main_store")
         # 4b. the query path and the planner, under the sanitizer
         query = timed("query_main_path", phase_query_main_path,
                       Path(tmp) / "query", Path(tmp))
@@ -4896,6 +5371,8 @@ def main():
     # versions, its two main paths counted, the kernels' times
     timed("lm_kernels", phase_lm_kernels)
     lm_main = timed("lm_main_path", phase_lm_main_path)
+    np.savez(Path(mesh_dir.name) / "lm_tokens.npz",
+             prompts=lm_main.pop("prompts"), tokens=lm_main.pop("tokens"))
     # 6b. mixtral-8x7b at full width through the MoE layer
     lm_moe = timed("lm_moe", phase_lm_moe)
     lm_main.update(moe_serve=lm_moe["serve"], moe_prefill=lm_moe["prefill"])
@@ -4909,6 +5386,15 @@ def main():
     # parity of a train step, the example's command line
     lm_main.update(timed("lm_train", phase_lm_train))
     entries += timed("lm_timing", phase_lm_timing, lm_main)
+    # 9. the mesh: the sharded sweep and context-parallel decode on a world
+    # of one NCCL rank, then on four gloo ranks sharing the card (after
+    # lm_timing: its profiled windows are traced before other processes
+    # have used the card)
+    with mesh_dir:
+        mesh = timed("mesh", phase_mesh, Path(mesh_dir.name))
+    for e in entries:
+        if e["name"] in mesh:
+            e["launches_mesh_path"] = mesh[e["name"]]
     say("done", seconds=round(time.perf_counter() - t_start, 1),
         phase_seconds=phase_seconds)
     print(json.dumps({"kernels": entries}), flush=True)
@@ -4921,5 +5407,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--kernel-group"]:
         run_kernel_group(sys.argv[2])
+    elif sys.argv[1:2] == ["--mesh-rank"]:
+        run_mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                      sys.argv[5])
     else:
         main()

@@ -124,6 +124,31 @@ def _restore(arr: np.ndarray, like, device: torch.device) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _restore_shard(path: Path, like, sharding):
+    """This rank's shard of a stored leaf as a DTensor on ``sharding``'s
+    mesh: the file memory-mapped, only the shard's slice read."""
+    from torch.distributed.tensor import DTensor
+    shape, dtype = ((tuple(like.shape), like.dtype)
+                    if not isinstance(like, tuple) else like)
+    arr = np.load(path, mmap_mode="r")
+    if tuple(arr.shape) != tuple(shape):
+        raise ValueError(f"checkpoint leaf of shape {arr.shape}, the "
+                         f"template's is {tuple(shape)}")
+    local = np.array(arr[sharding.local_index(shape)], order="C")
+    t = torch.from_numpy(local).to(device=_mesh_device(sharding.mesh),
+                                   dtype=dtype)
+    return DTensor.from_local(t, sharding.mesh, sharding.placements(),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
 def load_checkpoint(directory, template, step: Optional[int] = None,
                     shardings=None, device: DeviceLike = None):
     """Restore into the structure of ``template`` (a tree of tensors, or of
@@ -133,12 +158,11 @@ def load_checkpoint(directory, template, step: Optional[int] = None,
     (``None`` is the card, and raises without one; ``"cpu"`` by name).
     Returns (step, tree, extra).
 
-    ``shardings`` (the JAX package's elastic path onto another mesh) waits
-    for the mesh (Queue A 10)."""
-    if shardings is not None:
-        raise NotImplementedError("load_checkpoint(shardings=) lays a "
-                                  "checkpoint out onto a device mesh, which "
-                                  "the port has not yet (Queue A 10)")
+    ``shardings``: a matching tree of ``launch.sharding.NamedSharding`` on a
+    live mesh. This is the *elastic* path: each rank reads only its shard
+    of each stored leaf and gets it as a DTensor on that mesh (its local
+    tensor on the mesh's device, the template's dtype), whatever mesh wrote
+    the checkpoint; the files are the same either way."""
     directory = Path(directory)
     steps = list_steps(directory)
     if not steps:
@@ -151,10 +175,18 @@ def load_checkpoint(directory, template, step: Optional[int] = None,
     flat_t = _flatten(template)
     assert [n for n, _ in flat_t] == names, (
         "checkpoint/template structure mismatch")
-    if not all(isinstance(like, torch.Tensor) for _, like in flat_t):
-        device = resolve_device(device)
-    # one leaf at a time: its host copy is dropped before the next is read
-    restored = iter([_restore(np.load(d / f"{n}.npy"), like, device)
-                     for n, like in flat_t])
+    if shardings is not None:
+        shards = tr.leaves(shardings)
+        if len(shards) != len(flat_t):
+            raise ValueError("shardings and template differ in structure")
+        restored = iter([_restore_shard(d / f"{n}.npy", like, sh)
+                         for (n, like), sh in zip(flat_t, shards)])
+    else:
+        if not all(isinstance(like, torch.Tensor) for _, like in flat_t):
+            device = resolve_device(device)
+        # one leaf at a time: its host copy is dropped before the next is
+        # read
+        restored = iter([_restore(np.load(d / f"{n}.npy"), like, device)
+                         for n, like in flat_t])
     tree = tr.tree_map(lambda _leaf: next(restored), template)
     return step, tree, manifest.get("extra", {})

@@ -32,6 +32,7 @@ variable, else names ``cuda``; a caller that asked for the CPU by name gets
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Dict, Optional, Sequence, Tuple, Union
@@ -179,6 +180,32 @@ class ExecutionBackend:
         # device loss. No-op without a plan.
         _fault_point("backend.run_rows", backend=self.name,
                      n_rows=len(rows), row_seeds=np.asarray(rows.seed))
+        with self._dispatch(len(rows)):
+            devs = (tuple(torch.device(d) for d in devices)
+                    if devices is not None else self.local_devices(dev))
+            out = self._run_rows(model, rows, remote_prob, ev_budget, devs)
+            # Sanitizer: steal-accounting check + seeded oracle replay of a
+            # sampled dispatch (repro_torch.check.sanitizer). No-op when
+            # disabled.
+            _sanitize("backend.result", backend=self, model=model,
+                      rows=rows, remote_prob=remote_prob,
+                      ev_budget=ev_budget, grid=out)
+            return out
+
+    def run_scenario(self, model, scn: eng.Scenario):
+        """Run one scenario batch as it lies (on its own device) as a
+        dispatch of its own: the availability check, the dispatch count and
+        the ``backend.run_rows`` counter and span, as :meth:`run_rows`
+        records them. Returns the engine's result. The mesh-sharded sweep
+        (``sweep.simulate_sharded``) runs each rank's shard through it."""
+        model = sw.as_model(model)
+        self._check(model)
+        with self._dispatch(int(scn.W.shape[0])):
+            return self._run_batch(model, scn)
+
+    @contextlib.contextmanager
+    def _dispatch(self, n_rows: int):
+        """Count one dispatch of ``n_rows`` rows and record its span."""
         self.n_run_rows += 1
         # Reset before (not after) running: last_stats always describes THIS
         # dispatch, so a monolithic run cannot leak the previous segmented
@@ -187,20 +214,11 @@ class ExecutionBackend:
         obs.REGISTRY.counter("backend.run_rows",
                              {"backend": self.name}).inc()
         with obs.span("backend.run_rows", backend=self.name,
-                      n_rows=len(rows)) as sp:
-            devs = (tuple(torch.device(d) for d in devices)
-                    if devices is not None else self.local_devices(dev))
-            out = self._run_rows(model, rows, remote_prob, ev_budget, devs)
+                      n_rows=n_rows) as sp:
+            yield
             if self.last_stats is not None:
                 sp.set(n_segments=self.last_stats.n_segments,
                        wasted_frac=round(self.last_stats.wasted_frac, 4))
-            # Sanitizer: steal-accounting check + seeded oracle replay of a
-            # sampled dispatch (repro_torch.check.sanitizer). No-op when
-            # disabled.
-            _sanitize("backend.result", backend=self, model=model,
-                      rows=rows, remote_prob=remote_prob,
-                      ev_budget=ev_budget, grid=out)
-            return out
 
     def _run_rows(self, model, rows, remote_prob, ev_budget, devices):
         n = len(rows)

@@ -11,6 +11,13 @@ batched PyTorch loop, or the serial numpy oracle — all bit-identical.
 Every entry point takes an explicit ``device``: ``None`` means the GPU and
 raises ``RuntimeError`` without one; the CPU is used only when
 ``device="cpu"`` is passed.
+
+With a ``mesh`` (a ``torch.distributed`` DeviceMesh, ``launch/mesh.py``)
+the batch's rows are split over the mesh's ``shard_axes``: each rank runs
+its contiguous shard (:func:`simulate_sharded`) and the ranks gather the
+results, so every rank holds the whole answer, bit-identical to an
+unsharded run. This is how the paper's Monte-Carlo workload maps to a
+fleet.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import itertools
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core import adaptive as ad
 from repro_torch.core import dag as dg
@@ -362,9 +370,30 @@ def resolve_model(
                       max_events=max_events, **model_kw)
 
 
+def mesh_backend(backend, device: eng.DeviceLike = None):
+    """The backend a mesh-sharded run uses: ``cuda`` on the card and
+    ``torch`` on the CPU when ``backend`` is None (whatever
+    ``REPRO_WS_BACKEND`` says: the JAX package pins its ``jax`` backend the
+    same way); a named one must be one of those two."""
+    from repro_torch.core import backend as bk
+    dev = eng.resolve_device(device)
+    if backend is None:
+        backend = "cuda" if dev.type == "cuda" else "torch"
+    be = bk.get_backend(backend, device=dev)
+    if be.name not in ("cuda", "torch"):
+        raise ValueError(f"mesh-sharded sweeps run the 'cuda' or the "
+                         f"'torch' backend, got {be.name!r}")
+    if be.name == "cuda" and dev.type != "cuda":
+        raise RuntimeError("the 'cuda' backend launches a CUDA kernel and "
+                           "has no CPU form: pass a CUDA device, or name "
+                           "the 'torch' backend")
+    return be
+
+
 def run_rows(model: eng.TaskModel, rows: GridRows, remote_prob: float = 0.25,
              backend=None, ev_budget=None, devices=None,
-             device: eng.DeviceLike = None) -> GridResult:
+             device: eng.DeviceLike = None, mesh=None,
+             shard_axes: Sequence[str] = ("data",)) -> GridResult:
     """Run one batched simulation over canonical rows -> GridResult.
 
     ``device`` follows the device rule (module docstring). ``backend``
@@ -378,9 +407,20 @@ def run_rows(model: eng.TaskModel, rows: GridRows, remote_prob: float = 0.25,
     The selected backend runs every batch, whatever its size: an
     auto-selected ``cuda`` backend always launches the kernel, and nothing
     is sent to the host while ``device`` is the card.
+
+    ``mesh`` splits the rows over its ``shard_axes`` (:func:`simulate_sharded`)
+    on the backend :func:`mesh_backend` picks; every rank returns the whole
+    grid.
     """
     from repro_torch.core import backend as bk
     dev = eng.resolve_device(device)
+    if mesh is not None:
+        be = mesh_backend(backend, dev)
+        model = as_model(model)
+        scn = scenario_from_rows(rows, remote_prob=remote_prob,
+                                 ev_budget=ev_budget, device=dev)
+        res = simulate_sharded(model, scn, mesh, shard_axes, backend=be)
+        return grid_from_result(model.p, rows, res)
     be = bk.get_backend(backend, device=dev)
     return be.run_rows(model, rows, remote_prob=remote_prob,
                        ev_budget=ev_budget, devices=devices, device=dev)
@@ -402,6 +442,8 @@ def run_grid(
     chunk_lookup: Optional[Callable[[int], Optional[GridResult]]] = None,
     backend=None,
     device: eng.DeviceLike = None,
+    mesh=None,
+    shard_axes: Sequence[str] = ("data",),
     **model_kw,
 ) -> GridResult:
     """Simulate the full (W × λ × θ × reps) grid on topology ``topo``.
@@ -417,7 +459,8 @@ def run_grid(
 
     ``backend`` selects the execution substrate per :func:`run_rows`; all
     backends produce bit-identical grids, so chunk persistence and resume
-    are backend-free.
+    are backend-free. ``mesh`` and ``shard_axes`` shard each chunk's rows
+    (:func:`run_rows`).
 
     ``chunk_size`` splits the batch into fixed-size pieces executed one
     kernel launch at a time (bounds peak memory for huge grids) and makes
@@ -463,11 +506,47 @@ def run_grid(
                     "not match the chunk's rows (stale store entry?)")
             parts.append(g)
             continue
-        g = run_rows(model, rws, backend=backend, device=dev)
+        g = run_rows(model, rws, backend=backend, device=dev, mesh=mesh,
+                     shard_axes=shard_axes)
         if on_chunk is not None:
             on_chunk(ci, g)
         parts.append(g)
     return concat_grids(parts)
+
+
+def simulate_sharded(model, scn: Scenario, mesh,
+                     shard_axes: Sequence[str] = ("data",), backend=None):
+    """Shard the scenario batch axis over ``mesh``'s ``shard_axes`` and run
+    each rank's shard.
+
+    Works for any task model (``model`` may also be a bare engine config).
+    Pads the batch to a multiple of the shard extent with rows whose every
+    column is 1 (W=1: divisible/adaptive terminate immediately; DAG pad
+    rows rerun the static DAG under a dummy seed; a budget of one event),
+    as the JAX package does; the pad rows are dropped. Each rank runs its
+    contiguous shard of the padded batch through ``backend``
+    (:func:`mesh_backend`; on the card the ``ws_sim`` kernel), then the
+    ranks gather the shards (``mesh.all_gather_shards``), so every rank
+    returns the whole result, on ``scn``'s device.
+    """
+    from repro_torch.launch import mesh as mesh_lib
+    model = as_model(model)
+    dev = scn.W.device
+    be = mesh_backend(backend, dev)
+    extent = mesh_lib.axis_size(mesh, *shard_axes)
+    n = int(scn.W.shape[0])
+    pad = (-n) % extent
+    if pad:
+        scn = Scenario(*(torch.cat([x, torch.ones(pad, dtype=x.dtype,
+                                                  device=dev)])
+                         for x in scn))
+    rows = (n + pad) // extent
+    lo = mesh_lib.shard_index(mesh, shard_axes) * rows
+    local = Scenario(*(x[lo:lo + rows] for x in scn))
+    res = be.run_scenario(model, local)
+    whole = type(res)(*(mesh_lib.all_gather_shards(x, mesh, shard_axes)
+                        for x in res))
+    return type(res)(*(x[:n] for x in whole))
 
 
 def quick_sim(p: int, W: int, lam: int, seed: int = 1, mwt: bool = False,

@@ -69,11 +69,33 @@ def batch_at(cfg: ArchConfig, shape: ShapeSpec, step: int,
     return batch
 
 
-def shard_batch(batch: Dict, mesh, specs=None):
-    """Placing a batch onto a mesh with a cell's input shardings comes with
-    the mesh (Queue A 10)."""
-    raise NotImplementedError("shard_batch places a batch onto a device "
-                              "mesh, which the port has not yet (Queue A 10)")
+def shard_batch(batch: Dict, mesh, specs=None) -> Dict:
+    """Place a batch onto ``mesh`` (a DeviceMesh) with the cell's input
+    shardings: each leaf becomes a DTensor whose local tensor is this rank's
+    shard, on the mesh's device. ``specs`` maps a leaf's name to a
+    ``launch.sharding.ShapeDtypeStruct`` (``batch_specs``) whose sharding is
+    used; any other leaf is split on dim 0 over the dp axes. Every rank
+    passes the whole batch (the stateless pipeline gives every rank the same
+    one)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.launch.sharding import NamedSharding
+    dp = dp_axes(mesh)
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+
+    def put(name, x):
+        if specs and name in specs:
+            sh = specs[name].sharding
+        else:
+            sh = NamedSharding(mesh, (dp,) + (None,) * (x.ndim - 1))
+        local = x[sh.local_index(tuple(x.shape))].contiguous().to(dev)
+        return DTensor.from_local(local, mesh, sh.placements(),
+                                  run_check=False, shape=x.shape,
+                                  stride=torch.empty(
+                                      x.shape, device="meta").stride())
+
+    return {k: put(k, v) for k, v in batch.items()}
 
 
 class Pipeline:

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import get_config, list_archs
 from repro_torch.core.topology import tpu_fleet
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.steps import GraphedDecodeStep, check_model_device
 from repro_torch.models import build_model
 from repro_torch.sched.planner import PlannerDecision, plan_for_mesh
@@ -38,15 +39,23 @@ class Request:
     max_new: int
 
 
-def decode_batch(model, params, reqs: List[Request],
-                 device=None) -> np.ndarray:
+def decode_batch(model, params, reqs: List[Request], device=None,
+                 cp_axes=None, mesh=None) -> np.ndarray:
     """Prefill + greedy-decode a batch of same-length requests; returns the
     new tokens (B, max_new) int32. Greedy takes the first maximal logit, as
     ``jnp.argmax`` does. (The JAX package's ``decode_batch`` also takes a
     ``vocab`` that it never reads; the port leaves it out.) ``device=None``
     means the card (and raises without one); the model must live on the
     same device. On the card the steps replay one CUDA graph; a failed
-    capture or replay raises."""
+    capture or replay raises.
+
+    ``cp_axes`` = (seq_axes, batch_axes) on a live ``mesh`` decodes with
+    context parallelism: this rank serves its shard of the requests over
+    ``batch_axes``, holds its shard of the KV cache's sequence over
+    ``seq_axes`` (the prompt length plus ``max_new`` must split evenly),
+    and the ranks gather the new tokens, so every rank returns all of
+    them. A mesh whose collectives run through gloo cannot be captured in
+    a graph: its steps run eagerly."""
     check_model_device(model, device)
     S = len(reqs[0].prompt)
     if any(len(r.prompt) != S for r in reqs):
@@ -54,11 +63,28 @@ def decode_batch(model, params, reqs: List[Request],
     max_new = max(r.max_new for r in reqs)
     tokens = torch.as_tensor(np.stack([r.prompt for r in reqs]),
                              dtype=torch.int64, device=model.device)
+    cache = None
+    batch_axes = ()
+    if cp_axes:
+        seq_axes, batch_axes = (tuple(a) for a in cp_axes)
+        nb = mesh_lib.axis_size(mesh, *batch_axes)
+        ns = mesh_lib.axis_size(mesh, *seq_axes)
+        if len(reqs) % nb or (S + max_new) % ns:
+            raise ValueError(f"{len(reqs)} requests of {S} + {max_new} "
+                             f"positions do not split {nb} x {ns} ways")
+        rows = len(reqs) // nb
+        lo = mesh_lib.shard_index(mesh, batch_axes) * rows
+        tokens = tokens[lo:lo + rows]
+        cache = model.init_cache(rows, (S + max_new) // ns)
     # the graph is captured once a call: it holds this call's cache
-    step = GraphedDecodeStep(model) if model.device.type == "cuda" \
-        else model.decode_step
+    if model.device.type == "cuda" and mesh_lib.capturable(mesh):
+        step = GraphedDecodeStep(model, cp_axes, mesh)
+    else:
+        def step(params, cache, tok, pos, embeds=None):
+            return model.decode_step(params, cache, tok, pos, embeds,
+                                     cp_axes=cp_axes, mesh=mesh)
     cache, logits = model.prefill(params, {"tokens": tokens},
-                                  max_seq=S + max_new, step=step)
+                                  max_seq=S + max_new, step=step, cache=cache)
     tok = torch.argmax(logits[:, -1:], dim=-1)
     outs = []
     for i in range(max_new):
@@ -67,7 +93,10 @@ def decode_batch(model, params, reqs: List[Request],
         tok = torch.argmax(logits, dim=-1)
     decode_batch.last_graph = (step.stats() if isinstance(
         step, GraphedDecodeStep) else None)
-    return torch.stack(outs, dim=1).to(torch.int32).cpu().numpy()
+    out = torch.stack(outs, dim=1).to(torch.int32)
+    if batch_axes:
+        out = mesh_lib.all_gather_shards(out, mesh, batch_axes)
+    return out.cpu().numpy()
 
 
 #: the graph of the last call on the card (``GraphedDecodeStep.stats()``:

@@ -1,21 +1,72 @@
 """The steps: the train step (:func:`build_train_step`), prefill and
-decode of the serving path, and the decode step as one CUDA graph
-(:class:`GraphedDecodeStep`).
+decode of the serving path, the decode step as one CUDA graph
+(:class:`GraphedDecodeStep`), and the plan of one (arch × shape × mesh)
+cell (:func:`plan_cell`): its config, its steps, the abstract shapes,
+dtypes and shardings of their arguments, the activation layout
+(:func:`make_act_constrainer`), the MoE layout hints and context-parallel
+decode.
 
-The JAX package's ``launch/steps.py`` also plans and lowers (arch × shape ×
-mesh) cells with activation and context-parallel shardings (``act_spec``,
-``plan_cell``); those come with the mesh slice (Queue A 10).
+In this port a step runs on rank-local tensors. The plan keeps the
+activation constrainer's specs, and the MoE hints leave a rank-local tensor
+as it is; a step whose weights are split across ranks, which would use
+both, is ROADMAP Queue A 10b. Context-parallel decode (``cp_axes``) runs
+each rank's shard of the KV cache and merges the partials with collectives
+over the mesh.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
 import time
+from typing import Any, Optional, Tuple
 
 import torch
 
 from repro_torch import tree as tr
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeSpec, get_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding as shd
 from repro_torch.optim import adamw
+
+
+def make_act_constrainer(mesh, dp, sequence_parallel: bool = True):
+    """Activation layout policy (DESIGN.md §5): batch on dp axes; between
+    layers the sequence dim is additionally sharded on 'model'
+    (Megatron-style sequence parallelism). Tensors whose dims don't divide
+    are left to propagation on that dim. ``full_seq=True`` pins the
+    sequence-gathered layout (recurrent mixers need contiguous S).
+
+    Returns ``constrain(h, full_seq=False)``: it pins the layout on a
+    DTensor (``redistribute``) and returns a rank-local tensor as it is.
+    ``constrain.spec(shape, full_seq=False)`` is the spec the JAX package
+    pins for an activation of that shape (None below two dims); the plan
+    of a cell (:func:`plan_cell`) keeps it for A 10b's sharded steps."""
+    msz = mesh_lib.mesh_shape(mesh).get("model", 1)
+
+    def spec(shape, full_seq: bool = False) -> Optional[tuple]:
+        if len(shape) < 2:
+            return None
+        out = [None] * len(shape)
+        if dp is not None and shape[0] % mesh_lib.axis_size(mesh, *dp) == 0:
+            out[0] = dp
+        if (not full_seq and sequence_parallel and len(shape) == 3
+                and shape[1] > 1 and shape[1] % msz == 0):
+            out[1] = "model"
+        return shd.P(*out)
+
+    def constrain(h, full_seq: bool = False):
+        from torch.distributed.tensor import DTensor
+        sp = spec(tuple(h.shape), full_seq)
+        if sp is None or not isinstance(h, DTensor):
+            return h
+        return h.redistribute(h.device_mesh, shd.NamedSharding(
+            h.device_mesh, sp).placements())
+
+    constrain.spec = spec
+    constrain.sequence_parallel = sequence_parallel
+    return constrain
 
 
 def check_model_device(model, device) -> None:
@@ -108,13 +159,18 @@ def build_prefill_step(model, device=None):
     return prefill_step
 
 
-def build_decode_step(model, device=None):
+def build_decode_step(model, cp_axes: Optional[Tuple] = None, device=None,
+                      mesh=None):
     """``decode_step(params, cache, tokens, pos)`` -> (logits, cache), the
-    cache updated in place. ``device=None`` means the card."""
+    cache updated in place. ``cp_axes`` = (seq_axes, batch_axes): the cache
+    holds this rank's shard of a KV cache whose sequence is split over
+    ``seq_axes`` of ``mesh`` and batch over ``batch_axes``
+    (``Model.decode_step``). ``device=None`` means the card."""
     check_model_device(model, device)
 
     def decode_step(params, cache, tokens, pos):
-        return model.decode_step(params, cache, tokens, pos)
+        return model.decode_step(params, cache, tokens, pos, cp_axes=cp_axes,
+                                 mesh=mesh)
     return decode_step
 
 
@@ -143,13 +199,22 @@ class GraphedDecodeStep:
     launches back out of the counters and adds them once a replay. A
     failure to capture or to replay raises; nothing falls back to eager
     steps.
+
+    ``cp_axes`` and ``mesh`` make each step context-parallel
+    (``Model.decode_step``); the graph then holds the merge's NCCL
+    all-reduces (a mesh of ``gloo`` collectives is refused: they run on
+    the host).
     """
 
-    def __init__(self, model):
+    def __init__(self, model, cp_axes: Optional[Tuple] = None, mesh=None):
         if model.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a model on the card, this "
                              f"one lives on {model.device}")
+        if not mesh_lib.capturable(mesh):
+            raise ValueError("the mesh's collectives run through gloo, on "
+                             "the host: a CUDA graph cannot hold them")
         self.model = model
+        self.cp_axes, self.mesh = cp_axes, mesh
         self._params = self._cache = None
         #: "tokens" / "embeds" -> that step's captured graph
         self.graphs = {}
@@ -162,7 +227,8 @@ class GraphedDecodeStep:
         self._params, self._cache = params, cache
         kind = "tokens" if embeds is None else "embeds"
         if kind not in self.graphs:
-            self.graphs[kind] = _CapturedStep(self.model)
+            self.graphs[kind] = _CapturedStep(self.model, self.cp_axes,
+                                              self.mesh)
             return self.graphs[kind].warm_up_and_capture(
                 params, cache, tokens, pos, embeds)
         return self.graphs[kind].replay(cache, tokens, pos, embeds)
@@ -184,8 +250,9 @@ class GraphedDecodeStep:
 class _CapturedStep:
     """One decode step (on tokens, or on embeddings) as a CUDA graph."""
 
-    def __init__(self, model):
+    def __init__(self, model, cp_axes=None, mesh=None):
         self.model = model
+        self.cp = dict(cp_axes=cp_axes, mesh=mesh)
         self.graph = None
         self.warmup_seconds = self.capture_seconds = 0.0
         self.replays = 0
@@ -218,15 +285,21 @@ class _CapturedStep:
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             logits, _ = self.model.decode_step(params, cache, self._tokens,
-                                               self._pos, self._embeds)
+                                               self._pos, self._embeds,
+                                               **self.cp)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
         before = (ops.launch_counts(), ops.variant_counts())
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        # NCCL's watchdog thread polls its events while a step with
+        # collectives is captured: only this thread's calls are checked
+        mode = "thread_local" if mesh_lib.is_live(self.cp["mesh"]) \
+            else "global"
+        with torch.cuda.graph(self.graph, capture_error_mode=mode):
             self._logits, _ = self.model.decode_step(
-                params, cache, self._tokens, self._pos, self._embeds)
+                params, cache, self._tokens, self._pos, self._embeds,
+                **self.cp)
         self.launches_per_replay = ops.counts_since(before)
         ops.add_counts(self.launches_per_replay, times=-1)
         torch.cuda.synchronize(dev)
@@ -239,3 +312,123 @@ class _CapturedStep:
                     capture_seconds=self.capture_seconds,
                     replays=self.replays,
                     launches_per_replay=self.launches_per_replay)
+
+
+@dataclasses.dataclass
+class CellPlan:
+    """Everything that plans one (arch × shape × mesh) cell: the config (MoE
+    groups set for the mesh), the step and its arguments as abstract
+    (shape, dtype, sharding) leaves (``sharding.ShapeDtypeStruct``), the
+    arguments the step may overwrite, whether decode is context-parallel,
+    the outputs' shardings and the activation constrainer."""
+    arch: str
+    shape: ShapeSpec
+    cfg: ArchConfig
+    mesh: Any
+    fn: Any
+    args: Tuple
+    donate: Tuple[int, ...]
+    context_parallel: bool
+    out_shardings: Any = None
+    act_spec: Any = None
+
+
+def plan_cell(arch: str, shape_name: str, mesh=None, *,
+              multi_pod: bool = False,
+              opt_cfg: Optional[adamw.AdamWConfig] = None,
+              cfg_overrides: Optional[dict] = None,
+              device="meta") -> CellPlan:
+    """Plan one cell on ``mesh`` (an ``AbstractMesh`` or a DeviceMesh;
+    None: ``mesh.make_production_mesh(multi_pod=)``, which needs a world of
+    256 or 512 ranks — plan for the fleet from a smaller world with
+    ``mesh.production_mesh()``). The model is built on ``device``: the meta
+    device by default, so that a plan allocates nothing. Sets the MoE
+    layout hints (``models.moe.set_shard_hints``) for the cell, as the JAX
+    package's ``plan_cell`` does."""
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    cfg = get_config(arch)
+    if cfg_overrides:
+        cfg = dataclasses.replace(cfg, **cfg_overrides)
+    shape = SHAPES[shape_name]
+    mesh = mesh if mesh is not None else mesh_lib.make_production_mesh(
+        multi_pod=multi_pod)
+    mshape = mesh_lib.mesh_shape(mesh)
+    dp = mesh_lib.dp_axes(mesh)
+    dpsz = mesh_lib.axis_size(mesh, *dp)
+    if (cfg.n_experts and shape.kind != "decode"
+            and not (cfg_overrides and "moe_groups" in cfg_overrides)):
+        tokens = shape.global_batch * shape.seq_len
+        _all = dpsz * mshape.get("model", 1)
+        # groups over data x model: per-group capacity (and so every dispatch
+        # buffer) shrinks by |model| vs data-only groups
+        if tokens % _all == 0:
+            cfg = dataclasses.replace(cfg, moe_groups=_all)
+        elif tokens % dpsz == 0:
+            cfg = dataclasses.replace(cfg, moe_groups=dpsz)
+    model = build_model(cfg, device=device)
+
+    ab_params = model.param_shapes()
+    pshard = shd.shard_params(ab_params, mesh)
+    params_specs = shd.abstract_with_shardings(ab_params, pshard)
+
+    batch_shardable = (shape.global_batch % dpsz == 0
+                       and shape.global_batch >= dpsz)
+    # Sequence parallelism pays off for attention-only stacks; recurrent
+    # mixers consume contiguous S, so SP would gather their scan inputs
+    attn_only = all(m in ("attn", "xattn") for m, _ in cfg.pattern)
+    force_sp = os.environ.get("REPRO_FORCE_SP")   # A/B switch
+    use_sp = attn_only if force_sp is None else force_sp == "1"
+    act_spec = make_act_constrainer(
+        mesh, dp if batch_shardable else None,
+        sequence_parallel=(shape.kind != "decode") and use_sp)
+
+    # MoE layout hints: dispatch groups pinned to the dp axes on both the
+    # token view (G, Tg, D) and the buffer views (G, E, C, D)
+    if cfg.moe_groups > 1:
+        g_axes = tuple(dp) + (("model",) if cfg.moe_groups > dpsz else ())
+        moe_mod.set_shard_hints(tokens=(g_axes,), experts=(g_axes,))
+    else:
+        moe_mod.set_shard_hints(None, None)
+
+    def plan(fn, args, donate, context_parallel=False, out_shardings=None):
+        return CellPlan(arch, shape, cfg, mesh, fn, args, donate,
+                        context_parallel, out_shardings, act_spec)
+
+    if shape.kind == "train":
+        opt_cfg = opt_cfg or adamw.AdamWConfig()
+        ab_opt = adamw.state_shapes(ab_params)
+        oshard = shd.shard_opt_state(ab_opt, pshard, mesh)
+        opt_specs = shd.abstract_with_shardings(ab_opt, oshard)
+        batch = shd.batch_specs(cfg, shape, mesh)
+        fn = build_train_step(model, opt_cfg,
+                              microbatches=cfg.train_microbatches,
+                              device=device)
+        metric_sh = shd.NamedSharding(mesh, shd.P())
+        out_sh = (pshard, oshard,
+                  {k: metric_sh for k in
+                   ("loss", "xent", "moe_aux", "grad_norm", "lr")})
+        return plan(fn, (params_specs, opt_specs, batch), (0, 1),
+                    out_shardings=out_sh)
+
+    logits_sh = shd.NamedSharding(
+        mesh, shd.P(dp if batch_shardable else None, None, "model"))
+
+    if shape.kind == "prefill":
+        batch = shd.batch_specs(cfg, shape, mesh)
+        fn = build_prefill_step(model, device=device)
+        return plan(fn, (params_specs, batch), (), out_shardings=logits_sh)
+
+    # decode
+    cache_specs, (seq_axes, batch_axes) = shd.cache_specs(model, cfg, shape,
+                                                          mesh)
+    batch = shd.batch_specs(cfg, shape, mesh)
+    pos = shd.ShapeDtypeStruct((), torch.int32, shd.NamedSharding(mesh,
+                                                                 shd.P()))
+    cp_spec = (seq_axes, batch_axes) if seq_axes else None
+    fn = build_decode_step(model, cp_spec, device=device,
+                           mesh=mesh if mesh_lib.is_live(mesh) else None)
+    cache_sh = tr.tree_map(lambda s: s.sharding, cache_specs)
+    return plan(fn, (params_specs, cache_specs, batch["tokens"], pos), (1,),
+                context_parallel=bool(seq_axes),
+                out_shardings=(logits_sh, cache_sh))

@@ -11,7 +11,8 @@ Mixers: ``attn``, ``xattn`` (self-attention, then cross-attention over the
 encoder's output: Whisper's decoder), ``mamba`` (``models/ssm.py``),
 ``mlstm`` and ``slstm`` (``models/xlstm.py``); ffn ``dense``, ``moe`` and
 ``none``. With ``learned_pos`` no attention applies RoPE. Context-parallel
-decode (``cp_axes``, ROADMAP Queue A 10) raises ``NotImplementedError``.
+decode (``cp_axes`` and ``mesh``) runs an attention layer's step on this
+rank's shard of the KV cache (``attention.make_cp_decode_attention``).
 """
 from __future__ import annotations
 
@@ -267,8 +268,8 @@ def decode_position(pos, device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def slot_decode(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x,
-                cache: Dict, pos, cp_axes=None, *,
-                kv_len=None) -> Tuple[torch.Tensor, Dict, object]:
+                cache: Dict, pos, cp_axes=None, *, kv_len=None,
+                mesh=None) -> Tuple[torch.Tensor, Dict, object]:
     """x (B,1,D); pos the 0-based index of this token, as
     :func:`decode_position` takes it. ``Model.decode_step`` forms (pos,
     kv_len) once a step with :func:`decode_position` and passes both;
@@ -281,39 +282,57 @@ def slot_decode(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x,
     writes its new state into ``cache`` in place. Returns (x, cache, aux),
     aux as :func:`slot_apply` gives it (a MoE layer routes the batch's B
     tokens as one group of its own).
+
+    ``cp_axes`` = (seq_axes, batch_axes) with a live ``mesh``: the cache's k
+    and v are this rank's shard of a KV cache split over ``seq_axes`` (and
+    its batch over ``batch_axes``), and the attention is context-parallel
+    (:func:`cp_attention`).
     """
-    return _decode(p, cfg, mixer, ffn, x, cache, pos, cp_axes, kv_len,
-                   _ffn_apply)
+    return _decode(p, cfg, mixer, ffn, x, cache, pos,
+                   cp_attention(cp_axes, mesh), kv_len, _ffn_apply)
+
+
+def cp_attention(cp_axes, mesh):
+    """The context-parallel attention of ``cp_axes`` = (seq_axes,
+    batch_axes) on ``mesh`` (``attention.make_cp_decode_attention``), or
+    None without ``cp_axes``. ``Model.decode_step`` makes it once a step
+    and hands it to every layer."""
+    if not cp_axes:
+        return None
+    seq_axes, batch_axes = cp_axes
+    return attn_mod.make_cp_decode_attention(tuple(seq_axes),
+                                             tuple(batch_axes), mesh)
 
 
 def slot_decode_output(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x,
-                       cache: Dict, pos, *,
-                       kv_len=None) -> Tuple[torch.Tensor, Dict]:
+                       cache: Dict, pos, *, kv_len=None,
+                       cp_attn=None) -> Tuple[torch.Tensor, Dict]:
     """:func:`slot_decode`'s (x, cache), with no aux computed: what
     ``Model.decode_step`` runs, since it drops the aux (the JAX package's
-    compiled step never runs that work; eager PyTorch would launch it)."""
-    x, cache, _ = _decode(p, cfg, mixer, ffn, x, cache, pos, None, kv_len,
+    compiled step never runs that work; eager PyTorch would launch it).
+    ``cp_attn``: the step's :func:`cp_attention`, or None."""
+    x, cache, _ = _decode(p, cfg, mixer, ffn, x, cache, pos, cp_attn, kv_len,
                           _ffn_output)
     return x, cache
 
 
 def _decode(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x, cache: Dict,
-            pos, cp_axes, kv_len, ffn_fn):
+            pos, cp_attn, kv_len, ffn_fn):
     check_slot(mixer, ffn)
-    if cp_axes:
-        raise NotImplementedError(
-            "context-parallel decode (cp_axes) is not ported yet: it comes "
-            "with ROADMAP Queue A 10 (mesh and sharding)")
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     B = x.shape[0]
     if mixer in ("attn", "xattn"):
         if kv_len is None:
             pos, kv_len = decode_position(pos, x.device)
         q, k, v = _qkv(p["attn"], cfg, h, pos.expand(B, 1))
-        for name, new in (("k", k), ("v", v)):
-            cache[name].index_copy_(1, pos, new.to(cache[name].dtype))
-        o = attn_mod.decode_attention(q, cache["k"], cache["v"], kv_len,
-                                      window=cfg.sliding_window)
+        if cp_attn is not None:
+            o, _, _ = cp_attn(q, cache["k"], cache["v"], k, v, pos, kv_len,
+                              window=cfg.sliding_window)
+        else:
+            for name, new in (("k", k), ("v", v)):
+                cache[name].index_copy_(1, pos, new.to(cache[name].dtype))
+            o = attn_mod.decode_attention(q, cache["k"], cache["v"], kv_len,
+                                          window=cfg.sliding_window)
         mix_out = dense(o.reshape(B, 1, cfg.n_heads * cfg.hd),
                         p["attn"]["wo"])
     elif mixer == "mamba":

@@ -223,9 +223,23 @@ class Model:
                                device=v.device) for k, v in one.items()}
         return cache
 
+    def cache_shapes(self, batch_size: int, max_seq: int,
+                     dtype=torch.bfloat16) -> Dict:
+        """The decode cache's tree as (shape, dtype) leaves, allocating
+        nothing (the JAX package's ``abstract_cache``)."""
+        cfg = self.cfg
+        shapes: Dict = {"layers": {}}
+        for j, (mixer, _ffn) in enumerate(cfg.pattern):
+            one = blk.slot_cache_init(cfg, mixer, batch_size, max_seq, dtype,
+                                      torch.device("meta"))
+            shapes["layers"][f"slot{j}"] = {
+                k: ((cfg.repeats,) + tuple(v.shape), v.dtype)
+                for k, v in one.items()}
+        return shapes
+
     def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor,
-                    pos, embeds: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, Dict]:
+                    pos, embeds: Optional[torch.Tensor] = None,
+                    cp_axes=None, mesh=None) -> Tuple[torch.Tensor, Dict]:
         """tokens (B, 1); pos: the position of this token, a Python int or,
         as the JAX package's traced ``jnp.int32``, an int32 tensor of one
         element on this model's device. A tensor is read on the device only
@@ -241,6 +255,13 @@ class Model:
         loss is neither kept nor computed
         (``blocks.slot_decode_output``), as the JAX package's compiled
         ``decode_step`` drops it.
+
+        ``cp_axes`` = (seq_axes, batch_axes) and a live ``mesh`` make the
+        step context-parallel: ``tokens`` are this rank's batch rows (its
+        shard over ``batch_axes``) and every attention layer's k and v in
+        ``cache`` this rank's shard of the sequence over ``seq_axes``
+        (``blocks.cp_attention``, made once a step); ``pos`` stays the
+        global position.
         """
         cfg = self.cfg
         pos, kv_len = blk.decode_position(pos, self.device)
@@ -248,19 +269,21 @@ class Model:
              else embeds.to(_dtype(cfg)).contiguous())  # may be a slice
         if cfg.learned_pos:
             x = x + params["pos_embed"].index_select(0, pos)[None]
+        cp_attn = blk.cp_attention(cp_axes, mesh)
         for r in range(cfg.repeats):
             slot_params = _layer(params["layers"], r)
             slot_cache = _layer(cache["layers"], r)
             for j, (mixer, ffn) in enumerate(cfg.pattern):
                 x, _ = blk.slot_decode_output(
                     slot_params[f"slot{j}"], cfg, mixer, ffn, x,
-                    slot_cache[f"slot{j}"], pos, kv_len=kv_len)
+                    slot_cache[f"slot{j}"], pos, kv_len=kv_len,
+                    cp_attn=cp_attn)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self.head(params, x), cache
 
     def prefill(self, params: Dict, batch: Dict, max_seq: int,
-                dtype=torch.bfloat16, step=None) -> Tuple[Dict,
-                                                          torch.Tensor]:
+                dtype=torch.bfloat16, step=None,
+                cache: Optional[Dict] = None) -> Tuple[Dict, torch.Tensor]:
         """Sequential prefill via decode steps (the reference path of the
         serving loop; production prefill runs ``forward``), the port's
         counterpart of the JAX package's ``lax.scan``. An encoder-decoder
@@ -270,8 +293,10 @@ class Model:
         at P + i. ``step(params, cache, tokens, pos, embeds=None)`` runs
         each step (default ``self.decode_step``; ``serve.decode_batch``
         passes a CUDA-graph runner; ``embeds`` is only passed to the
-        prefix's steps). Returns (cache, logits (B, 1, Vpad) of the last
-        prompt token)."""
+        prefix's steps). ``cache``: the zeroed cache to fill, by default a
+        new one of ``max_seq`` rows; a context-parallel step takes this
+        rank's shard of it (``init_cache(B, max_seq // shards)``). Returns
+        (cache, logits (B, 1, Vpad) of the last prompt token)."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         prefix = self._prefix(batch)
@@ -279,7 +304,8 @@ class Model:
             raise ValueError(f"prefill cache too small: {max_seq} < "
                              f"{S + prefix}")
         step = self.decode_step if step is None else step
-        cache = self.init_cache(B, max_seq, dtype)
+        if cache is None:
+            cache = self.init_cache(B, max_seq, dtype)
         if self.cfg.is_encoder_decoder:
             self._write_cross_cache(params, cache, self._encode(
                 params, batch["frames"].to(_dtype(self.cfg))))

@@ -16,8 +16,10 @@ that routing (experts, slots, keep masks) and the ``dropped``/``stolen``
 fractions are equal to it, not merely close. Every step is a fixed-shape
 tensor operation on the device: no boolean-mask indexing, no read of a
 device value on the host, so a decode step that runs it can be captured in
-a CUDA graph. The shard hints of the JAX package (``set_shard_hints``,
-``_hint``) wait for the mesh slice: :func:`moe_apply` takes no mesh.
+a CUDA graph. The layout hints (:func:`set_shard_hints`, set by
+``launch/steps.py::plan_cell``) pin the dispatch groups' layout at the JAX
+package's four places on a DTensor; on a rank-local tensor they are the
+identity, so routing is rank-local and unchanged.
 """
 from __future__ import annotations
 
@@ -33,6 +35,33 @@ class MoEStats(NamedTuple):
     dropped: torch.Tensor      # fraction of (token, k) assignments dropped
     stolen: torch.Tensor       # fraction rebalanced by WS overflow stealing
     load_std: torch.Tensor     # std of per-expert load (balance metric)
+
+
+# Launch-level layout hints (set by repro_torch.launch.steps.plan_cell; None
+# outside a planned cell). Module-level so model code stays mesh-agnostic:
+# specs are tuples of axis-name entries for the leading dims.
+_SHARD_HINTS = {"tokens": None, "experts": None}
+
+
+def set_shard_hints(tokens=None, experts=None):
+    _SHARD_HINTS["tokens"] = tokens
+    _SHARD_HINTS["experts"] = experts
+
+
+def _hint(x, kind):
+    """``x`` laid out by the ``kind`` hint: a DTensor redistributed to the
+    hint's spec on its own mesh; a rank-local tensor (or no hint) as it
+    is."""
+    spec = _SHARD_HINTS.get(kind)
+    if spec is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.launch.sharding import NamedSharding
+    full = tuple(spec) + (None,) * (x.ndim - len(spec))
+    return x.redistribute(x.device_mesh, NamedSharding(
+        x.device_mesh, full).placements())
 
 
 def moe_init(gen: Optional[torch.Generator], d_model: int, d_ff: int,
@@ -174,7 +203,7 @@ def _moe(params: dict, x: torch.Tensor, n_experts: int, top_k: int,
     G = n_groups if T % n_groups == 0 else 1
     Tg = T // G
     C = capacity(Tg, top_k, capacity_factor, n_experts)
-    xg = x.reshape(G, Tg, D)
+    xg = _hint(x.reshape(G, Tg, D), "tokens")
     routes = [_route(xg[g], params["router"], n_experts, top_k, C,
                      ws_rebalance) for g in range(G)]
 
@@ -186,12 +215,12 @@ def _moe(params: dict, x: torch.Tensor, n_experts: int, top_k: int,
     for g, r in enumerate(routes):
         rows = torch.where(r.keep, r.flat_e * C + r.slot_c, spare_row)
         buf[g].index_copy_(0, rows, xg[g][tok_idx])
-    buf = buf[:, :spare_row].reshape(G, n_experts, C, D)
+    buf = _hint(buf[:, :spare_row].reshape(G, n_experts, C, D), "experts")
 
     # expert FFN over all groups: the groups' slots side by side, per expert
     xb = buf.transpose(0, 1).reshape(n_experts, G * C, D)
-    out_buf = _expert_ffn(params, xb).reshape(n_experts, G, C, D) \
-        .transpose(0, 1)                                         # (G,E,C,D)
+    out_buf = _hint(_expert_ffn(params, xb).reshape(n_experts, G, C, D)
+                    .transpose(0, 1), "experts")                 # (G,E,C,D)
 
     # gather: token t sums its k contributions in order, in x's dtype (the
     # JAX package's scatter-add applies them in index order on the CPU)
@@ -204,7 +233,7 @@ def _moe(params: dict, x: torch.Tensor, n_experts: int, top_k: int,
         for j in range(1, top_k):
             y = y + contrib[:, j]
         ys.append(y)
-    return torch.stack(ys).reshape(B, S, D), routes
+    return _hint(torch.stack(ys), "tokens").reshape(B, S, D), routes
 
 
 def moe_apply(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,

@@ -7,7 +7,8 @@ an error-feedback buffer (EF-SGD), which restores convergence to the
 uncompressed trajectory. On one card there is no reduction to compress:
 the train step applies the quantize -> dequantize sandwich to the gradients
 it reduces (``launch/train.py``), so the numerics are those of the
-compressed wire; the wire itself waits for the mesh (Queue A 10).
+compressed wire; the wire itself waits for the sharded train step
+(Queue A 10b).
 """
 from __future__ import annotations
 

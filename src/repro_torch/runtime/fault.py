@@ -11,8 +11,8 @@
   (``StragglerMonitor``) for the work-stealing scheduler's
   ``straggler_rebalance``.
 
-Restoring onto another mesh (``state_shardings``) waits for the mesh
-(Queue A 10).
+Training a state split across ranks (``state_shardings``) waits for the
+sharded train step (Queue A 10b).
 """
 from __future__ import annotations
 
@@ -90,9 +90,10 @@ def run_training(
     "losses"} (a loss for every step run, re-run steps included). A
     checkpoint restores onto the devices of ``init_state``'s leaves."""
     if state_shardings is not None:
-        raise NotImplementedError("run_training(state_shardings=) restores "
-                                  "onto a device mesh, which the port has "
-                                  "not yet (Queue A 10)")
+        raise NotImplementedError("run_training(state_shardings=) trains "
+                                  "a state split across ranks, which needs "
+                                  "a sharded train step the port has not "
+                                  "yet (Queue A 10b)")
     state = init_state
     start_step = 0
     restarts = 0

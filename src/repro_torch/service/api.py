@@ -30,6 +30,7 @@ from repro_torch.core import engine as eng
 from repro_torch.core.sweep import (GridResult, canonical_grid, lam_pair,
                                     resolve_model, run_grid)
 from repro_torch.core.topology import Topology
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.service.broker import (PairedQuery, PairedResult,
                                         QueryBroker, QueryResult, SimQuery)
 from repro_torch.service.estimator import (AdaptivePolicy, PairedPolicy,
@@ -43,7 +44,12 @@ class SimulationService:
     """Facade wiring store + broker + estimator behind :meth:`query` (one
     question), :meth:`query_many` (a coalesced batch), :meth:`query_pair`
     (a paired A/B comparison) and :meth:`sweep` (a store-backed chunked
-    grid)."""
+    grid).
+
+    ``mesh`` and ``shard_axes`` shard every dispatch's rows over a mesh
+    (``sweep.simulate_sharded``; the broker's module docstring says what a
+    mesh of several ranks changes): every rank builds its service on the
+    same store root and asks the same questions."""
 
     def __init__(self, store: Optional[ResultStore] = None,
                  root: Optional[os.PathLike] = None,
@@ -54,8 +60,10 @@ class SimulationService:
                  dispatch_log_max: Optional[int] = 1024,
                  metrics: Optional[obs.MetricsRegistry] = None,
                  resilience: Optional[rz.ResilienceConfig] = None,
-                 device: eng.DeviceLike = None):
+                 device: eng.DeviceLike = None, mesh=None,
+                 shard_axes: Sequence[str] = ("data",)):
         self.device = eng.resolve_device(device)
+        self.mesh, self.shard_axes = mesh, tuple(shard_axes)
         self.metrics = metrics if metrics is not None else obs.REGISTRY
         self.store = store if store is not None else ResultStore(
             root=root, metrics=self.metrics)
@@ -68,7 +76,8 @@ class SimulationService:
                                   straggler_sort=straggler_sort,
                                   dispatch_log_max=dispatch_log_max,
                                   metrics=self.metrics,
-                                  resilience=resilience, device=self.device)
+                                  resilience=resilience, device=self.device,
+                                  mesh=mesh, shard_axes=shard_axes)
         self.confidence = float(confidence)
 
     # -- query construction -------------------------------------------------
@@ -178,7 +187,10 @@ class SimulationService:
         it finishes, and looked up before being recomputed — so a sweep
         killed mid-run (any process, any host sharing the store root)
         resumes recomputing only the unfinished chunks, with no resume
-        bookkeeping on the caller."""
+        bookkeeping on the caller. Under a mesh of several ranks a chunk is
+        looked up on every rank and taken from the store only if every rank
+        finds it, and only the mesh's first rank writes the store; every
+        rank returns the whole grid once the first rank's writes are in."""
         lam_flat = [l for entry in lam_list for l in lam_pair(entry)]
         model = resolve_model(topology, task_model, W_list=W_list,
                               lam_list=lam_flat, mwt=mwt,
@@ -192,20 +204,29 @@ class SimulationService:
             return store_mod.chunk_key(model, grid, chunk_size, ci)
 
         def persist(ci: int, g: GridResult):
-            self.store.put(ckey(ci), g,
-                           meta={"grid": grid, "model": canon,
-                                 "chunk": {"size": int(chunk_size),
-                                           "idx": int(ci)}})
+            if mesh_lib.is_writer(self.mesh):
+                self.store.put(ckey(ci), g,
+                               meta={"grid": grid, "model": canon,
+                                     "chunk": {"size": int(chunk_size),
+                                               "idx": int(ci)}})
             if on_chunk is not None:
                 on_chunk(ci, g)
 
+        def lookup(ci: int) -> Optional[GridResult]:
+            g = self.store.get(ckey(ci))
+            if mesh_lib.all_agree([g is not None], self.mesh)[0]:
+                return g
+            return None
+
         with obs.span("service.sweep", backend=str(backend)):
-            return run_grid(topology, W_list=W_list, lam_list=lam_list,
-                            reps=reps, theta=theta, seed0=seed0,
-                            task_model=model, chunk_size=chunk_size,
-                            on_chunk=persist, backend=backend,
-                            device=self.device,
-                            chunk_lookup=lambda ci: self.store.get(ckey(ci)))
+            out = run_grid(topology, W_list=W_list, lam_list=lam_list,
+                           reps=reps, theta=theta, seed0=seed0,
+                           task_model=model, chunk_size=chunk_size,
+                           on_chunk=persist, backend=backend,
+                           device=self.device, chunk_lookup=lookup,
+                           mesh=self.mesh, shard_axes=self.shard_axes)
+        mesh_lib.barrier(self.mesh)      # the first rank's writes are in
+        return out
 
     # -- introspection ------------------------------------------------------
 

@@ -40,6 +40,15 @@ backend that device auto-selects (``cuda`` on the card, ``torch`` on the
 CPU). A dispatch on the card never gives way to the plain loop or to the
 host (``resilience.fallback_chain``).
 
+With a ``mesh`` (``launch/mesh.py``) every dispatch shards its rows over
+the mesh's ``shard_axes`` (``sweep.simulate_sharded``); the mesh pins the
+default backend (``cuda`` on the card, ``torch`` on the CPU) and turns off
+fallback demotion. Every rank of a mesh of several ranks runs the same
+flush: a key counts as stored only when every rank finds it (one
+all-reduce), no advisory locks are taken, and only the mesh's first rank
+writes the store, the others waiting for its writes at a barrier before
+the flush returns.
+
 Adaptive queries participate in the same rounds: round r of every pending
 query lands in the same bucket dispatch, so N concurrent adaptive queries
 still cost one device program per (bucket, round). Paired A/B queries
@@ -66,8 +75,10 @@ from repro_torch.core import backend as bk
 from repro_torch.service import resilience as rz
 from repro_torch.core import engine as eng
 from repro_torch.core.sweep import (GridResult, GridRows, canonical_grid,
-                                    concat_grids, grid_rows, run_rows)
+                                    concat_grids, grid_rows, mesh_backend,
+                                    run_rows)
 from repro_torch.core.topology import remote_prob_u32
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.service import store as store_mod
 from repro_torch.service.estimator import (AdaptivePolicy, CellTable,
                                            P2Quantiles, PairedCells,
@@ -592,13 +603,22 @@ class QueryBroker:
                  dispatch_log_max: Optional[int] = 1024,
                  metrics: Optional[obs.MetricsRegistry] = None,
                  resilience: Optional[rz.ResilienceConfig] = None,
-                 device: eng.DeviceLike = None):
+                 device: eng.DeviceLike = None, mesh=None,
+                 shard_axes: Sequence[str] = ("data",)):
         self.device = eng.resolve_device(device)
         self.store = store if store is not None else ResultStore()
         self.pad_pow2 = pad_pow2
         self.confidence = float(confidence)
         self.relax_max_events = bool(relax_max_events)
-        self.lock_wait_s = lock_wait_s if lock_wait_s is None \
+        self._mesh = mesh
+        self._ranks = mesh_lib.world_of(mesh)
+        self._writer = mesh_lib.is_writer(mesh)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a mesh of {mesh.device_type} ranks for a "
+                             f"broker on {self.device}")
+        # every rank of a multi-rank mesh must take the same branches: no
+        # advisory locks (a lock one rank holds would hold the others)
+        self.lock_wait_s = None if lock_wait_s is None or self._ranks > 1 \
             else float(lock_wait_s)
         # Self-healing dispatch config (retry / fallback chain / breaker /
         # bisection salvage); ResilienceConfig(enabled=False) restores the
@@ -614,7 +634,8 @@ class QueryBroker:
         self._dispatch = dispatch or (
             lambda model, rows, rp, backend=None, ev_budget=None: run_rows(
                 model, rows, remote_prob=rp, backend=backend,
-                ev_budget=ev_budget, device=self.device))
+                ev_budget=ev_budget, device=self.device, mesh=mesh,
+                shard_axes=shard_axes))
         self._queue: List[Union[SimQuery, PairedQuery]] = []
         # Telemetry for the service_throughput bench / coalescing tests.
         # Legacy integer attributes stay (stats()/tests read them); every
@@ -634,7 +655,10 @@ class QueryBroker:
     def default_backend(self) -> str:
         """The backend a query that names none is bucketed on: the device
         rule's auto-selection (``cuda`` on the card, ``torch`` on the CPU,
-        unless ``REPRO_WS_BACKEND`` names another)."""
+        unless ``REPRO_WS_BACKEND`` names another); under a mesh the mesh's
+        (``sweep.mesh_backend``), whatever the environment says."""
+        if self._mesh is not None:
+            return mesh_backend(None, self.device).name
         return bk.get_backend(None, self.device).name
 
     def _count(self, attr: str, metric: str, n: int = 1):
@@ -712,8 +736,13 @@ class QueryBroker:
         owned: set = set()               # advisory locks this flush holds
         waiting: Dict[int, str] = {}     # keys locked by another process
 
+        hits = [self._from_cache(q, key) for q, key in zip(queue, keys)]
+        if self._ranks > 1:              # stored for every rank, or for none
+            agreed = mesh_lib.all_agree([h is not None for h in hits],
+                                        self._mesh)
+            hits = [h if ok else None for h, ok in zip(hits, agreed)]
         for i, (q, key) in enumerate(zip(queue, keys)):
-            cached = self._from_cache(q, key)
+            cached = hits[i]
             if cached is not None:
                 self._count("n_cache_hits", "broker.cache_hits")
                 self._observe_cached(q, cached)
@@ -774,6 +803,7 @@ class QueryBroker:
         finally:
             for key in owned:
                 self.store.unlock(key)
+        mesh_lib.barrier(self._mesh)     # the first rank's writes are in
 
         for i, owner in aliases.items():
             src = results[owner]
@@ -797,7 +827,8 @@ class QueryBroker:
                 if not wants:
                     results[i] = pend.result(keys[i])
                     self._observe_reps(results[i], pend)
-                    pend.persist(self.store, keys[i])
+                    if self._writer:
+                        pend.persist(self.store, keys[i])
                     if keys[i] in owned:
                         self.store.unlock(keys[i])
                         owned.discard(keys[i])
@@ -898,9 +929,10 @@ class QueryBroker:
             relaxed=bool(self.relax_max_events and len(set(caps)) > 1),
             sorted=order is not None)
         cfg = self.resilience
-        # The device rule: on the card, the primary alone.
+        # The device rule: on the card, the primary alone. A mesh pins the
+        # backend: no demotion to another.
         chain = rz.fallback_chain(bucket.backend, model, self.device) \
-            if cfg.enabled else [bucket.backend]
+            if cfg.enabled and self._mesh is None else [bucket.backend]
 
         def call(rws, buds, bname, top):
             rz.fault_point("broker.dispatch", backend=bname, n_rows=len(rws))

@@ -5,6 +5,7 @@ numpy leaves to the JAX package and — through ``repro_torch.core.interop`` —
 to the port, and compares every field of the two results with
 ``assert_array_equal``: the tolerance is none.
 """
+import contextlib
 import dataclasses
 import time
 import types
@@ -156,3 +157,16 @@ TOPOLOGIES = {
     "ring": lambda: JT.multi_cluster(4, 3, 7, 2, "ring"),
 }
 STRATEGIES = (JT.UNIFORM, JT.LOCAL_FIRST, JT.INV_DISTANCE, JT.ROUND_ROBIN)
+
+
+@contextlib.contextmanager
+def cpu_mesh(shape=(1, 1), axes=("data", "model")):
+    """A world of one ``gloo`` rank in this process and a mesh over it on
+    the CPU; the process group is destroyed on the way out."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as pmesh
+    pmesh.init_world("gloo", device="cpu")
+    try:
+        yield pmesh.make_test_mesh(shape, axes, device="cpu")
+    finally:
+        dist.destroy_process_group()

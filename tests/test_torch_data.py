@@ -161,8 +161,21 @@ def test_documents_end_in_eos():
 
 
 def test_shard_batch_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
-        ppipe.shard_batch({}, None)
+    """``shard_batch`` places a batch onto a mesh: on a one-rank mesh every
+    leaf is a DTensor holding the whole batch, split over the dp axes."""
+    from torch.distributed.tensor import DTensor, Shard
+    from test_torch_common import cpu_mesh
+    cfg = pget("qwen3-1.7b").reduced()
+    shape = dataclasses.replace(PSHAPES["train_4k"], seq_len=16,
+                                global_batch=2)
+    b = ppipe.batch_at(cfg, shape, 0, device="cpu")
+    with cpu_mesh() as mesh:
+        placed = ppipe.shard_batch(b, mesh)
+        assert set(placed) == set(b)
+        for k, v in placed.items():
+            assert isinstance(v, DTensor) and v.shape == b[k].shape
+            assert v.placements[0] == Shard(0)
+            assert torch.equal(v.to_local(), b[k])
 
 
 def test_no_silent_cpu_batch_without_a_cuda_device():

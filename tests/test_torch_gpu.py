@@ -1205,3 +1205,161 @@ def test_a_failure_before_the_first_checkpoint_on_the_card(tmp_path):
         finals.append(ckpt.load_checkpoint(tmp_path / name, state)[1])
     for a, b in zip(tr.leaves(finals[0]), tr.leaves(finals[1])):
         assert a.is_cuda and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the mesh: a world of one NCCL rank on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_mesh():
+    """A world of one NCCL rank in this process and a (1, 1) ("data",
+    "model") mesh on the card; the process group is destroyed after."""
+    _need_card()
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as pmesh
+    assert pmesh.init_world() == "nccl"
+    try:
+        yield pmesh.make_test_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_cp_decode_in_a_graph_equals_the_plain_step(nccl_mesh):
+    """The reduced qwen3's context-parallel step captured in a CUDA graph
+    (the merge's NCCL all-reduces in it) against the step without context
+    parallelism: logits within 2e-2 x max|logit|, the same greedy tokens,
+    no flash_decode launch; and ``decode_batch`` with ``cp_axes`` equal to
+    ``decode_batch``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request, decode_batch
+    from repro_torch.launch.steps import GraphedDecodeStep
+    from repro_torch.models import build_model
+    cfg = get_config("qwen3-1.7b").reduced()
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(7))
+    S, new, B = 8, 6, 4
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(1, cfg.vocab_size, (B, S)).astype(np.int32)
+    tokens = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+    cp = (("model",), ("data",))
+
+    def loop(step):
+        cache, logits = model.prefill(params, {"tokens": tokens},
+                                      max_seq=S + new, step=step)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        toks, steps = [], []
+        for i in range(new):
+            toks.append(tok[:, 0])
+            logits, cache = step(params, cache, tok, S + i)
+            steps.append(logits.clone())
+            tok = torch.argmax(logits, dim=-1)
+        return torch.stack(toks, 1).cpu().numpy(), steps
+
+    plain_tokens, plain_logits = loop(GraphedDecodeStep(model))
+    ops.reset_counts()
+    graph = GraphedDecodeStep(model, cp_axes=cp, mesh=nccl_mesh)
+    cp_tokens, cp_logits = loop(graph)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_decode"] == 0
+    assert graph.stats()["replays"] == S + new - 1
+    np.testing.assert_array_equal(cp_tokens, plain_tokens)
+    for a, b in zip(plain_logits, cp_logits):
+        assert float((a - b).abs().max()) <= 2e-2 * float(a.abs().max())
+    reqs = [Request(i, p, new) for i, p in enumerate(prompts)]
+    np.testing.assert_array_equal(
+        decode_batch(model, params, reqs, cp_axes=cp, mesh=nccl_mesh),
+        decode_batch(model, params, reqs))
+    assert decode_batch.last_graph["replays"] == S + new - 1
+
+
+@pytest.mark.gpu
+def test_cp_decode_in_a_graph_equals_the_one_shard_step(nccl_mesh,
+                                                        monkeypatch):
+    """On a world of one rank the merge changes nothing, so the
+    context-parallel step replayed from a graph gives, bit for bit, the
+    logits of the step without a mesh whose attention is the partials'
+    arithmetic on one shard (``decode_attention_partial``, normalized)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import GraphedDecodeStep
+    from repro_torch.models import attention as pattn
+    from repro_torch.models import build_model
+    cfg = get_config("qwen3-1.7b").reduced()
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(7))
+    S, new, B = 8, 6, 4
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        1, cfg.vocab_size, (B, S + new)), dtype=torch.int64, device="cuda")
+
+    def forced(step):
+        cache, logits = model.prefill(params, {"tokens": tokens[:, :S]},
+                                      max_seq=S + new, step=step)
+        out = [logits]
+        for i in range(S, S + new - 1):
+            logits, cache = step(params, cache, tokens[:, i:i + 1], i)
+            out.append(logits.clone())
+        return torch.stack(out)
+
+    cp = forced(GraphedDecodeStep(model, cp_axes=(("model",), ("data",)),
+                                  mesh=nccl_mesh))
+
+    def one_shard(q, k_cache, v_cache, kv_len, *, window=0):
+        o, _m, l = pattn.decode_attention_partial(q, k_cache, v_cache, 0,
+                                                  kv_len, window=window)
+        return (o / torch.clamp(l, min=1e-30)[..., None])[:, None] \
+            .to(q.dtype)
+
+    monkeypatch.setattr(pattn, "decode_attention", one_shard)
+    assert torch.equal(forced(GraphedDecodeStep(model)), cp)
+
+
+@pytest.mark.gpu
+def test_cp_decode_step_reads_nothing_on_the_host(nccl_mesh):
+    """The context-parallel step, as the graph captures it, reads no device
+    value on the host and copies nothing back (the dispatch lint's
+    recorder)."""
+    from repro_torch.check import dispatch_lint as dl
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("qwen3-1.7b").reduced()
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(1))
+    cache = model.init_cache(2, 8)
+    tok = torch.ones((2, 1), dtype=torch.int64, device="cuda")
+    pos = torch.full((1,), 3, dtype=torch.int32, device="cuda")
+    model.decode_step(params, cache, tok, pos, cp_axes=(("model",), ()),
+                      mesh=nccl_mesh)
+    with dl.OpRecorder() as rec:
+        model.decode_step(params, cache, tok, pos, cp_axes=(("model",), ()),
+                          mesh=nccl_mesh)
+    assert rec.ops
+    assert not [op.name for op in rec.ops
+                if op.name == dl.SYNC_OP or op.to_host]
+
+
+@pytest.mark.gpu
+def test_run_rows_on_an_nccl_mesh_equals_run_rows(nccl_mesh):
+    """Each body's sweep through ``run_rows(mesh=)`` on the card: one launch,
+    every field equal to ``run_rows()``'s."""
+    from repro_torch.core import sweep as psw
+    topo = PT.one_cluster(8, 2)
+    for body, kw in (("ws_sim_divisible", dict(W_list=[4000])),
+                     ("ws_sim_dag", dict(task_model="dag",
+                                         dag=pgen.merge_sort(300, 32))),
+                     ("ws_sim_adaptive", dict(task_model="adaptive",
+                                              W_list=[4000]))):
+        model = psw.resolve_model(topo, lam_list=[2, 5],
+                                  **{k: v for k, v in kw.items()})
+        rows = psw.grid_rows(kw.get("W_list", (0,)), [2, 5], 7)
+        before = ws_sim_cuda.launches_by_body[body]
+        got = psw.run_rows(model, rows, mesh=nccl_mesh,
+                           shard_axes=("data", "model"))
+        assert ws_sim_cuda.launches_by_body[body] == before + 1
+        want = psw.run_rows(model, rows)
+        for f in ("makespan", "n_requests", "n_success", "n_fail",
+                  "total_idle", "startup_end", "overflow"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+        for k in want.extras:
+            np.testing.assert_array_equal(got.extras[k], want.extras[k])

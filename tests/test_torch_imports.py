@@ -84,7 +84,8 @@ def test_port_has_the_expected_modules():
                  "data/__init__.py", "data/pipeline.py", "data/_threefry.py",
                  "checkpoint/__init__.py", "checkpoint/ckpt.py",
                  "runtime/__init__.py", "runtime/fault.py",
-                 "launch/train.py"):
+                 "launch/train.py", "launch/mesh.py",
+                 "launch/sharding.py"):
         assert want in names, want
     for other in ("examples/quickstart_torch.py",
                   "examples/paper_sweep_torch.py",
@@ -537,3 +538,21 @@ def test_lm_kernel_wrappers_refuse_other_devices():
         ops.flash_attention(q, q, q)
     with pytest.raises(RuntimeError, match="CUDA devices"):
         ops.flash_decode(q[:, :1], q, q, 2)
+
+
+def test_no_quiet_gloo_and_no_silent_cpu_mesh():
+    """A mesh follows the device rule (None is the card, and raises
+    without one), and nccl is never swapped for gloo: gloo runs only where
+    the device is the CPU or the caller names it."""
+    _skip_if_cuda()
+    from repro_torch.launch import mesh as pmesh
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pmesh.make_test_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pmesh.init_world()
+    with pytest.raises(ValueError, match="nccl"):
+        pmesh.init_world("nccl", device="cpu")
+    with pytest.raises(ValueError, match="init_method"):
+        pmesh.init_world("gloo", world_size=4, device="cpu")
+    import torch.distributed as dist
+    assert not dist.is_initialized()

@@ -268,8 +268,8 @@ def test_blocks_vs_jax(f32):
         for key in ("k", "v"):
             np.testing.assert_allclose(_np(pcache[key]), _np(jcache[key]),
                                        atol=1e-5, rtol=1e-5)
-    # what is still to port: context-parallel decode
-    with pytest.raises(NotImplementedError, match="cp_axes.*Queue A 10"):
+    # context-parallel decode runs on a live mesh only
+    with pytest.raises(ValueError, match="live mesh"):
         pblk.slot_decode(player, jc, "attn", "dense", _t(x[:, :1]), pcache,
                          3, cp_axes=(("model",), ()))
 

@@ -244,10 +244,20 @@ def test_an_uncommitted_checkpoint_is_never_loaded(tmp_path):
 
 
 def test_checkpoint_on_a_mesh_waits_for_queue_a10(tmp_path):
-    ckpt.save_checkpoint(tmp_path, 0, {"w": torch.zeros(4, 4)})
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
-        ckpt.load_checkpoint(tmp_path, {"w": torch.zeros(4, 4)},
-                             shardings={"w": None})
+    """``load_checkpoint(shardings=)`` restores each leaf as a DTensor on
+    the mesh (one rank here: its shard is the whole leaf)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.sharding import NamedSharding
+    from test_torch_common import cpu_mesh
+    w = torch.arange(16, dtype=torch.float32).reshape(4, 4)
+    ckpt.save_checkpoint(tmp_path, 0, {"w": w})
+    with cpu_mesh() as mesh:
+        _, tree, _ = ckpt.load_checkpoint(
+            tmp_path, {"w": ((4, 4), torch.bfloat16)},
+            shardings={"w": NamedSharding(mesh, ("data", "model"))})
+        assert isinstance(tree["w"], DTensor)
+        assert tree["w"].dtype == torch.bfloat16
+        assert torch.equal(tree["w"].full_tensor().float(), w)
     with pytest.raises(FileNotFoundError):
         ckpt.load_checkpoint(tmp_path / "none", {"w": torch.zeros(4, 4)})
 
