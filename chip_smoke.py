@@ -2669,6 +2669,12 @@ def lm_rms_cases(gen, dtype):
                                (TRAIN_EXAMPLE_B * TRAIN_EXAMPLE_S, 64, 16, 4,
                                 2)):
         shapes += ((rows, D), (rows * H, hd), (rows * KV, hd))
+    # phase mesh's sharded prefill on the 2 x 2 mesh: norm1, norm2 and the
+    # final norm on a rank's (B/2 x S/2) rows, the q and k norms on its
+    # heads over the whole sequence
+    mesh_rows = PREFILL_B // 2 * PREFILL_S
+    shapes += ((mesh_rows // 2, 2048), (mesh_rows * 8, 128),
+               (mesh_rows * 4, 128))
     tol = LM_TOL[("rms_norm", dtype)]
     out = []
     for R, D in shapes:
@@ -2745,6 +2751,10 @@ def lm_attention_cases(gen, dtype):
              (TRAIN_PARITY_B, TRAIN_PARITY_S, TRAIN_PARITY_S, 16, 8, 128,
               True, 0, 0),
              (TRAIN_EXAMPLE_B, TRAIN_EXAMPLE_S, TRAIN_EXAMPLE_S, 4, 2, 16,
+              True, 0, 0),
+             # phase mesh's sharded prefill on the 2 x 2 mesh: a rank's
+             # rows over "data", its heads over "model", the whole sequence
+             (PREFILL_B // 2, PREFILL_S, PREFILL_S, 16 // 2, 8 // 2, 128,
               True, 0, 0))
     tol = LM_TOL[("attention", dtype)]
     out = []
@@ -4713,7 +4723,10 @@ def phase_lm_timing(main: dict) -> list:
                      lm_time_rms(gen, PREFILL_B * PREFILL_S, 8192, 50),
                      lm_time_rms(gen, SERVE_REQUESTS, 8192, 200),
                      # lm_train's full-width step
-                     lm_time_rms(gen, TRAIN_B * TRAIN_S, 2048, 50)],
+                     lm_time_rms(gen, TRAIN_B * TRAIN_S, 2048, 50),
+                     # a rank's rows in phase mesh's sharded prefill on
+                     # the 2 x 2 mesh (B/2 x S/2)
+                     lm_time_rms(gen, PREFILL_B * PREFILL_S // 4, 2048, 50)],
         "flash_attention": [lm_time_attention(gen, PREFILL_B, PREFILL_S, 10),
                             lm_time_attention(gen, PREFILL_B, PREFILL_S, 10,
                                               H, KV),
@@ -4735,7 +4748,11 @@ def phase_lm_timing(main: dict) -> list:
                                               internvl_prefill_rows(), 10,
                                               *INTERNVL_HEADS),
                             # lm_train's full-width step
-                            lm_time_attention(gen, TRAIN_B, TRAIN_S, 10)],
+                            lm_time_attention(gen, TRAIN_B, TRAIN_S, 10),
+                            # a rank's heads in phase mesh's sharded
+                            # prefill on the 2 x 2 mesh
+                            lm_time_attention(gen, PREFILL_B // 2, PREFILL_S,
+                                              10, 16 // 2, 8 // 2)],
         "flash_decode": [lm_time_decode(gen, SERVE_REQUESTS, serve_kv,
                                         serve_kv, 200),
                          lm_time_decode(gen, SERVE_REQUESTS, 2048, 2048, 50),
@@ -5151,6 +5168,184 @@ def mesh_cp_attention(mesh) -> dict:
                 equal_to_one_shard=True, seconds=seconds)
 
 
+#: phase mesh's prefill: qwen3-1.7b at full width on a PREFILL_B x
+#: PREFILL_S prompt drawn from this seed, its weights laid out by the
+#: placement rules (TP on "model", FSDP on "data", sequence parallelism)
+MESH_PREFILL_SEED = LM_SEED + 11
+#: the leaves the rules leave whole: the norms
+MESH_WHOLE_LEAVES = {"final_norm", "norm1", "norm2", "q_norm", "k_norm"}
+
+
+def prefill_collectives(cfg, model_size: int, sp: bool) -> dict:
+    """PERF.md's count of a sharded prefill of an attention / dense stack
+    of L layers: per layer 7 FSDP gathers (wq, wk, wv, wo, w_gate, w_up,
+    w_down), 5 column and 2 row products, 2 sequence gathers and 2
+    reduce-scatters with SP (2 all-reduces without), 2 head gathers (k, v)
+    where KV % |model| != 0; per step the embedding's and the head's FSDP
+    gathers, the embedding's reduce-scatter (all-reduce), and with SP the
+    last position's broadcast."""
+    L = cfg.n_layers
+    cut = cfg.n_kv_heads % model_size != 0
+    calls = dict(fsdp_gather=7 * L + 2, column=5 * L, row=2 * L,
+                 sp_gather=2 * L if sp else 0,
+                 head_gather=2 * L if cut else 0, embed=1, head=1,
+                 last_position=1)
+    collectives = dict(
+        all_gather=calls["fsdp_gather"] + calls["sp_gather"]
+        + calls["head_gather"],
+        reduce_scatter=2 * L + 1 if sp else 0,
+        all_reduce=0 if sp else 2 * L + 1, broadcast=1 if sp else 0)
+    return {"calls": calls, "collectives": collectives}
+
+
+def mesh_prefill(mesh, world: int, work: Path) -> dict:
+    """qwen3-1.7b at full width prefilling a PREFILL_B x PREFILL_S prompt
+    with each rank holding only its shards of the weights
+    (``sharding.local_params``), its rows of the batch (``shard_batch``)
+    and the step's collectives issued by ``launch/partition.py``.
+
+    Each rank holds its shard bytes (the placement rules' ``shard_shape``
+    summed over the leaves) and only the norms whole. Each sharded step
+    (bf16, then the same weights in float32) is counted on its own: every
+    count at 0 just before, and just after one ``rms_norm`` per norm
+    (``row_in_registers``) and one ``flash_attention`` a layer (the
+    dtype's variant), and the collectives of :func:`prefill_collectives`.
+    World 1 (NCCL, 1 x 1; every collective a real NCCL call over a group
+    of one): the bf16 logits equal the unsharded ``build_prefill_step``'s
+    bit for bit; each step's ms beside the unsharded one's; it writes its
+    bf16 and float32 logits for world 4. World 4 (gloo, 2 x 2: the batch
+    on "data", heads, columns and the sequence on "model"): the float32
+    logit shard within 1e-3·max|logit| + 1e-3 of world 1's matching
+    slice; the bf16 distance and equal argmax tokens recorded, not
+    bounded; each step's seconds and the rank's peak memory."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import mesh as ml
+    from repro_torch.launch import partition as pt
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import make_act_constrainer
+    cfg = get_lm_config(LM_ARCH)
+    model = build_lm_model(cfg)
+    params, _ = init_weights(model, LM_SEED)
+    tokens = torch.as_tensor(np.random.default_rng(MESH_PREFILL_SEED).integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S)), dtype=torch.int64,
+        device=DEV)
+    batch = {"tokens": tokens}
+    line = dict(batch=PREFILL_B, seq=PREFILL_S, mesh=ml.mesh_shape(mesh),
+                layers=cfg.n_layers)
+
+    def timed(step, p):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(p, batch)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    if world == 1:
+        plain = build_prefill_step(model)
+        timed(plain, params)                                    # warm
+        want, seconds = timed(plain, params)
+        line["unsharded_ms"] = seconds * 1e3
+    shardings = shd.shard_params(model.param_shapes(), mesh)
+    whole_bytes = sum(t.numel() * t.element_size()
+                      for t in tr.leaves(params))
+    lp = shd.local_params(params, shardings, mesh)
+    whole = {path[-1] for (path, a), b in zip(tr.flatten_with_path(lp),
+                                               tr.leaves(params)) if a is b}
+    if world > 1:
+        del params
+    torch.cuda.empty_cache()
+    local_bytes = sum(t.numel() * t.element_size() for t in tr.leaves(lp))
+    want_bytes = shd.shard_bytes(model.param_shapes(), shardings)
+    if local_bytes != want_bytes or whole != MESH_WHOLE_LEAVES:
+        raise AssertionError(f"mesh prefill: the rank holds {local_bytes} "
+                             f"bytes against its shards' {want_bytes}, "
+                             f"whole leaves {sorted(whole)}")
+    line["weights"] = dict(local_bytes=local_bytes, whole_bytes=whole_bytes,
+                           share=local_bytes / whole_bytes,
+                           whole_leaves=sorted(whole))
+    batch = shard_batch(batch, mesh)
+    act = make_act_constrainer(mesh, ml.dp_axes(mesh), sequence_parallel=True)
+    norms = 4 * cfg.n_layers + 1
+    formula = prefill_collectives(cfg, ml.mesh_shape(mesh)["model"], True)
+    rows = PREFILL_B // ml.axis_size(mesh, "data")
+    vocab = cfg.padded_vocab // ml.axis_size(mesh, "model")
+    lo_b = ml.coordinate(mesh)["data"] * rows
+    lo_v = ml.coordinate(mesh)["model"] * vocab
+
+    def counted(model_, p, dtype):
+        step = build_prefill_step(model_, act_spec=act)
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_counts()
+        pt.reset_counts()
+        logits, seconds = timed(step, p)
+        counts, by_variant = lm_counts_since_reset(
+            {"rms_norm": {"row_in_registers": norms},
+             "flash_attention": {ATTN_VARIANT[dtype]: cfg.n_layers}},
+            rms_norm=norms, flash_attention=cfg.n_layers)
+        if pt.counts() != formula:
+            raise AssertionError(f"mesh prefill {dtype}: collectives "
+                                 f"{pt.counts()}, PERF.md's formula "
+                                 f"{formula}")
+        if logits.shape != (rows, 1, vocab) or \
+                logits.dtype != torch.float32 or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"mesh prefill {dtype}: logits "
+                                 f"{tuple(logits.shape)} {logits.dtype} "
+                                 "or not finite")
+        run = dict(seconds=seconds, launches=counts,
+                   launches_by_variant=by_variant,
+                   collectives=formula["collectives"],
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if world == 1:
+            _again, again_s = timed(step, p)
+            run["ms"] = again_s * 1e3
+        return logits, run
+
+    got, line["bf16"] = counted(model, lp, torch.bfloat16)
+    if world == 1:
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"mesh prefill world 1: the sharded bf16 logits are not the "
+                f"unsharded step's: {float((got - want).abs().max())} apart")
+        line["bf16"]["equal_to_unsharded"] = True
+        np.save(work / "prefill_bf16.npy", got.cpu().numpy())
+        del want, params
+    else:
+        ref = torch.from_numpy(np.load(work / "prefill_bf16.npy")[
+            lo_b:lo_b + rows, :, lo_v:lo_v + vocab]).to(DEV)
+        line["bf16"]["vs_world1_max_abs"] = float((got - ref).abs().max())
+        line["bf16"]["vs_world1_share_of_max_logit"] = \
+            line["bf16"]["vs_world1_max_abs"] / float(ref.abs().max())
+        line["bf16"]["argmax_equal_to_world1"] = int(
+            (got.argmax(-1) == ref.argmax(-1)).sum())
+        line["bf16"]["rows"] = rows
+    # float32: the same weights, each shard cast (exact)
+    model32 = build_lm_model(dataclasses.replace(cfg, param_dtype="float32"))
+    lp32 = tree_to(lp, torch.float32)
+    del lp
+    torch.cuda.empty_cache()
+    got32, line["float32"] = counted(model32, lp32, torch.float32)
+    if world == 1:
+        plain32, seconds = timed(build_prefill_step(model32), lp32)
+        line["float32"]["unsharded_ms"] = seconds * 1e3
+        line["float32"]["equal_to_unsharded"] = bool(torch.equal(got32,
+                                                                 plain32))
+        np.save(work / "prefill_f32.npy", got32.cpu().numpy())
+    else:
+        ref = torch.from_numpy(np.load(work / "prefill_f32.npy")[
+            lo_b:lo_b + rows, :, lo_v:lo_v + vocab]).to(DEV)
+        tol = 1e-3 * float(ref.abs().max()) + 1e-3
+        err = float((got32 - ref).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"mesh prefill world {world}: float32 "
+                                 f"logits {err} from world 1's, limit {tol}")
+        line["float32"].update(vs_world1_max_abs=err, tol=tol,
+                               share_of_tol=err / tol)
+    del lp32
+    torch.cuda.empty_cache()
+    return line
+
+
 def run_mesh_rank(rank: int, world: int, init: str, work: str) -> None:
     """One rank of phase mesh (``python3 chip_smoke.py --mesh-rank RANK
     WORLD INIT DIR``): world 1 on NCCL, a (1, 1) mesh; world 4 on gloo, a
@@ -5170,6 +5365,7 @@ def run_mesh_rank(rank: int, world: int, init: str, work: str) -> None:
         line["service_sweep"] = mesh_service_sweep(mesh, work)
     line["sweeps"] = mesh_sharded_sweeps(mesh, world, work, work)
     line["decode"] = mesh_cp_decode(mesh, world, work)
+    line["prefill"] = mesh_prefill(mesh, world, work)
     if world > 1:
         line["cp_attention"] = mesh_cp_attention(mesh)
     ml.barrier(mesh)
@@ -5259,8 +5455,10 @@ def phase_mesh(work: Path) -> dict:
     each rank launching one kernel a sweep on its quarter, the decode with
     the batch over "data" and the sequence over "model" giving world 1's
     logits and tokens, and one layer's attention at MESH_ATTN
-    (:func:`mesh_cp_attention`). Returns the ``ws_sim`` launches of each
-    rank and world by body."""
+    (:func:`mesh_cp_attention`). Each world also prefills qwen3-1.7b with
+    its weights split by the placement rules (:func:`mesh_prefill`).
+    Returns the ``ws_sim`` launches of each rank and world by body, and
+    the prefill's ``rms_norm`` and ``flash_attention`` launches."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     one = mesh_world(1, work)[0]
@@ -5277,6 +5475,37 @@ def phase_mesh(work: Path) -> dict:
                 r["sweeps"][path]["launches_by_body"][body]
     launches["ws_sim_divisible"]["world1_service"] = \
         one["service_sweep"]["launches"]
+    # the prefill's kernels: its bf16 and its float32 step, each rank
+    for k in ("rms_norm", "flash_attention"):
+        launches[k] = {"prefill_world1": sum(
+            one["prefill"][dt]["launches"][k] for dt in ("bf16", "float32")),
+            "prefill_world4": [sum(r["prefill"][dt]["launches"][k]
+                                   for dt in ("bf16", "float32"))
+                               for r in four]}
+    pre = [r["prefill"] for r in four]
+    say("mesh", step="prefill_summary",
+        world1=dict(bf16_ms=one["prefill"]["bf16"]["ms"],
+                    unsharded_bf16_ms=one["prefill"]["unsharded_ms"],
+                    float32_ms=one["prefill"]["float32"]["ms"],
+                    unsharded_float32_ms=one["prefill"]["float32"][
+                        "unsharded_ms"],
+                    float32_equal_to_unsharded=one["prefill"]["float32"][
+                        "equal_to_unsharded"],
+                    collectives=one["prefill"]["bf16"]["collectives"]),
+        world4=dict(
+            bf16_seconds=[r["bf16"]["seconds"] for r in pre],
+            float32_seconds=[r["float32"]["seconds"] for r in pre],
+            peak_gib=[max(r["bf16"]["peak_gib"], r["float32"]["peak_gib"])
+                      for r in pre],
+            weight_share=[r["weights"]["share"] for r in pre],
+            float32_share_of_tol=max(r["float32"]["share_of_tol"]
+                                     for r in pre),
+            bf16_vs_world1_max_abs=max(r["bf16"]["vs_world1_max_abs"]
+                                       for r in pre),
+            bf16_argmax_equal_to_world1=sum(
+                r["bf16"]["argmax_equal_to_world1"] for r in pre),
+            bf16_rows=sum(r["bf16"]["rows"] for r in pre)),
+        card=card_line())
     dec = one["decode"]
     say("mesh", step="summary", seconds=time.perf_counter() - t0,
         ms_per_replayed_step={k: dec[k]["ms_per_replayed_step"]

@@ -282,3 +282,73 @@ def abstract_with_shardings(abstract_tree, shardings):
     return tr.tree_map(
         lambda l, s: ShapeDtypeStruct(_shape(l), _dtype(l), s),
         abstract_tree, shardings)
+
+
+def _sharding_on(sharding: NamedSharding, mesh) -> NamedSharding:
+    """``sharding``'s spec laid onto ``mesh`` (a plan made on an
+    ``AbstractMesh`` of the same shape applies to the live one)."""
+    return sharding if sharding.mesh is mesh else NamedSharding(
+        mesh, sharding.spec)
+
+
+def _is_split(spec: tuple) -> bool:
+    return any(entry is not None for entry in spec)
+
+
+def local_params(params, shardings, mesh):
+    """This rank's slices of whole ``params`` (a tree of tensors, as
+    ``init_params`` or ``models.interop.params_from_jax`` give it) laid out
+    by ``shardings`` (:func:`shard_params`' tree) on the live ``mesh``:
+    each leaf's ``NamedSharding.local_index``, copied, so that the whole
+    tensors can be freed. A leaf that :func:`_guard` replicated stays whole
+    (the same tensor)."""
+    def one(leaf, sharding):
+        sh = _sharding_on(sharding, mesh)
+        if not _is_split(sh.spec):
+            return leaf
+        return leaf[sh.local_index(tuple(leaf.shape))].clone(
+            memory_format=torch.contiguous_format)
+    return tr.tree_map(one, params, shardings)
+
+
+def gather_params(local, shardings, mesh):
+    """The inverse of :func:`local_params`: every rank gets the whole
+    tensors back, each split dim gathered over its axes' group
+    (``mesh.axes_group``: the ranks that differ from this one on those axes
+    only, so that every part has this rank's slices of the other dims).
+    For tests: a step never gathers a whole tree."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import axes_group, collective_device
+
+    def gather(t, d, axes):
+        group = axes_group(mesh, axes)
+        src = t.movedim(d, 0).contiguous().to(collective_device(group))
+        parts = [torch.empty_like(src)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, src, group=group)
+        by_shard = {shard_index(mesh, axes, r): part for r, part in
+                    zip(dist.get_process_group_ranks(group), parts)}
+        whole = torch.cat([by_shard[i] for i in range(len(parts))])
+        return whole.to(t.device).movedim(0, d)
+
+    def one(leaf, sharding):
+        spec = _sharding_on(sharding, mesh).spec
+        for d, entry in enumerate(spec):
+            if entry is not None:
+                leaf = gather(leaf, d, _entry_axes(entry))
+        return leaf.contiguous()
+    return tr.tree_map(one, local, shardings)
+
+
+def shard_bytes(abstract_params, shardings) -> int:
+    """Bytes of the shards one rank holds of ``abstract_params`` laid out by
+    ``shardings``: the sum over the leaves of ``shard_shape``'s elements
+    times the leaf's element size."""
+    total = 0
+    for leaf, sharding in zip(tr.leaves(abstract_params),
+                              tr.leaves(shardings)):
+        n = 1
+        for d in sharding.shard_shape(_shape(leaf)):
+            n *= d
+        total += n * torch.empty((), dtype=_dtype(leaf)).element_size()
+    return total

@@ -6,12 +6,12 @@ dtypes and shardings of their arguments, the activation layout
 (:func:`make_act_constrainer`), the MoE layout hints and context-parallel
 decode.
 
-In this port a step runs on rank-local tensors. The plan keeps the
-activation constrainer's specs, and the MoE hints leave a rank-local tensor
-as it is; a step whose weights are split across ranks, which would use
-both, is ROADMAP Queue A 10b. Context-parallel decode (``cp_axes``) runs
-each rank's shard of the KV cache and merges the partials with collectives
-over the mesh.
+The prefill step runs on a live mesh with its weights split by the
+placement rules (``sharding.local_params``): each rank holds its shards,
+and the step issues the collectives XLA's partitioner would place
+(``launch/partition.py``). Context-parallel decode (``cp_axes``) runs each
+rank's shard of the KV cache and merges the partials with collectives over
+the mesh. The train and decode steps run on rank-local, whole weights.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ from repro_torch.configs.base import SHAPES, ArchConfig, ShapeSpec, get_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import partition
 from repro_torch.launch import sharding as shd
 from repro_torch.optim import adamw
 
@@ -38,33 +39,61 @@ def make_act_constrainer(mesh, dp, sequence_parallel: bool = True):
     are left to propagation on that dim. ``full_seq=True`` pins the
     sequence-gathered layout (recurrent mixers need contiguous S).
 
-    Returns ``constrain(h, full_seq=False)``: it pins the layout on a
-    DTensor (``redistribute``) and returns a rank-local tensor as it is.
+    Returns ``constrain(h, full_seq=False, seq_len=None, split=None)``.
     ``constrain.spec(shape, full_seq=False)`` is the spec the JAX package
-    pins for an activation of that shape (None below two dims); the plan
-    of a cell (:func:`plan_cell`) keeps it for A 10b's sharded steps."""
+    pins for an activation of that global shape (None below two dims), and
+    decides the layout: on a DTensor ``constrain`` redistributes to it; on
+    a rank-local tensor of a live mesh whose sequence has ``seq_len``
+    positions in all, it moves ``h`` between the SP layout (B/|dp|,
+    S/|model|, ...) and the gathered one (B/|dp|, S, ...): a gather over
+    'model' (``partition.sp_gather``), or this rank's slice of the
+    sequence, which needs no collective. ``split`` says whether ``h`` is
+    in the SP layout now (by default: whether it holds fewer than
+    ``seq_len`` positions; over a 'model' axis of one rank the two layouts
+    have one shape, and a sharded step says which it holds). Without
+    ``seq_len``, or off a live mesh, a rank-local tensor is returned as it
+    is. ``constrain.mesh``, ``.dp`` and ``.sequence_parallel`` are its
+    arguments."""
     msz = mesh_lib.mesh_shape(mesh).get("model", 1)
+    dpsz = mesh_lib.axis_size(mesh, *dp) if dp is not None else 1
 
     def spec(shape, full_seq: bool = False) -> Optional[tuple]:
         if len(shape) < 2:
             return None
         out = [None] * len(shape)
-        if dp is not None and shape[0] % mesh_lib.axis_size(mesh, *dp) == 0:
+        if dp is not None and shape[0] % dpsz == 0:
             out[0] = dp
         if (not full_seq and sequence_parallel and len(shape) == 3
                 and shape[1] > 1 and shape[1] % msz == 0):
             out[1] = "model"
         return shd.P(*out)
 
-    def constrain(h, full_seq: bool = False):
+    def constrain(h, full_seq: bool = False, seq_len: Optional[int] = None,
+                  split: Optional[bool] = None):
         from torch.distributed.tensor import DTensor
-        sp = spec(tuple(h.shape), full_seq)
-        if sp is None or not isinstance(h, DTensor):
+        if isinstance(h, DTensor):
+            sp = spec(tuple(h.shape), full_seq)
+            if sp is None:
+                return h
+            return h.redistribute(h.device_mesh, shd.NamedSharding(
+                h.device_mesh, sp).placements())
+        if seq_len is None or h.dim() < 2 or not mesh_lib.is_live(mesh):
             return h
-        return h.redistribute(h.device_mesh, shd.NamedSharding(
-            h.device_mesh, sp).placements())
+        rows = h.shape[0] * (dpsz if dp is not None else 1)
+        want = spec((rows, seq_len) + tuple(h.shape[2:]), full_seq)[1] \
+            == "model"
+        now = h.shape[1] != seq_len if split is None else split
+        if want and not now:
+            n = seq_len // msz
+            r = mesh_lib.coordinate(mesh)["model"]
+            return h[:, r * n:(r + 1) * n].contiguous()
+        if now and not want:
+            return partition.sp_gather(h, mesh)
+        return h
 
     constrain.spec = spec
+    constrain.mesh = mesh
+    constrain.dp = dp
     constrain.sequence_parallel = sequence_parallel
     return constrain
 
@@ -144,18 +173,33 @@ def build_train_step(model, opt_cfg: adamw.AdamWConfig,
     return train_step
 
 
-def build_prefill_step(model, device=None):
-    """``prefill_step(params, batch)`` -> next-token logits (B, 1, Vpad) in
-    float32: ``Model.forward`` over the whole prompt (behind its vision
-    prefix ``vis_embeds``, after the encoder over its ``frames``, where the
-    config has them), the head applied to the last position only (the JAX
-    package slices the full logits; the other positions' logits are never
-    read). ``device=None`` means the card."""
+def build_prefill_step(model, act_spec=None, mesh=None, device=None):
+    """``prefill_step(params, batch)`` -> next-token logits in float32
+    (``Model.last_logits``): ``Model.forward`` over the whole prompt
+    (behind its vision prefix ``vis_embeds``, after the encoder over its
+    ``frames``, where the config has them), the head applied to the last
+    position only (the JAX package slices the full logits; the other
+    positions' logits are never read). ``device=None`` means the card.
+
+    Without a mesh the params are whole and the logits (B, 1, Vpad). With
+    ``act_spec`` of a live mesh (:func:`make_act_constrainer`), or a live
+    ``mesh`` (its constrainer then puts the batch on the dp axes, and the
+    sequence on 'model' between layers for an attention-only stack, as
+    :func:`plan_cell` does), the step is sharded: ``params`` are this
+    rank's shards (``sharding.local_params``), the batch this rank's rows
+    (``data.pipeline.shard_batch``), and the logits this rank's shard
+    (B/|dp|, 1, Vpad/|model|) of the JAX package's ``P(dp, None,
+    "model")``."""
     check_model_device(model, device)
+    if act_spec is None and mesh is not None:
+        attn_only = all(m in ("attn", "xattn") for m, _ in model.cfg.pattern)
+        act_spec = make_act_constrainer(mesh, mesh_lib.dp_axes(mesh),
+                                        sequence_parallel=attn_only)
+    elif mesh is not None and act_spec.mesh is not mesh:
+        raise ValueError("act_spec was made for another mesh")
 
     def prefill_step(params, batch):
-        x, _aux = model.hidden_states(params, batch)
-        return model.head(params, x[:, -1:])
+        return model.last_logits(params, batch, act_spec=act_spec)
     return prefill_step
 
 
@@ -416,7 +460,7 @@ def plan_cell(arch: str, shape_name: str, mesh=None, *,
 
     if shape.kind == "prefill":
         batch = shd.batch_specs(cfg, shape, mesh)
-        fn = build_prefill_step(model, device=device)
+        fn = build_prefill_step(model, act_spec=act_spec, device=device)
         return plan(fn, (params_specs, batch), (), out_shardings=logits_sh)
 
     # decode

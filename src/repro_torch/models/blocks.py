@@ -16,11 +16,13 @@ rank's shard of the KV cache (``attention.make_cp_decode_attention``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import partition as pt
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -104,14 +106,21 @@ def _ffn_init(gen: Optional[torch.Generator], cfg: ArchConfig, kind: str,
 # apply
 # ---------------------------------------------------------------------------
 
-def _qkv(p: Dict, cfg: ArchConfig, x, positions):
+def _qkv(p: Dict, cfg: ArchConfig, x, positions, part=None):
     """Projections, qk-norm and RoPE (none with ``learned_pos``) of one
-    self-attention: q (B,S,H,hd), k and v (B,S,KV,hd)."""
+    self-attention: q (B,S,H,hd), k and v (B,S,KV,hd). With a sharded
+    step's ``part`` (``launch/partition.py``), ``x`` is the gathered
+    sequence and the projections are column-parallel: q holds this rank's
+    query heads and k, v the KV heads they read, whole heads
+    (``partition.qkv``), normed and rotated at their global positions."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = dense(x, p["wq"]).reshape(B, S, H, hd)
-    k = dense(x, p["wk"]).reshape(B, S, KV, hd)
-    v = dense(x, p["wv"]).reshape(B, S, KV, hd)
+    if part is not None:
+        q, k, v = pt.qkv(part, x, p)
+    else:
+        q = dense(x, p["wq"]).reshape(B, S, H, hd)
+        k = dense(x, p["wk"]).reshape(B, S, KV, hd)
+        v = dense(x, p["wv"]).reshape(B, S, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -122,17 +131,22 @@ def _qkv(p: Dict, cfg: ArchConfig, x, positions):
 
 
 def _attention_apply(p: Dict, cfg: ArchConfig, x, positions, *,
-                     causal: bool, kv_override=None):
+                     causal: bool, kv_override=None, part=None):
     """x (B,S,D) -> (B,S,D). ``kv_override``: (k, v) of a cross-attention,
-    projected already; q then has no norm and no RoPE."""
+    projected already; q then has no norm and no RoPE. With a sharded
+    step's ``part``: x the gathered sequence, the attention over this
+    rank's heads, wo row-parallel (its partial sums reduced over 'model',
+    into the step's layout)."""
     B, S, _ = x.shape
     if kv_override is None:
-        q, k, v = _qkv(p, cfg, x, positions)
+        q, k, v = _qkv(p, cfg, x, positions, part)
     else:
         q = dense(x, p["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
         k, v = kv_override
     o = attn_mod.chunked_attention(q, k, v, causal=causal,
                                    window=cfg.sliding_window)
+    if part is not None:
+        return pt.row(part, pt.out_columns(part, o), p["wo"], "attn/wo")
     return dense(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"])
 
 
@@ -146,19 +160,28 @@ def cross_kv(p: Dict, cfg: ArchConfig, enc_out):
 
 
 def slot_apply(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x, positions,
-               *, causal: bool = True,
-               enc_out=None) -> Tuple[torch.Tensor, object]:
+               *, causal: bool = True, enc_out=None,
+               part=None) -> Tuple[torch.Tensor, object]:
     """One layer over a whole sequence; an ``xattn`` layer also attends
     (non-causal) over ``enc_out`` (B, Senc, D), the encoder's output.
     Returns (x, aux): the MoE auxiliary loss times ``router_aux_coef``, a
     float32 tensor of one element, or the Python float 0.0 for a layer
     without experts (the JAX package's ``jnp.float32(0.0)``, with no tensor
-    made for it)."""
+    made for it).
+
+    ``part``: a sharded step's context (``launch/partition.py``; an
+    ``attn`` mixer and a ``dense`` FFN): ``x`` is this rank's activation
+    in the step's layout, each norm runs on it, the normed input is
+    gathered over the sequence before the mixer and before the FFN
+    (``part.gather_seq``), and the row-parallel products bring the outputs
+    back into the step's layout."""
     check_slot(mixer, ffn)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if part is not None:
+        h = part.gather_seq(h)
     if mixer in ("attn", "xattn"):
         mix_out = _attention_apply(p["attn"], cfg, h, positions,
-                                   causal=causal)
+                                   causal=causal, part=part)
     elif mixer == "mamba":
         mix_out = ssm_mod.mamba_apply(p["mamba"], h, _mamba_dims(cfg),
                                       cfg.ssm_chunk)
@@ -175,7 +198,9 @@ def slot_apply(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x, positions,
                                     causal=False,
                                     kv_override=cross_kv(p["xattn"], cfg,
                                                          enc_out))
-    return _residual(p, cfg, ffn, x, mix_out, h, _ffn_apply,
+    ffn_fn = _ffn_apply if part is None else functools.partial(
+        _ffn_apply, part=part)
+    return _residual(p, cfg, ffn, x, mix_out, h, ffn_fn,
                      cross if mixer == "xattn" else None)
 
 
@@ -205,9 +230,16 @@ def _moe_kw(cfg: ArchConfig) -> Dict:
                 ws_rebalance=cfg.ws_rebalance, n_groups=cfg.moe_groups)
 
 
-def _ffn_apply(p: Dict, cfg: ArchConfig, kind: str, h):
+def _ffn_apply(p: Dict, cfg: ArchConfig, kind: str, h, part=None):
     """(the FFN's output, its aux: a MoE layer's loss times
-    ``router_aux_coef``, 0.0 for a dense one)."""
+    ``router_aux_coef``, 0.0 for a dense one). With a sharded step's
+    ``part`` the dense FFN runs column- then row-parallel on the whole
+    sequence: the normed input is gathered first, but in a parallel block,
+    whose input the mixer's gather already holds."""
+    if part is not None:
+        if not cfg.parallel_block:
+            h = part.gather_seq(h)
+        return mlp_apply(p["ffn"], h, cfg.act, part), 0.0
     if kind == "dense":
         return mlp_apply(p["ffn"], h, cfg.act), 0.0
     y, aux, _stats = moe_mod.moe_apply(p["ffn"], h, **_moe_kw(cfg))

@@ -31,6 +31,7 @@ import torch
 from repro_torch import tree as tr
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import partition as pt
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (device_of, embed, init_dense,
                                        init_embed, init_scale, logits_f32,
@@ -148,23 +149,41 @@ class Model:
             return batch["vis_embeds"].shape[1]
         return 0
 
-    def hidden_states(self, params: Dict,
-                      batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _partition(self, act_spec, batch: Dict):
+        """The sharded step's context (``launch/partition.py``) of
+        ``batch`` under ``act_spec`` (``steps.make_act_constrainer``), or
+        None: no constrainer, or one of an abstract mesh."""
+        return pt.for_model(act_spec, self.cfg, pt.local(batch["tokens"]))
+
+    def hidden_states(self, params: Dict, batch: Dict, act_spec=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(the final-normed hidden states (B, S, D) of ``forward`` at the
         text positions, the MoE auxiliary loss summed over the layers: a
         float32 tensor of one element, 0 for a model without experts). A
         vision prefix runs before the text, positions counted over the
         whole sequence, and its rows are dropped after the final norm; an
         encoder-decoder encodes ``frames`` first and every cross-attention
-        reads the encoder's output."""
+        reads the encoder's output.
+
+        ``act_spec``: the constrainer of ``steps.make_act_constrainer``, as
+        the JAX package's ``forward`` takes it. On a live mesh ``params``
+        are this rank's shards (``sharding.local_params``), ``batch`` this
+        rank's rows (plain tensors or ``shard_batch``'s DTensors), and the
+        hidden states this rank's (B/|dp|, S/|model|, D) with sequence
+        parallelism, else (B/|dp|, S, D); the step issues the collectives
+        of ``launch/partition.py``."""
+        return self._hidden(params, batch, self._partition(act_spec, batch))
+
+    def _hidden(self, params: Dict, batch: Dict, part):
         cfg = self.cfg
-        tokens = batch["tokens"]
+        tokens = pt.local(batch["tokens"])
         B = tokens.shape[0]
-        x = embed(tokens, params["tok_embed"])
+        x = (embed(tokens, params["tok_embed"]) if part is None
+             else pt.embed(part, tokens, params["tok_embed"]))
         prefix = self._prefix(batch)
         if prefix:
             x = torch.cat([batch["vis_embeds"].to(x.dtype), x], dim=1)
-        S = x.shape[1]
+        S = tokens.shape[1] + prefix
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
         if cfg.learned_pos:
@@ -176,26 +195,48 @@ class Model:
             for j, (mixer, ffn) in enumerate(cfg.pattern):
                 x, a = blk.slot_apply(slot_params[f"slot{j}"], cfg, mixer,
                                       ffn, x, positions, causal=cfg.causal,
-                                      enc_out=enc_out)
+                                      enc_out=enc_out, part=part)
                 aux = aux + a
         aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x[:, prefix:], aux
 
-    def head(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
-        """Logits (..., Vpad) in float32 from hidden states."""
+    def head(self, params: Dict, x: torch.Tensor, part=None) -> torch.Tensor:
+        """Logits (..., Vpad) in float32 from hidden states; with a
+        sharded step's ``part``, this rank's vocabulary columns
+        (``partition.head``)."""
+        if part is not None:
+            return pt.head(part, x, params)
         w = (params["tok_embed"].T if self.cfg.tie_embeddings
              else params["lm_head"])
         return logits_f32(x, w)
 
-    def forward(self, params: Dict,
-                batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, params: Dict, batch: Dict, act_spec=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (logits (B, S_text, Vpad) float32, moe_aux), as the JAX
         package's ``forward``: ``moe_aux`` is the sum over the layers of
         each MoE layer's auxiliary loss times ``router_aux_coef``, a float32
-        tensor of one element (0 without experts)."""
-        x, aux = self.hidden_states(params, batch)
-        return self.head(params, x), aux
+        tensor of one element (0 without experts). On a live mesh
+        (``act_spec``, as :meth:`hidden_states` takes it) the logits are
+        this rank's (B/|dp|, S_text, Vpad/|model|): the sequence gathered,
+        the head vocab-parallel."""
+        part = self._partition(act_spec, batch)
+        x, aux = self._hidden(params, batch, part)
+        if part is not None:
+            x = part.gather_seq(x)
+        return self.head(params, x, part), aux
+
+    def last_logits(self, params: Dict, batch: Dict,
+                    act_spec=None) -> torch.Tensor:
+        """The next-token logits of the prompt, float32: the head of the
+        last position's hidden state only, (B, 1, Vpad); on a live mesh
+        this rank's (B/|dp|, 1, Vpad/|model|), the last position sent by
+        the rank that holds it (``partition.last_position``)."""
+        part = self._partition(act_spec, batch)
+        x, _aux = self._hidden(params, batch, part)
+        if part is None:
+            return self.head(params, x[:, -1:])
+        return self.head(params, pt.last_position(part, x), part)
 
     def loss_fn(self, params: Dict, batch: Dict):
         """(loss, metrics): the mean next-token cross-entropy of

@@ -8,7 +8,7 @@ uncompressed trajectory. On one card there is no reduction to compress:
 the train step applies the quantize -> dequantize sandwich to the gradients
 it reduces (``launch/train.py``), so the numerics are those of the
 compressed wire; the wire itself waits for the sharded train step
-(Queue A 10b).
+(Queue A 10c).
 """
 from __future__ import annotations
 

@@ -12,7 +12,7 @@
   ``straggler_rebalance``.
 
 Training a state split across ranks (``state_shardings``) waits for the
-sharded train step (Queue A 10b).
+sharded train step (Queue A 10c).
 """
 from __future__ import annotations
 
@@ -93,7 +93,7 @@ def run_training(
         raise NotImplementedError("run_training(state_shardings=) trains "
                                   "a state split across ranks, which needs "
                                   "a sharded train step the port has not "
-                                  "yet (Queue A 10b)")
+                                  "yet (Queue A 10c)")
     state = init_state
     start_step = 0
     restarts = 0

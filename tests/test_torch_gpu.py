@@ -1340,6 +1340,46 @@ def test_cp_decode_step_reads_nothing_on_the_host(nccl_mesh):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ("bfloat16", "float32"))
+def test_sharded_prefill_on_an_nccl_mesh_of_one_is_bit_equal(nccl_mesh,
+                                                             dtype):
+    """The reduced qwen3's prefill with its weights laid out by the
+    placement rules on a (1, 1) NCCL mesh (every collective a real NCCL
+    call over a group of one, sequence parallelism on) gives the unsharded
+    step's logits bit for bit, through the kernels (one ``rms_norm`` a
+    norm, one ``flash_attention`` a layer)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import partition as ppart
+    from repro_torch.launch import sharding as pshd
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(
+        d_model=256, head_dim=128), param_dtype=dtype)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(2))
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (4, 64)), dtype=torch.int64, device="cuda")
+    want = build_prefill_step(model)(params, {"tokens": tokens})
+    local = pshd.local_params(params, pshd.shard_params(
+        model.param_shapes(), nccl_mesh), nccl_mesh)
+    ops.reset_counts()
+    ppart.reset_counts()
+    got = build_prefill_step(model, mesh=nccl_mesh)(
+        local, shard_batch({"tokens": tokens}, nccl_mesh))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    L = cfg.n_layers
+    assert ops.launch_counts()["rms_norm"] == 4 * L + 1
+    assert ops.launch_counts()["flash_attention"] == L
+    assert ppart.counts()["collectives"] == dict(
+        all_gather=9 * L + 2, reduce_scatter=2 * L + 1, all_reduce=0,
+        broadcast=1)
+
+
+@pytest.mark.gpu
 def test_run_rows_on_an_nccl_mesh_equals_run_rows(nccl_mesh):
     """Each body's sweep through ``run_rows(mesh=)`` on the card: one launch,
     every field equal to ``run_rows()``'s."""

@@ -85,7 +85,7 @@ def test_port_has_the_expected_modules():
                  "checkpoint/__init__.py", "checkpoint/ckpt.py",
                  "runtime/__init__.py", "runtime/fault.py",
                  "launch/train.py", "launch/mesh.py",
-                 "launch/sharding.py"):
+                 "launch/sharding.py", "launch/partition.py"):
         assert want in names, want
     for other in ("examples/quickstart_torch.py",
                   "examples/paper_sweep_torch.py",
