@@ -38,7 +38,8 @@ Phases, one JSON line each (and after each a ``phase_seconds`` line with
 its wall seconds): ``build`` (seconds, ptxas's registers and spills,
 the count of ``HGMMA`` instructions in each library's SASS, and the
 resources of every instantiation of the simulator kernel, where a spill
-fails the run), ``kernels`` (bit-exact against the plain loop, the
+fails the run), ``kernels`` (bit-exact against the plain loop, run on the
+host from the same inputs — a main path's chunk on the card —, the
 simulator at every slot-count boundary; its six case groups run at once,
 each in a worker process of its own on the card: ``python3 chip_smoke.py
 --kernel-group NAME``), ``oracle`` (bit-exact
@@ -150,7 +151,13 @@ context-parallel logits and tokens bit for bit; then four gloo ranks on a
 rank, the decode with the batch over "data" and the sequence over
 "model", its teacher-forced logits and its greedy tokens equal to world
 1's bit for bit, one layer's attention at (1, 32768, 16 / 8, 128) split
-four ways equal to one shard's and against flash_decode).
+four ways equal to one shard's and against flash_decode; in each world the
+sharded prefill of qwen3-1.7b, then step ``train``: world 1 trains it
+whole for three steps through ``run_training(state_shardings=)``, each
+step bit-equal to the step without a mesh and its collectives PERF.md's
+formula, its checkpoint saved; world 4 trains it at 2 of 28 layers in bf16
+and float32, within 1e-4 · max|leaf| of the step without a mesh, and its
+checkpoint resumes on a world of one).
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any
 failed phase raises: the exit code is then not 0 and no result line is
@@ -163,6 +170,7 @@ import dataclasses
 import io
 import json
 import math
+import multiprocessing
 import os
 import re
 import shutil
@@ -174,6 +182,7 @@ import time
 import types
 import zipfile
 from collections import Counter
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from contextlib import contextmanager
 from pathlib import Path
 
@@ -285,14 +294,20 @@ def max_abs_diff(a, b) -> int:
     return worst
 
 
-def hold_against_plain(model, scn, what: str) -> tuple:
-    """Launch the kernel and the plain loop on the same CUDA tensors; every
-    leaf must be ``torch.equal``. Returns (kernel result, max |diff|)."""
+def hold_against_plain(model, scn, what: str, plain_on: str = "cpu"
+                       ) -> tuple:
+    """Launch the kernel on the CUDA tensors ``scn`` and run the plain loop
+    on the same values on ``plain_on``: the host for phase ``kernels``'
+    cases (the plain loop is integer arithmetic, the same on either device,
+    and on the host its many small steps do not queue behind the other
+    workers' on the card), the card for a main path's chunk. Every leaf
+    must be ``torch.equal``. Returns (kernel result, max |diff|)."""
     model = sw.as_model(model)
     got = ws.ws_sim_cuda(model, scn)
     torch.cuda.synchronize()
-    want = ws_sim_ref(model, scn)
+    want = ws_sim_ref(model, type(scn)(*(t.to(plain_on) for t in scn)))
     torch.cuda.synchronize()
+    want = type(want)(*(t.to(DEV) for t in want))
     err = max_abs_diff(got, want)
     bad = [f for f in got._fields
            if not torch.equal(getattr(got, f), getattr(want, f))]
@@ -325,6 +340,23 @@ def twin(model, row: dict, remote_prob: float, max_events: int) -> dict:
         **kw))
 
 
+#: processes answering the serial numpy twins when many rows are held at
+#: once (:func:`twin_answers`)
+TWIN_WORKERS = 6
+
+
+def twin_answers(jobs: list) -> list:
+    """``twin(*job)`` for each job, in order. Twelve jobs or more go to
+    TWIN_WORKERS forked processes: a twin is serial numpy on the host and
+    touches no card, and the rows it answers are independent. What this
+    runs beside is a check, never a measurement."""
+    if len(jobs) < 2 * TWIN_WORKERS:
+        return [twin(*job) for job in jobs]
+    with ProcessPoolExecutor(TWIN_WORKERS, mp_context=multiprocessing
+                             .get_context("fork")) as pool:
+        return list(pool.map(twin, *zip(*jobs)))
+
+
 def twin_may_answer(model, want: dict) -> bool:
     """The twins model no deque_cap/pool_cap (unbounded lists): a row is
     theirs to answer only where no cap can bind (the oracle backend's
@@ -341,12 +373,24 @@ def hold_against_oracle(model, scn, res, rows, what: str,
                         remote_prob: float) -> int:
     """Rows ``rows`` of a kernel result against the serial numpy twin, every
     field the twin returns. Returns the number of rows compared."""
-    model = sw.as_model(model)
-    host = {f: getattr(res, f).cpu().numpy() for f in res._fields}
-    s = {f: getattr(scn, f).cpu().numpy() for f in scn._fields}
-    for k in rows:
-        want = twin(model, {f: s[f][k] for f in s}, remote_prob,
-                    min(int(model.max_events), int(s["max_events"][k])))
+    return hold_many_against_oracle([(model, scn, res, rows, what,
+                                      remote_prob)])
+
+
+def hold_many_against_oracle(items) -> int:
+    """:func:`hold_against_oracle` of each (model, scenario, result, rows,
+    what, remote_prob) of ``items``, the twins answered together
+    (:func:`twin_answers`). Returns the number of rows compared."""
+    jobs, checks = [], []
+    for model, scn, res, rows, what, remote_prob in items:
+        model = sw.as_model(model)
+        host = {f: getattr(res, f).cpu().numpy() for f in res._fields}
+        s = {f: getattr(scn, f).cpu().numpy() for f in scn._fields}
+        for k in rows:
+            jobs.append((model, {f: s[f][k] for f in s}, remote_prob,
+                         min(int(model.max_events), int(s["max_events"][k]))))
+            checks.append((model, host, k, what))
+    for (model, host, k, what), want in zip(checks, twin_answers(jobs)):
         if not twin_may_answer(model, want):
             raise AssertionError(f"{what} row {k}: a cap could bind; the "
                                  "twin cannot answer it")
@@ -354,7 +398,7 @@ def hold_against_oracle(model, scn, res, rows, what: str,
             if not np.array_equal(np.asarray(v), host[f][k]):
                 raise AssertionError(f"kernel != oracle on {what} row {k}: "
                                      f"{f} {host[f][k]} vs {v}")
-    return len(rows)
+    return len(jobs)
 
 
 # ---------------------------------------------------------------------------
@@ -457,7 +501,8 @@ def divisible_cases(stats):
     for sw_ in MAIN_PATHS["divisible"]["sweeps"][1:]:
         scn = plain_chunk_scenario(sw_)
         hold_against_plain(sweep_model(sw_), scn,
-                           f"the main-path chunk of {sw_['name']}")
+                           f"the main-path chunk of {sw_['name']}",
+                           plain_on=DEV)
         stats.add("ws_sim_divisible", scn)
 
 
@@ -635,9 +680,10 @@ class CaseStats:
 
 #: the case groups of phase ``kernels``; each runs in a worker process of
 #: its own on the card (``python3 chip_smoke.py --kernel-group NAME``), all
-#: at once: the plain loop they hold the kernel against launches small
-#: kernels from the host, one event step at a time, so the groups are
-#: host-bound and the card has room for all of them
+#: at once: the kernel launches on the card, the plain loop it is held
+#: against runs on the host, one event step at a time, one core a worker
+#: (on the card such loops queue behind each other's small kernels, and
+#: more workers made the phase slower, not faster)
 KERNEL_GROUPS = {
     "ws_sim_divisible": divisible_cases,
     "ws_sim_dag": dag_cases,
@@ -831,13 +877,14 @@ def plain_chunk_scenario(s) -> "sw.Scenario":
 
 def grid_against_twin(g: sw.GridResult, model, rows, name: str):
     """Sampled rows of a sweep against the serial numpy twin, every field
-    the twin returns (a grid column or an ``extras`` column)."""
-    for k in rows:
-        row = dict(W=g.W[k], seed=g.seed[k], lam_local=g.extras["lam_local"][k],
-                   lam_remote=g.lam[k], theta_static=g.theta_static[k],
-                   theta_comm=g.theta_comm[k])
-        want = twin(model, row, model.topology.remote_prob,
-                    int(model.max_events))
+    the twin returns (a grid column or an ``extras`` column); the twins
+    answered together (:func:`twin_answers`)."""
+    wants = twin_answers([(model, dict(
+        W=g.W[k], seed=g.seed[k], lam_local=g.extras["lam_local"][k],
+        lam_remote=g.lam[k], theta_static=g.theta_static[k],
+        theta_comm=g.theta_comm[k]), model.topology.remote_prob,
+        int(model.max_events)) for k in rows])
+    for k, want in zip(rows, wants):
         if not twin_may_answer(model, want):
             raise AssertionError(f"{name} row {k}: a cap could bind")
         for f, v in want.items():
@@ -1087,12 +1134,11 @@ def query_rows_against(g: sw.GridResult, model, sweep: sw.GridResult,
                              f"sweep's {sorted(sweep.extras)}")
     cols = [f.name for f in dataclasses.fields(sw.GridResult)
             if f.name not in ("p", "extras")]
-    n_sweep, n_twin = 0, 0
+    n_sweep, twin_rows = 0, []
     for k in range(len(g)):
         j = index.get(ident(g, k))
         if j is None:
-            grid_against_twin(g, model, [k], name)
-            n_twin += 1
+            twin_rows.append(k)
             continue
         for f, a, b in [(c, getattr(g, c), getattr(sweep, c)) for c in cols] \
                 + [(x, g.extras[x], sweep.extras[x]) for x in g.extras]:
@@ -1100,8 +1146,9 @@ def query_rows_against(g: sw.GridResult, model, sweep: sw.GridResult,
                 raise AssertionError(f"{name} row {k}: {f}={a[k]} != the "
                                      f"sweep's row {j} {b[j]}")
         n_sweep += 1
+    grid_against_twin(g, model, twin_rows, name)
     return dict(rows=len(g), rows_equal_to_the_sweep=n_sweep,
-                rows_equal_to_the_twin=n_twin)
+                rows_equal_to_the_twin=len(twin_rows))
 
 
 def npz_bytes(root: Path, keys) -> dict:
@@ -1623,13 +1670,20 @@ class Cells:
         the twin's Python ints and the kernel's int32 agree). Returns the
         host seconds it took."""
         t0 = time.perf_counter()
+        rows = {}
         for c, k in picks:
+            rows.setdefault(c, []).append(k)
+        items = []
+        for c, ks in rows.items():
             cfg, scn, res = self.cells[c]
             model = sw.as_model(cfg)
-            if int(res.total_idle[k]) < 0 or int(res.makespan[k]) < 0:
-                raise AssertionError(f"{what} cell {c} row {k}: int32 wrap")
-            hold_against_oracle(model, scn, res, [k], f"{what} cell {c}",
-                                model.topology.remote_prob)
+            for k in ks:
+                if int(res.total_idle[k]) < 0 or int(res.makespan[k]) < 0:
+                    raise AssertionError(f"{what} cell {c} row {k}: int32 "
+                                         f"wrap")
+            items.append((model, scn, res, ks, f"{what} cell {c}",
+                          model.topology.remote_prob))
+        hold_many_against_oracle(items)
         return time.perf_counter() - t0
 
 
@@ -2669,12 +2723,12 @@ def lm_rms_cases(gen, dtype):
                                (TRAIN_EXAMPLE_B * TRAIN_EXAMPLE_S, 64, 16, 4,
                                 2)):
         shapes += ((rows, D), (rows * H, hd), (rows * KV, hd))
-    # phase mesh's sharded prefill on the 2 x 2 mesh: norm1, norm2 and the
-    # final norm on a rank's (B/2 x S/2) rows, the q and k norms on its
-    # heads over the whole sequence
-    mesh_rows = PREFILL_B // 2 * PREFILL_S
-    shapes += ((mesh_rows // 2, 2048), (mesh_rows * 8, 128),
-               (mesh_rows * 4, 128))
+    # phase mesh's sharded prefill and train step on the 2 x 2 mesh: norm1,
+    # norm2 and the final norm on a rank's (B/2 x S/2) rows, the q and k
+    # norms on its heads over the whole sequence
+    for mesh_rows in (PREFILL_B // 2 * PREFILL_S, TRAIN_B // 2 * TRAIN_S):
+        shapes += ((mesh_rows // 2, 2048), (mesh_rows * 8, 128),
+                   (mesh_rows * 4, 128))
     tol = LM_TOL[("rms_norm", dtype)]
     out = []
     for R, D in shapes:
@@ -2752,10 +2806,13 @@ def lm_attention_cases(gen, dtype):
               True, 0, 0),
              (TRAIN_EXAMPLE_B, TRAIN_EXAMPLE_S, TRAIN_EXAMPLE_S, 4, 2, 16,
               True, 0, 0),
-             # phase mesh's sharded prefill on the 2 x 2 mesh: a rank's
-             # rows over "data", its heads over "model", the whole sequence
+             # phase mesh's sharded prefill and train step on the 2 x 2
+             # mesh: a rank's rows over "data", its heads over "model", the
+             # whole sequence
              (PREFILL_B // 2, PREFILL_S, PREFILL_S, 16 // 2, 8 // 2, 128,
-              True, 0, 0))
+              True, 0, 0),
+             (TRAIN_B // 2, TRAIN_S, TRAIN_S, 16 // 2, 8 // 2, 128, True, 0,
+              0))
     tol = LM_TOL[("attention", dtype)]
     out = []
     for B, Sq, Skv, H, KV, hd, causal, win, qo in cases:
@@ -4724,9 +4781,10 @@ def phase_lm_timing(main: dict) -> list:
                      lm_time_rms(gen, SERVE_REQUESTS, 8192, 200),
                      # lm_train's full-width step
                      lm_time_rms(gen, TRAIN_B * TRAIN_S, 2048, 50),
-                     # a rank's rows in phase mesh's sharded prefill on
-                     # the 2 x 2 mesh (B/2 x S/2)
-                     lm_time_rms(gen, PREFILL_B * PREFILL_S // 4, 2048, 50)],
+                     # a rank's rows in phase mesh's sharded prefill and
+                     # train step on the 2 x 2 mesh (B/2 x S/2)
+                     lm_time_rms(gen, PREFILL_B * PREFILL_S // 4, 2048, 50),
+                     lm_time_rms(gen, TRAIN_B * TRAIN_S // 4, 2048, 50)],
         "flash_attention": [lm_time_attention(gen, PREFILL_B, PREFILL_S, 10),
                             lm_time_attention(gen, PREFILL_B, PREFILL_S, 10,
                                               H, KV),
@@ -4750,8 +4808,10 @@ def phase_lm_timing(main: dict) -> list:
                             # lm_train's full-width step
                             lm_time_attention(gen, TRAIN_B, TRAIN_S, 10),
                             # a rank's heads in phase mesh's sharded
-                            # prefill on the 2 x 2 mesh
+                            # prefill and train step on the 2 x 2 mesh
                             lm_time_attention(gen, PREFILL_B // 2, PREFILL_S,
+                                              10, 16 // 2, 8 // 2),
+                            lm_time_attention(gen, TRAIN_B // 2, TRAIN_S,
                                               10, 16 // 2, 8 // 2)],
         "flash_decode": [lm_time_decode(gen, SERVE_REQUESTS, serve_kv,
                                         serve_kv, 200),
@@ -4819,13 +4879,16 @@ def hgmma_counts() -> dict:
     """The count of HGMMA (wgmma) instructions in each built library's SASS,
     by ``cuobjdump -sass``; the tensor-core attention must have some."""
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
-    counts = {}
-    for name in _build.sources():
-        sass = subprocess.run([str(cuobjdump), "-sass",
+
+    def count(name):
+        return subprocess.run([str(cuobjdump), "-sass",
                                str(_build._target(name))],
                               capture_output=True, text=True, timeout=300,
-                              check=True).stdout
-        counts[name] = sass.count("HGMMA")
+                              check=True).stdout.count("HGMMA")
+    # one cuobjdump a library, all at once
+    with ThreadPoolExecutor() as pool:
+        counts = dict(zip(_build.sources(), pool.map(count,
+                                                     _build.sources())))
     if not counts.get("flash_attention_tc"):
         raise AssertionError(f"no HGMMA in the tensor-core attention: "
                              f"{counts}")
@@ -5346,13 +5409,515 @@ def mesh_prefill(mesh, world: int, work: Path) -> dict:
     return line
 
 
-def run_mesh_rank(rank: int, world: int, init: str, work: str) -> None:
+# ---------------------------------------------------------------------------
+# Phase mesh, step train: the sharded train step
+# ---------------------------------------------------------------------------
+
+#: world 1 trains qwen3-1.7b whole (28 layers, bf16) at lm_train's shape
+#: for this many steps through run_training(state_shardings=)
+MESH_TRAIN_STEPS = 3
+#: world 4 trains it at full width cut to this many of its 28 layers (the
+#: vocabulary's 0.62 B weights, whole in width, are most of what a step
+#: moves through gloo; 4 layers made the step 131.8 s of the script, over
+#: its 120 s)
+MESH_TRAIN_REPEATS = 2
+#: world 4's ranks run the step without a mesh this many at a time (its
+#: float32 step peaks at ≈ 27 GiB on the card)
+MESH_TRAIN_TURN = 2
+#: world 4's steps in each dtype (bf16, then float32)
+MESH_TRAIN_W4_STEPS = 2
+#: tests/test_torch_train.py's tolerance: each leaf within 1e-4 of its
+#: largest element; each metric within 1e-4 of itself
+MESH_TRAIN_TOL = 1e-4
+#: the AdamW config of both worlds: ``plan_cell``'s default (lr 3e-4 after
+#: 100 warm-up steps: 3e-6 at the first step, so that an element whose
+#: gradient is near 0 and of the other sign in two runs — at the first
+#: step every element moves by ±lr — stays within the leaf tolerance)
+MESH_TRAIN_OPT = adamw.AdamWConfig()
+
+
+def train_collectives(cfg, model_size: int, sp: bool = True) -> dict:
+    """PERF.md §6's count of a sharded train step of an attention /
+    dense (swiglu) stack of L layers, qwen3-1.7b's five norm leaves.
+    Forward (``collectives``): the prefill's (:func:`prefill_collectives`)
+    without the last position's broadcast, plus with SP one sequence
+    gather before the head, the loss's 3 all-reduces over "model" (max, sum
+    of exponentials, gold logit) and 1 over the dp axes. Backward: each of
+    those that carries a gradient transposed — an all-gather's a
+    reduce-scatter, a reduce-scatter's an all-gather, an all-reduce's an
+    all-reduce (the max carries none; the sum and the gold logit share
+    one) —, one all-reduce a leaf whole on some mesh axis (``leaf_sum``:
+    the five norm leaves) and one of AdamW's sums of squares
+    (``norm_sum``)."""
+    L = cfg.n_layers
+    cut = cfg.n_kv_heads % model_size != 0
+    R = 2 * L + 1
+    calls = dict(fsdp_gather=7 * L + 2, column=5 * L, row=2 * L,
+                 sp_gather=2 * L + 1 if sp else 0,
+                 head_gather=2 * L if cut else 0, embed=1, head=1,
+                 last_position=0)
+    gathers = calls["fsdp_gather"] + calls["sp_gather"] \
+        + calls["head_gather"]
+    return {"calls": calls,
+            "collectives": dict(all_gather=gathers,
+                                reduce_scatter=R if sp else 0,
+                                all_reduce=(0 if sp else R) + 4,
+                                broadcast=0),
+            "backward": dict(all_gather=R if sp else 0,
+                             reduce_scatter=gathers,
+                             all_reduce=(0 if sp else R) + 2,
+                             leaf_sum=5, norm_sum=1)}
+
+
+def train_state_sh(model, mesh) -> tuple:
+    """(the param shardings, those of the state {"params", "opt"})."""
+    from repro_torch.launch import sharding as shd
+    sh = shd.shard_params(model.param_shapes(), mesh)
+    return sh, {"params": sh, "opt": shd.shard_opt_state(
+        adamw.state_shapes(model.param_shapes()), sh, mesh)}
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tr.leaves(tree))
+
+
+def leaf_distance(got, want, scale=None) -> dict:
+    """Each leaf of ``got`` against ``want``'s (on any device; ``scale``:
+    each whole leaf's max|.| where ``want`` holds slices): how many are
+    equal bit for bit, and the largest |got - want| as a share of
+    MESH_TRAIN_TOL x max|leaf| (``share_of_tol``; 1 is the limit), with
+    its path."""
+    pairs = list(zip(tr.flatten_with_path(got), tr.leaves(want)))
+    equal, worst, where = 0, 0.0, None
+    for i, ((path, a), b) in enumerate(pairs):
+        b = b.to(a.device)
+        top = float(b.abs().max()) if scale is None else scale[i]
+        if a.dtype == b.dtype and torch.equal(a, b):
+            equal += 1
+            continue
+        err = float((a.float() - b.float()).abs().max())
+        share = err / (MESH_TRAIN_TOL * top) if top else math.inf
+        if share > worst:
+            worst, where = share, "/".join(path)
+    return dict(leaves=len(pairs), equal=equal, share_of_tol=worst,
+                worst_leaf=where)
+
+
+def metric_distance(got: dict, want: dict) -> dict:
+    """|got - want| of loss and grad_norm as a share of MESH_TRAIN_TOL x
+    |want|, and whether lr is equal."""
+    out = {k: abs(float(got[k]) - float(want[k]))
+           / (MESH_TRAIN_TOL * abs(float(want[k])))
+           for k in ("loss", "grad_norm")}
+    out["lr_equal"] = float(got["lr"]) == float(want["lr"])
+    return out
+
+
+def counted_train_step(step, st, batch, cfg, dtype, formula) -> tuple:
+    """One sharded step with every count at 0 just before and read just
+    after: one ``rms_norm`` a norm (``row_in_registers``) and one
+    ``flash_attention`` a layer (the dtype's variant) in the forward, none
+    in the backward (the plain versions' gradients), and the collectives
+    of ``formula``. Returns (state, metrics, its line)."""
+    from repro_torch.launch import partition as mpt
+    rms = train_rms_per_step(cfg)
+    reset_all_counts()
+    mpt.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    p, o, met = step(st["params"], st["opt"], batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts, by_variant = lm_counts_since_reset(
+        {"rms_norm": {"row_in_registers": rms},
+         "flash_attention": {ATTN_VARIANT[dtype]: cfg.n_layers}},
+        rms_norm=rms, flash_attention=cfg.n_layers)
+    got = dict(mpt.counts(), backward=mpt.backward_counts())
+    if got != formula:
+        raise AssertionError(f"mesh train {dtype}: collectives {got}, "
+                             f"PERF.md's formula {formula}")
+    if not all(math.isfinite(float(v)) for v in met.values()):
+        raise AssertionError(f"mesh train {dtype}: metrics {met}")
+    line = dict(ms=seconds * 1e3, peak_gib=peak / 2**30,
+                step_gib=(peak - base) / 2**30, launches=counts,
+                launches_by_variant=by_variant,
+                **{k: float(v) for k, v in met.items()})
+    return {"params": p, "opt": o}, met, line
+
+
+def train_batch(cfg, step: int, batch: int = TRAIN_B) -> dict:
+    return batch_at(cfg, ShapeSpec("train", TRAIN_S, batch, "train"), step,
+                    DataConfig(seed=TRAIN_SEED + 99))
+
+
+def fingerprint(tree) -> list:
+    """Each leaf's (dtype, shape, and its bit patterns summed as int64,
+    plainly and weighted by position): two trees whose lists are equal are
+    equal bit for bit but by a collision of both sums. A witness that
+    needs no second copy of a full-width state on the card."""
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for t in tr.leaves(tree):
+        bits = t.contiguous().view(ints[t.element_size()]).reshape(-1).to(
+            torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device) % 8191 + 1
+        out.append((str(t.dtype), tuple(t.shape), int(bits.sum()),
+                    int((bits * w).sum())))
+        del bits, w
+    return out
+
+
+def mesh_train_world1(mesh, work: Path) -> dict:
+    """World 1 (NCCL, 1 x 1). (a) qwen3-1.7b whole, bf16, MESH_TRAIN_STEPS
+    steps of TRAIN_B x TRAIN_S, each this rank's shards of the state and
+    its rows of the batch (``shard_batch``) through
+    ``build_train_step(act_spec=)`` made as ``plan_cell``'s train plan
+    makes it (the batch on the dp axes, SP, AdamW's default config), each
+    step counted (:func:`counted_train_step`). Before each, the step
+    without a mesh runs from the same state: loss, grad_norm and lr must be
+    equal bit for bit, and every leaf of the weights and moments
+    (:func:`fingerprint`: two full-width states do not fit on the card
+    beside a step). A leaf that differs is then held within MESH_TRAIN_TOL
+    x max|leaf| of the step without a mesh, run again with the sharded
+    leaves on the host, its distance printed. ms a step of both. The steps
+    are driven here, not by ``run_training``, whose final checkpoint at
+    full width (24.4 GB) phase lm_train already writes and times: the
+    loop's sharded checkpoint and resume run on world 4's state
+    (:func:`mesh_train_world4`, :func:`mesh_train_elastic`, the latter on a
+    world of one). (b) The same at MESH_TRAIN_REPEATS layers in bf16 and
+    float32, MESH_TRAIN_W4_STEPS steps each: world 4's references, written
+    to ``work``."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import mesh as ml
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import make_act_constrainer
+    cfg = get_lm_config(TRAIN_ARCH)
+    act = make_act_constrainer(mesh, ml.dp_axes(mesh), sequence_parallel=True)
+    formula = train_collectives(cfg, 1)
+    model = build_lm_model(cfg)
+    params, _ = init_weights(model, TRAIN_SEED)
+    sh, _ = train_state_sh(model, mesh)
+    local = shd.local_params(params, sh, mesh)
+    del params
+    sharded = build_train_step(model, MESH_TRAIN_OPT, act_spec=act)
+    plain = build_train_step(model, MESH_TRAIN_OPT)
+    steps = []
+
+    def step_fn(st, w):
+        b = shard_batch(w, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, want = plain(st["params"], st["opt"], w)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        want_fp = fingerprint({"params": p, "opt": o})
+        del p, o
+        torch.cuda.empty_cache()
+        new, met, line = counted_train_step(sharded, st, b, cfg,
+                                            torch.bfloat16, formula)
+        got_fp = fingerprint(new)
+        differ = [i for i, (a, b_) in enumerate(zip(got_fp, want_fp))
+                  if a != b_]
+        d = dict(leaves=len(got_fp), equal=len(got_fp) - len(differ),
+                 share_of_tol=0.0, worst_leaf=None)
+        if differ:
+            # the new state on the host, the step without a mesh again,
+            # each differing leaf held to it, the state back on the card
+            host = tr.tree_map(lambda t: t.cpu(), new)
+            del new
+            torch.cuda.empty_cache()
+            p, o, _ = plain(st["params"], st["opt"], w)
+            ref = tr.leaves({"params": p, "opt": o})
+            at = tr.flatten_with_path(host)
+            for i in differ:
+                share = leaf_distance({"x": at[i][1].to(DEV)},
+                                      {"x": ref[i]})["share_of_tol"]
+                if share >= d["share_of_tol"]:
+                    d.update(share_of_tol=share, worst_leaf="/".join(
+                        at[i][0]))
+            del p, o, ref, at
+            torch.cuda.empty_cache()
+            new = tr.tree_map(lambda t: t.to(DEV), host)
+            del host
+            if not d["share_of_tol"] <= 1.0:
+                raise AssertionError(f"mesh train world 1 step "
+                                     f"{len(steps)}: {d}")
+        m = metric_distance(met, want)
+        if not (max(m["loss"], m["grad_norm"]) <= 1.0 and m["lr_equal"]):
+            raise AssertionError(f"mesh train world 1 step {len(steps)}: "
+                                 f"{m}")
+        equal = not differ and all(torch.equal(met[k], want[k])
+                                   for k in ("loss", "grad_norm", "lr"))
+        steps.append(dict(step=len(steps), **line, plain_ms=plain_ms,
+                          leaves=d, metrics=m, bit_equal=equal))
+        return new
+
+    st = {"params": local, "opt": adamw.init(local)}
+    del local
+    for s in range(MESH_TRAIN_STEPS):
+        st = step_fn(st, train_batch(cfg, s))
+    del st
+    torch.cuda.empty_cache()
+    line = dict(arch=TRAIN_ARCH, layers=cfg.n_layers, batch=TRAIN_B,
+                seq=TRAIN_S, steps=steps, collectives=formula,
+                bit_equal=all(s["bit_equal"] for s in steps))
+    line["depth"] = mesh_train_depth_refs(mesh, work, act)
+    return line
+
+
+def mesh_train_depth_refs(mesh, work: Path, act) -> dict:
+    """World 1 at MESH_TRAIN_REPEATS layers: bf16 then float32 (the bf16
+    weights cast, exact), MESH_TRAIN_W4_STEPS sharded steps each beside
+    the step without a mesh; their metrics written for world 4."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import sharding as shd
+    cfg = dataclasses.replace(get_lm_config(TRAIN_ARCH),
+                              repeats=MESH_TRAIN_REPEATS)
+    opt = MESH_TRAIN_OPT
+    formula = train_collectives(cfg, 1)
+    params, _ = init_weights(build_lm_model(cfg), TRAIN_SEED)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = build_lm_model(dataclasses.replace(
+            cfg, param_dtype=str(dtype).split(".")[1]))
+        p = tree_to(params, dtype)
+        sh, _ = train_state_sh(model, mesh)
+        local = shd.local_params(p, sh, mesh)
+        st, ref = {"params": local, "opt": adamw.init(local)}, \
+            {"params": p, "opt": adamw.init(p)}
+        step, plain = build_train_step(model, opt, act_spec=act), \
+            build_train_step(model, opt)
+        lines = []
+        for k in range(MESH_TRAIN_W4_STEPS):
+            b = train_batch(cfg, k)
+            st, met, line = counted_train_step(step, st, shard_batch(b, mesh),
+                                               cfg, dtype, formula)
+            pp, po, want = plain(ref["params"], ref["opt"], b)
+            ref = {"params": pp, "opt": po}
+            d = leaf_distance(st, ref)
+            if not d["share_of_tol"] <= 1.0:
+                raise AssertionError(f"mesh train world 1, "
+                                     f"{cfg.n_layers} layers {dtype}: {d}")
+            lines.append(dict(line, leaves=d, metrics_equal=all(
+                torch.equal(met[k_], want[k_])
+                for k_ in ("loss", "grad_norm", "lr"))))
+        out[str(dtype).split(".")[1]] = lines
+        del st, ref, local, p
+    del params
+    torch.cuda.empty_cache()
+    (work / "train_world1.json").write_text(json.dumps(out))
+    return out
+
+
+def unsharded_refs(model, params, cfg, mesh, sh, state_sh,
+                   whole: bool) -> tuple:
+    """MESH_TRAIN_W4_STEPS float32 steps without a mesh on the whole
+    weights (``params`` cast): (for each step its metrics, each whole
+    leaf's max|.| and this rank's slices of the state, on the host; with
+    ``whole``, the last state whole on the host and its metrics, else
+    None). Nothing of it stays on the card."""
+    from repro_torch.launch import sharding as shd
+    plain = build_train_step(model, MESH_TRAIN_OPT)
+    p = tree_to(params, torch.float32)
+    ref = {"params": p, "opt": adamw.init(p)}
+    del p
+    refs = []
+    for k in range(MESH_TRAIN_W4_STEPS):
+        pp, po, met = plain(ref["params"], ref["opt"], train_batch(cfg, k))
+        ref = {"params": pp, "opt": po}
+        del pp, po
+        refs.append(dict(
+            metrics={k_: float(v) for k_, v in met.items()},
+            scale=[float(t.abs().max()) for t in tr.leaves(ref)],
+            state=tr.tree_map(lambda t: t.cpu(), shd.local_params(
+                ref, {"params": sh, "opt": state_sh["opt"]}, mesh))))
+    keep = dict(state=tr.tree_map(lambda t: t.cpu(), ref),
+                metrics=refs[-1]["metrics"]) if whole else None
+    return refs, keep
+
+
+def mesh_train_world4(mesh, work: Path) -> dict:
+    """World 4 (gloo, 2 x 2, four processes on the card): qwen3-1.7b at
+    full width cut to MESH_TRAIN_REPEATS layers, the batch over "data",
+    heads, columns and the sequence over "model". bf16: MESH_TRAIN_W4_STEPS
+    counted steps, loss and grad_norm against world 1's at the same depth
+    (recorded, not bounded). float32 (the same weights cast): each rank in
+    turn (MESH_TRAIN_TURN at a time) runs the step without a mesh on the
+    whole weights and keeps its slices of the result; then the first step through
+    ``run_training(state_shardings=)``, whose final checkpoint (gathered
+    onto the first rank and written there) is the one the elastic check
+    resumes on a world of one, and the second step; after each, loss and
+    grad_norm within MESH_TRAIN_TOL of the step without a mesh (and
+    recorded against world 1's), every weight and moment shard within
+    MESH_TRAIN_TOL x max|leaf|. Each rank holds its shard bytes, only the
+    norms whole. Returns the line, and on the first rank the step without
+    a mesh's state after the last step (the elastic check's reference)."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import mesh as ml
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import make_act_constrainer
+    cfg = dataclasses.replace(get_lm_config(TRAIN_ARCH),
+                              repeats=MESH_TRAIN_REPEATS)
+    opt = MESH_TRAIN_OPT
+    act = make_act_constrainer(mesh, ml.dp_axes(mesh), sequence_parallel=True)
+    formula = train_collectives(cfg, ml.mesh_shape(mesh)["model"])
+    world1 = json.loads((work / "train_world1.json").read_text())
+    rank = torch.distributed.get_rank()
+    params, _ = init_weights(build_lm_model(cfg), TRAIN_SEED)
+    line = dict(layers=cfg.n_layers, batch=TRAIN_B, seq=TRAIN_S,
+                mesh=ml.mesh_shape(mesh), collectives=formula)
+    keep = None
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        model = build_lm_model(dataclasses.replace(cfg, param_dtype=name))
+        p = tree_to(params, dtype)
+        sh, state_sh = train_state_sh(model, mesh)
+        local = shd.local_params(p, sh, mesh)
+        whole = {path[-1] for (path, a), b in zip(
+            tr.flatten_with_path(local), tr.leaves(p)) if a is b}
+        del p
+        st = {"params": local, "opt": adamw.init(local)}
+        refs = []
+        if dtype == torch.float32:
+            # the step without a mesh, MESH_TRAIN_TURN ranks at a time
+            t0 = time.perf_counter()
+            for first in range(0, ml.world_of(mesh), MESH_TRAIN_TURN):
+                if first <= rank < first + MESH_TRAIN_TURN:
+                    refs, keep = unsharded_refs(model, params, cfg, mesh,
+                                                sh, state_sh, rank == 0)
+                    torch.cuda.empty_cache()
+                ml.barrier(mesh)
+            line["reserved_gib_after_turns"] = \
+                torch.cuda.memory_reserved() / 2**30
+            line["turns_seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        step = build_train_step(model, opt, act_spec=act)
+        runs, kept = [], {}
+
+        def check(s, met, row):
+            w1 = world1[name][s]
+            row["vs_world1"] = metric_distance(met, w1)
+            if refs:
+                ref = refs[s]
+                d = leaf_distance(kept["state"], ref["state"],
+                                  scale=ref["scale"])
+                m = metric_distance(met, ref["metrics"])
+                if not (d["share_of_tol"] <= 1.0 and m["lr_equal"]
+                        and max(m["loss"], m["grad_norm"]) <= 1.0):
+                    raise AssertionError(f"mesh train world 4 {name} step "
+                                         f"{s}: {d} {m}")
+                row.update(leaves=d, vs_unsharded=m)
+            runs.append(row)
+            kept["t_last"] = time.perf_counter()
+
+        def step_fn(st_, b):
+            new, met, kept["row"] = counted_train_step(step, st_, b, cfg,
+                                                       dtype, formula)
+            kept["state"] = new
+            return new, met
+
+        def batch_fn(s):
+            return shard_batch(train_batch(cfg, s), mesh)
+
+        first = 0
+        if dtype == torch.float32:
+            ckpt_dir = work / "train_w4_ckpt"
+            run_training(TrainLoopConfig(total_steps=1, ckpt_every=2,
+                                         ckpt_dir=str(ckpt_dir)),
+                         step_fn, st, batch_fn, state_shardings=state_sh,
+                         on_metrics=lambda s, met: check(s, met, kept.pop(
+                             "row")))
+            line["checkpoint_save_seconds"] = time.perf_counter() \
+                - kept.pop("t_last")
+            st, first = kept["state"], 1
+        for s in range(first, MESH_TRAIN_W4_STEPS):
+            st, met = step_fn(st, batch_fn(s))
+            check(s, met, kept.pop("row"))
+        bytes_ = dict(local=tree_bytes(st), whole=sum(
+            math.prod(s.global_shape(tuple(t.shape))) * t.element_size()
+            for t, s in zip(tr.leaves(st), tr.leaves(state_sh))),
+            shards=shd.shard_bytes(model.param_shapes(), sh)
+            + 2 * shd.shard_bytes(adamw.state_shapes(
+                model.param_shapes()).m, sh) + 4)
+        if bytes_["local"] != bytes_["shards"] or \
+                whole != MESH_WHOLE_LEAVES:
+            raise AssertionError(f"mesh train world 4 {name}: the rank "
+                                 f"holds {bytes_}, whole leaves {whole}")
+        line[name] = dict(steps=runs, bytes=bytes_,
+                          share=bytes_["local"] / bytes_["whole"],
+                          whole_leaves=sorted(whole))
+        kept.clear()            # the step's closures hold it
+        del st, local, refs
+        torch.cuda.empty_cache()
+    return line, keep
+
+
+def mesh_train_elastic(work: Path, want) -> dict:
+    """The elastic check, on the first rank of world 4 once its group is
+    gone: a world of one NCCL rank resumes world 4's float32 checkpoint of
+    its first step through ``run_training(state_shardings=)`` and runs the
+    second step, which must be the uninterrupted step without a mesh's
+    (``want``, its state on the host) within MESH_TRAIN_TOL x max|leaf|,
+    loss and grad_norm within MESH_TRAIN_TOL."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import mesh as ml
+    ml.init_world("nccl")
+    mesh = ml.make_test_mesh((1, 1), ("data", "model"))
+    cfg = dataclasses.replace(get_lm_config(TRAIN_ARCH),
+                              repeats=MESH_TRAIN_REPEATS,
+                              param_dtype="float32")
+    model = build_lm_model(cfg)
+    _sh, state_sh = train_state_sh(model, mesh)
+    step = build_train_step(model, MESH_TRAIN_OPT, mesh=mesh)
+    kept = {}
+
+    def step_fn(st, b):
+        new, met, kept["row"] = counted_train_step(
+            step, st, b, cfg, torch.float32,
+            train_collectives(cfg, 1))
+        kept["state"], kept["met"] = new, met
+        return new, met
+
+    ckpt_dir = work / "train_w4_ckpt"
+    t0 = time.perf_counter()
+    out = run_training(TrainLoopConfig(total_steps=MESH_TRAIN_W4_STEPS,
+                                       ckpt_every=MESH_TRAIN_W4_STEPS + 1,
+                                       ckpt_dir=str(ckpt_dir)),
+                       step_fn, want["state"],
+                       lambda s: shard_batch(train_batch(cfg, s), mesh),
+                       state_shardings=state_sh)
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    d = leaf_distance(kept["state"], want["state"])
+    m = metric_distance(kept["met"], want["metrics"])
+    if not (out["final_step"] == MESH_TRAIN_W4_STEPS
+            and len(out["losses"]) == MESH_TRAIN_W4_STEPS - 1
+            and d["share_of_tol"] <= 1.0 and m["lr_equal"]
+            and max(m["loss"], m["grad_norm"]) <= 1.0):
+        raise AssertionError(f"elastic resume on world 1: {out} {d} {m}")
+    torch.distributed.destroy_process_group()
+    return dict(resumed_from_step=MESH_TRAIN_W4_STEPS - 2, **kept["row"],
+                leaves=d, vs_uninterrupted=m, seconds=seconds)
+
+
+def run_mesh_rank(rank: int, world: int, init: str, work: str,
+                  gate: str = "") -> None:
     """One rank of phase mesh (``python3 chip_smoke.py --mesh-rank RANK
-    WORLD INIT DIR``): world 1 on NCCL, a (1, 1) mesh; world 4 on gloo, a
-    (2, 2) mesh of four processes sharing the card. Writes its line as
+    WORLD INIT DIR [GATE]``): world 1 on NCCL, a (1, 1) mesh; world 4 on
+    gloo, a (2, 2) mesh of four processes sharing the card. With GATE the
+    rank, its imports done, waits for that file before it touches the card
+    (world 4 starts while world 1 runs). Writes its line as
     ``DIR/world<W>_rank<R>.json``."""
     from repro_torch.launch import mesh as ml
     work = Path(work)
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    while gate and not Path(gate).exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"mesh rank {rank}: no {gate}")
+        time.sleep(0.05)
     t0 = time.perf_counter()
     backend = ml.init_world("nccl" if world == 1 else "gloo", rank=rank,
                             world_size=world, init_method=init)
@@ -5366,10 +5931,20 @@ def run_mesh_rank(rank: int, world: int, init: str, work: str) -> None:
     line["sweeps"] = mesh_sharded_sweeps(mesh, world, work, work)
     line["decode"] = mesh_cp_decode(mesh, world, work)
     line["prefill"] = mesh_prefill(mesh, world, work)
-    if world > 1:
+    t_train = time.perf_counter()
+    if world == 1:
+        line["train"] = mesh_train_world1(mesh, work)
+    else:
         line["cp_attention"] = mesh_cp_attention(mesh)
+        t_train = time.perf_counter()
+        line["train"], keep = mesh_train_world4(mesh, work)
     ml.barrier(mesh)
     torch.distributed.destroy_process_group()
+    if world > 1 and rank == 0:
+        # the elastic check: world 4's checkpoint on a world of one
+        line["train"]["elastic"] = mesh_train_elastic(work, keep)
+        del keep
+    line["train"]["seconds"] = time.perf_counter() - t_train
     line["seconds"] = time.perf_counter() - t0
     (work / f"world{world}_rank{rank}.json").write_text(json.dumps(line))
 
@@ -5409,31 +5984,54 @@ def mesh_service_sweep(mesh, work: Path) -> dict:
                 rows_per_second=len(g) / wall, keys_and_bytes_equal=True)
 
 
-def mesh_world(world: int, work: Path) -> list:
-    """Run the ``world`` ranks of phase mesh, each a process of its own on
-    the card, all started together; a failed or hung rank fails the phase
-    with its output's tail, and every rank is reaped."""
+def mesh_spawn(world: int, work: Path, gate: Path = None) -> list:
+    """Start the ``world`` ranks of phase mesh, each a process of its own
+    on the card, all together (behind ``gate``: :func:`run_mesh_rank`).
+    Returns (process, log) pairs for :func:`mesh_wait`."""
     from repro_torch.launch import mesh as ml
     init = f"tcp://localhost:{ml.free_port()}"
+    while init in MESH_INITS:       # not the rendezvous of another world
+        init = f"tcp://localhost:{ml.free_port()}"
+    MESH_INITS.add(init)
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    logs = [work / f"world{world}_rank{r}.log" for r in range(world)]
-    procs = []
+    ranks = []
     try:
-        for r, log in enumerate(logs):
+        for r in range(world):
+            log = work / f"world{world}_rank{r}.log"
             with open(log, "w") as f:
-                procs.append(subprocess.Popen(
+                ranks.append((subprocess.Popen(
                     [sys.executable, str(Path(__file__).resolve()),
-                     "--mesh-rank", str(r), str(world), init, str(work)],
-                    stdout=f, stderr=subprocess.STDOUT, text=True, env=env))
+                     "--mesh-rank", str(r), str(world), init, str(work)]
+                    + ([str(gate)] if gate else []),
+                    stdout=f, stderr=subprocess.STDOUT, text=True, env=env),
+                    log))
+    except BaseException:
+        mesh_reap(ranks)
+        raise
+    return ranks
+
+
+#: the rendezvous addresses of the worlds started by :func:`mesh_spawn`
+MESH_INITS = set()
+
+
+def mesh_reap(ranks: list) -> None:
+    for p, _log in ranks:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def mesh_wait(world: int, work: Path, ranks: list) -> list:
+    """Wait for the ranks of :func:`mesh_spawn`; a failed or hung rank
+    fails the phase with its output's tail, and every rank is reaped."""
+    try:
         deadline = time.monotonic() + MESH_TIMEOUT_S
-        for p in procs:
+        for p, _log in ranks:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
+        mesh_reap(ranks)
+    for r, (p, log) in enumerate(ranks):
         if p.returncode != 0:
             raise AssertionError(f"mesh world {world} rank {r} exited "
                                  f"{p.returncode}:\n"
@@ -5456,14 +6054,27 @@ def phase_mesh(work: Path) -> dict:
     the batch over "data" and the sequence over "model" giving world 1's
     logits and tokens, and one layer's attention at MESH_ATTN
     (:func:`mesh_cp_attention`). Each world also prefills qwen3-1.7b with
-    its weights split by the placement rules (:func:`mesh_prefill`).
-    Returns the ``ws_sim`` launches of each rank and world by body, and
-    the prefill's ``rms_norm`` and ``flash_attention`` launches."""
+    its weights split by the placement rules (:func:`mesh_prefill`), and
+    trains it with its weights, gradients and AdamW moments split
+    (:func:`mesh_train_world1`, :func:`mesh_train_world4`, the elastic
+    resume :func:`mesh_train_elastic`). Returns the ``ws_sim`` launches of
+    each rank and world by body, and the prefill's and the train steps'
+    ``rms_norm`` and ``flash_attention`` launches."""
     torch.cuda.empty_cache()
+    main_gib = torch.cuda.memory_allocated() / 2**30
     t0 = time.perf_counter()
-    one = mesh_world(1, work)[0]
-    say("mesh", **one, card=card_line())
-    four = mesh_world(4, work)
+    # world 4's ranks import while world 1 runs, and start once it is done
+    # (world 4 reads what world 1 wrote, and both do not fit on the card)
+    gate = work / "world1_done"
+    ranks1, ranks4 = mesh_spawn(1, work), []
+    try:
+        ranks4 = mesh_spawn(4, work, gate)
+        one = mesh_wait(1, work, ranks1)[0]
+        gate.touch()
+        say("mesh", **one, card=card_line())
+        four = mesh_wait(4, work, ranks4)
+    finally:
+        mesh_reap(ranks1 + ranks4)
     for r in four:
         say("mesh", **r)
     launches = {b: {"world1": 0, "world4": [0] * 4} for b in BODIES}
@@ -5482,6 +6093,54 @@ def phase_mesh(work: Path) -> dict:
             "prefill_world4": [sum(r["prefill"][dt]["launches"][k]
                                    for dt in ("bf16", "float32"))
                                for r in four]}
+    # the train steps' kernels: world 1's sharded steps (whole, then at
+    # MESH_TRAIN_REPEATS layers in both dtypes), each world-4 rank's (and
+    # the first rank's elastic step)
+    w1 = one["train"]
+    for k in ("rms_norm", "flash_attention"):
+        launches[k]["train_world1"] = sum(
+            s["launches"][k] for s in w1["steps"]) + sum(
+            s["launches"][k] for lines in w1["depth"].values()
+            for s in lines)
+        launches[k]["train_world4"] = [sum(
+            s["launches"][k] for dt in ("bfloat16", "float32")
+            for s in r["train"][dt]["steps"]) + r["train"].get(
+            "elastic", {}).get("launches", {}).get(k, 0) for r in four]
+    say("mesh", step="train_summary",
+        world1=dict(
+            ms=[s["ms"] for s in w1["steps"]],
+            unsharded_ms=[s["plain_ms"] for s in w1["steps"]],
+            peak_gib=max(s["peak_gib"] for s in w1["steps"]),
+            step_gib=max(s["step_gib"] for s in w1["steps"]),
+            bit_equal=w1["bit_equal"],
+            worst_share_of_tol=max(s["leaves"]["share_of_tol"]
+                                   for s in w1["steps"]),
+            losses=[s["loss"] for s in w1["steps"]],
+            collectives=w1["collectives"], seconds=w1["seconds"]),
+        world4=dict(
+            layers=MESH_TRAIN_REPEATS,
+            bf16_seconds=[[s["ms"] / 1e3 for s in r["train"]["bfloat16"][
+                "steps"]] for r in four],
+            float32_seconds=[[s["ms"] / 1e3 for s in r["train"]["float32"][
+                "steps"]] for r in four],
+            peak_gib=[max(s["peak_gib"] for dt in ("bfloat16", "float32")
+                          for s in r["train"][dt]["steps"]) for r in four],
+            weight_and_moment_share=[r["train"]["float32"]["share"]
+                                     for r in four],
+            float32_worst_share_of_tol=max(
+                max(s["leaves"]["share_of_tol"], s["vs_unsharded"]["loss"],
+                    s["vs_unsharded"]["grad_norm"])
+                for r in four for s in r["train"]["float32"]["steps"]),
+            bf16_vs_world1=[s["vs_world1"] for s in four[0]["train"][
+                "bfloat16"]["steps"]],
+            float32_vs_world1=[s["vs_world1"] for s in four[0]["train"][
+                "float32"]["steps"]],
+            checkpoint_save_seconds=four[0]["train"][
+                "checkpoint_save_seconds"],
+            turns_seconds=four[0]["train"]["turns_seconds"],
+            elastic=four[0]["train"]["elastic"],
+            seconds=[r["train"]["seconds"] for r in four]),
+        main_process_gib=main_gib, card=card_line())
     pre = [r["prefill"] for r in four]
     say("mesh", step="prefill_summary",
         world1=dict(bf16_ms=one["prefill"]["bf16"]["ms"],
@@ -5551,12 +6210,15 @@ def main():
     def build():
         seconds = _build.build_all()
         ws._lib()
+        with ThreadPoolExecutor() as pool:
+            resources = pool.submit(register_variant_resources)
+            hgmma = hgmma_counts()
+            resources = resources.result()
         say("build", seconds=seconds, directory=str(_build.build_dir()),
             ptxas={name: [l.strip() for l in log.splitlines()
                           if "registers" in l or "spill" in l]
                    for name, log in _build.build_logs.items()},
-            hgmma=hgmma_counts(),
-            ws_sim_register_variant=register_variant_resources())
+            hgmma=hgmma, ws_sim_register_variant=resources)
     timed("build", build)
     # 2, 3. each body against its plain version and the oracle
     timed("kernels", phase_kernels_and_oracle)
@@ -5637,7 +6299,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--kernel-group"]:
         run_kernel_group(sys.argv[2])
     elif sys.argv[1:2] == ["--mesh-rank"]:
-        run_mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
-                      sys.argv[5])
+        run_mesh_rank(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
     else:
         main()

@@ -47,19 +47,63 @@ def _flatten(tree) -> List[Tuple[str, Any]]:
     return out
 
 
+class _MeshWrite:
+    """The handle of a sharded state's save: ``join()`` waits for the first
+    rank's write (a thread, or nothing) and then for every rank of the mesh
+    (a barrier), so that the checkpoint is committed on return."""
+
+    def __init__(self, thread: Optional[threading.Thread], mesh):
+        self.thread, self.mesh = thread, mesh
+
+    def join(self) -> None:
+        if self.thread is not None:
+            self.thread.join()
+        from repro_torch.launch import mesh as mesh_lib
+        mesh_lib.barrier(self.mesh)
+
+
 def save_checkpoint(directory, step: int, tree, extra: Optional[Dict] = None,
-                    async_write: bool = False, keep_last: int = 3):
+                    async_write: bool = False, keep_last: int = 3,
+                    shardings=None):
     """Write ``tree`` under <directory>/step_<step>. Returns a join() handle
     when ``async_write`` (the device->host copy happens now; the disk IO in a
-    background thread — the standard async-checkpoint split)."""
+    background thread — the standard async-checkpoint split).
+
+    ``shardings``: a matching tree of ``launch.sharding.NamedSharding`` on a
+    live mesh, ``tree``'s leaves this rank's shards. The files are still
+    the JAX package's, one global array a leaf: each leaf is gathered whole
+    onto the mesh's first rank (``sharding.gather_to_writer``), which alone
+    writes, while the others wait at a barrier until the checkpoint is
+    committed (with ``async_write``, at the handle's ``join()``, which
+    every rank must call)."""
     directory = Path(directory)
     tmp = directory / f".tmp_step_{step}"
     final = directory / f"step_{step}"
+    named = _flatten(tree)
+    mesh = None
+    if shardings is not None:
+        from repro_torch.launch import mesh as mesh_lib
+        from repro_torch.launch import sharding as shd
+        shards = tr.leaves(shardings)
+        mesh = shards[0].mesh
+        # one leaf at a time: its whole copy is dropped before the next
+        host_leaves = []
+        for (n, x), sh in zip(named, shards):
+            whole = shd.gather_to_writer(x.detach(), sh, mesh)
+            if whole is not None:
+                host_leaves.append((n, whole.cpu()))
+            del whole
+        if not mesh_lib.is_writer(mesh):
+            handle = _MeshWrite(None, mesh)
+            if async_write:
+                return handle
+            handle.join()
+            return None
+    else:
+        host_leaves = [(n, x.detach().cpu()) for n, x in named]
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
-
-    host_leaves = [(n, x.detach().cpu()) for n, x in _flatten(tree)]
     treedef = tr.describe(tree)
 
     def _write():
@@ -87,8 +131,10 @@ def save_checkpoint(directory, step: int, tree, extra: Optional[Dict] = None,
     if async_write:
         t = threading.Thread(target=_write, daemon=True)
         t.start()
-        return t
+        return t if mesh is None else _MeshWrite(t, mesh)
     _write()
+    if mesh is not None:
+        _MeshWrite(None, mesh).join()
     return None
 
 

@@ -1,14 +1,16 @@
 """The collectives of a step whose weights are split across ranks.
 
-The JAX package lowers its prefill step under ``plan_cell``'s shardings,
-and XLA's SPMD partitioner places the collectives: that package has no
-file for them. This module is the port's stand-in for the part of the
-partitioner that the sharded prefill step needs
-(``launch/steps.py::build_prefill_step`` on a live mesh). Each collective
-pattern is one function on plain rank-local tensors (the kernels' wrappers
-take plain tensors, and an explicit call can be counted); each counts its
-calls in :data:`CALLS`, and every collective it issues is counted in
-:data:`COLLECTIVES`.
+The JAX package lowers its prefill and train steps under ``plan_cell``'s
+shardings, and XLA's SPMD partitioner places the collectives and, under
+``jax.grad``, their transposes: that package has no file for them. This
+module is the port's stand-in for the part of the partitioner that the
+sharded prefill and train steps need (``launch/steps.py::
+build_prefill_step`` and ``build_train_step`` on a live mesh). Each
+collective pattern is one function on plain rank-local tensors (the
+kernels' wrappers take plain tensors, and an explicit call can be
+counted); each counts its calls in :data:`CALLS`, and every collective it
+issues is counted in :data:`COLLECTIVES`, every collective of the
+gradient in :data:`BACKWARD`.
 
 The layout is ``launch/sharding.py``'s: tensor parallelism (TP) on
 ``model`` (a projection's output columns — wq, wk, wv, w_gate, w_up —, its
@@ -37,7 +39,27 @@ The patterns:
 * :func:`head` — the vocab-parallel head through ``layers.logits_f32``:
   this rank's vocabulary columns;
 * :func:`last_position` — the final position's hidden state sent by the
-  rank that holds it (SP) to the others of its ``model`` group.
+  rank that holds it (SP) to the others of its ``model`` group;
+* :func:`xent` — the train step's loss: a vocab-parallel softmax
+  cross-entropy over this rank's logit columns, averaged over the global
+  batch.
+
+**The gradient.** Each all-gather, reduce-scatter and all-reduce is an
+autograd function whose backward is its linear transpose on the same
+group: an all-gather's a reduce-scatter of the cotangent along the same
+dim, a reduce-scatter's an all-gather, an all-reduce's an all-reduce. One
+convention holds throughout: the cotangent of a value that several ranks
+hold alike is held as partial sums, the true cotangent their sum over
+those ranks. So the loss, which every rank holds, seeds each rank's
+backward with 1/|world| (``steps.loss_and_grads``); the slice into the SP
+layout is autograd's own; and a leaf's gradient is summed over every mesh
+axis its spec leaves it whole on (:func:`sum_whole_leaves`), after the
+FSDP gather's reduce-scatter has summed it over ``data`` where it is split
+there. Megatron's pairing of an all-reduce forward with an identity
+backward would over-count where a replicated value feeds a computation
+that every rank runs alike (a ``d_ff`` the guard leaves whole). The
+broadcast of :func:`last_position` has no transpose: it is not on the
+train path, and raises under autograd rather than cut the graph.
 
 Every group is ``mesh.axes_group``'s. A collective of a ``gloo`` group runs
 on host tensors (``mesh.collective_device``), one of an ``nccl`` group on
@@ -45,11 +67,13 @@ the card; a group of one rank still issues its collective.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
 
+from repro_torch import tree as tr
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding as shd
 from repro_torch.models import layers
@@ -62,13 +86,21 @@ FFNS = ("dense",)
 CALLS: Dict[str, int] = dict.fromkeys(
     ("fsdp_gather", "column", "row", "sp_gather", "head_gather", "embed",
      "head", "last_position"), 0)
-#: collectives issued since :func:`reset_counts`
+#: collectives issued by forward passes since :func:`reset_counts`
 COLLECTIVES: Dict[str, int] = dict.fromkeys(
     ("all_gather", "reduce_scatter", "all_reduce", "broadcast"), 0)
+#: collectives of the gradient since :func:`reset_counts`: the forward's
+#: transposes, issued by autograd (``all_gather``, ``reduce_scatter``,
+#: ``all_reduce``), each leaf's sum over the axes its spec leaves it whole
+#: on (``leaf_sum``) and AdamW's sum of squares over the mesh
+#: (``norm_sum``), one all-reduce each
+BACKWARD: Dict[str, int] = dict.fromkeys(
+    ("all_gather", "reduce_scatter", "all_reduce", "leaf_sum", "norm_sum"),
+    0)
 
 
 def reset_counts() -> None:
-    for d in (CALLS, COLLECTIVES):
+    for d in (CALLS, COLLECTIVES, BACKWARD):
         for k in d:
             d[k] = 0
 
@@ -76,6 +108,11 @@ def reset_counts() -> None:
 def counts() -> dict:
     """``{"calls": CALLS, "collectives": COLLECTIVES}``, copied."""
     return {"calls": dict(CALLS), "collectives": dict(COLLECTIVES)}
+
+
+def backward_counts() -> dict:
+    """:data:`BACKWARD`, copied."""
+    return dict(BACKWARD)
 
 
 def local(t):
@@ -203,22 +240,23 @@ def _on(t: torch.Tensor, group) -> torch.Tensor:
     return t.contiguous().to(mesh_lib.collective_device(group))
 
 
-def _all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+def _gather_raw(t: torch.Tensor, dim: int, group, tally) -> torch.Tensor:
     """The group's shards of ``dim`` concatenated in coordinate order,
-    contiguous, on ``t``'s device."""
-    COLLECTIVES["all_gather"] += 1
+    contiguous, on ``t``'s device (counted in ``tally``)."""
+    tally["all_gather"] += 1
     src = _on(t.movedim(dim, 0), group)
-    parts = [torch.empty_like(src)
-             for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, src, group=group)
-    return torch.cat(parts).to(t.device).movedim(0, dim).contiguous()
+    n = dist.get_world_size(group)
+    # the parts are views of one buffer: no concatenation after the gather
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather(list(out.chunk(n)), src, group=group)
+    return out.to(t.device).movedim(0, dim).contiguous()
 
 
-def _reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+def _scatter_raw(t: torch.Tensor, dim: int, group, tally) -> torch.Tensor:
     """The sum over the group of ``t``'s chunk along ``dim`` that this
     rank's coordinate names (the group lists its ranks in coordinate
     order: :func:`axis_group`), on ``t``'s device."""
-    COLLECTIVES["reduce_scatter"] += 1
+    tally["reduce_scatter"] += 1
     n = dist.get_world_size(group)
     chunks = [_on(c, group) for c in t.chunk(n, dim)]
     out = torch.empty_like(chunks[0])
@@ -226,15 +264,79 @@ def _reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.to(t.device)
 
 
-def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    COLLECTIVES["all_reduce"] += 1
+def _reduce_raw(t: torch.Tensor, group, tally, key: str = "all_reduce",
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The all-reduce of ``t`` over the group, into a new tensor on ``t``'s
+    device (counted as ``tally[key]``)."""
+    tally[key] += 1
     buf = _on(t, group)
-    dist.all_reduce(buf, group=group)
+    if buf is t:
+        buf = t.clone()             # never into the caller's tensor
+    dist.all_reduce(buf, op=op, group=group)
     return buf.to(t.device)
 
 
+class _AllGather(torch.autograd.Function):
+    """An all-gather along ``dim``; its transpose the reduce-scatter of the
+    cotangent (partial sums) along it."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_raw(t, dim, group, COLLECTIVES)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_raw(g, ctx.dim, ctx.group, BACKWARD), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """A reduce-scatter along ``dim``; its transpose the all-gather of the
+    cotangent along it."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _scatter_raw(t, dim, group, COLLECTIVES)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_raw(g, ctx.dim, ctx.group, BACKWARD), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """An all-reduce (sum); its transpose the all-reduce of the cotangent's
+    partial sums."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _reduce_raw(t, group, COLLECTIVES)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_raw(g, ctx.group, BACKWARD), None
+
+
+def _all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _AllGather.apply(t, dim, group)
+
+
+def _reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _ReduceScatter.apply(t, dim, group)
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    return _AllReduce.apply(t, group)
+
+
 def _broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
-    """``t`` of the group's rank ``src`` (by coordinate) on every rank."""
+    """``t`` of the group's rank ``src`` (by coordinate) on every rank. It
+    has no transpose: under autograd, on a tensor that requires a
+    gradient, it raises rather than cut the graph."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise RuntimeError("the broadcast of the last position is not on "
+                           "the train path and has no transpose")
     COLLECTIVES["broadcast"] += 1
     buf = torch.empty(t.shape, dtype=t.dtype,
                       device=mesh_lib.collective_device(group))
@@ -399,3 +501,116 @@ def last_position(part: Partition, x: torch.Tensor) -> torch.Tensor:
     src = part.size["model"] - 1
     got = _broadcast(last, src, part.group("model"))
     return last if part.coord["model"] == src else got
+
+
+# ---------------------------------------------------------------------------
+# the train step: the loss and the gradient's sums
+# ---------------------------------------------------------------------------
+
+class _VocabNLL(torch.autograd.Function):
+    """The negative log-likelihood of each position's label, (B, S) float32
+    and the same on every rank of ``group``, from this rank's logit columns
+    ``lo`` ... ``lo + V_l`` (B, S, V_l) float32: the maximum all-reduced
+    (MAX, outside the gradient), the sum of exponentials and the gold logit
+    (taken by the rank whose columns hold it) all-reduced. ``group`` None:
+    the logits hold every column. The forward is ``torch.logsumexp``'s
+    arithmetic and the backward that of ``logsumexp`` and ``gather``
+    (``exp(l - lse)`` times the cotangent, its negative added at the
+    label), so that a group of one gives ``layers.softmax_xent``'s loss and
+    gradient bit for bit. The cotangent is partial sums over the group
+    (the module's convention): the backward all-reduces it first."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo: int, group):
+        m = torch.amax(logits, dim=-1, keepdim=True)
+        if group is not None:
+            m = _reduce_raw(m, group, COLLECTIVES, op=dist.ReduceOp.MAX)
+        m = m.masked_fill(m.abs() == math.inf, 0)
+        s = torch.sum(torch.exp(logits - m), dim=-1)
+        idx = labels.long() - lo
+        keep = (idx >= 0) & (idx < logits.shape[-1])
+        idx = idx.clamp(0, logits.shape[-1] - 1)[..., None]
+        gold = torch.gather(logits, -1, idx)[..., 0]
+        if group is not None:
+            s = _reduce_raw(s, group, COLLECTIVES)
+            gold = _reduce_raw(torch.where(keep, gold, 0.0), group,
+                               COLLECTIVES)
+        lse = torch.log(s) + m[..., 0]
+        ctx.save_for_backward(logits, lse, idx, keep)
+        ctx.group = group
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, idx, keep = ctx.saved_tensors
+        if ctx.group is not None:
+            g = _reduce_raw(g, ctx.group, BACKWARD)
+        d = g[..., None] * torch.exp(logits - lse[..., None])
+        d.scatter_add_(-1, idx, torch.where(keep, -g, 0.0)[..., None])
+        return d, None, None, None
+
+
+def xent(part: Partition, logits: torch.Tensor,
+         labels: torch.Tensor) -> torch.Tensor:
+    """The mean next-token cross-entropy of the global batch (float32, one
+    element, the same on every rank) from this rank's logits (B/|dp|, S,
+    Vpad/|model|) and labels (B/|dp|, S): the JAX package's
+    ``softmax_xent`` over every column of the padded vocabulary, the
+    log-sum-exp vocab-parallel (:class:`_VocabNLL`), the mean this rank's
+    positions' mean over the batch's share it holds, summed over the dp
+    axes. A head whose vocabulary the guard left whole gives every column
+    on every rank, and the loss needs no collective over ``model``."""
+    cfg = part.cfg
+    key, d = ("tok_embed", 0) if cfg.tie_embeddings else ("lm_head", 1)
+    split = part.specs[key][d] == "model"
+    lo = part.coord["model"] * logits.shape[-1] if split else 0
+    nll = _VocabNLL.apply(logits.float(), labels, lo,
+                          part.group("model") if split else None)
+    loss = torch.mean(nll)
+    dp = part.act_spec.dp
+    if not dp:
+        return loss
+    n = mesh_lib.axis_size(part.mesh, *dp)
+    if n > 1:
+        loss = loss * (1.0 / n)
+    return _all_reduce(loss, mesh_lib.axes_group(part.mesh, dp))
+
+
+def _whole_axes(sharding, mesh) -> tuple:
+    """The mesh axes on which ``sharding``'s spec leaves its leaf whole."""
+    used = set()
+    for entry in sharding.spec:
+        if entry is not None:
+            used.update((entry,) if isinstance(entry, str) else entry)
+    return tuple(a for a in mesh_lib.axis_names(mesh) if a not in used)
+
+
+def sum_whole_leaves(grads, shardings, mesh):
+    """Each leaf's gradient (this rank's shard, partial sums over the axes
+    its spec leaves it whole on) summed over those axes: one all-reduce a
+    leaf that has any, counted as ``BACKWARD["leaf_sum"]``. The norms are
+    whole on every axis; a matrix the guard left whole on ``model`` is
+    summed there after its FSDP gather's reduce-scatter over ``data``."""
+    def one(g, sharding):
+        axes = _whole_axes(sharding, mesh)
+        if not axes:
+            return g
+        return _reduce_raw(g, mesh_lib.axes_group(mesh, axes), BACKWARD,
+                           "leaf_sum")
+    return tr.tree_map(one, grads, shardings)
+
+
+def sum_squares(squares: List[torch.Tensor], shardings: list,
+                mesh) -> List[torch.Tensor]:
+    """Each leaf's sum of squares over the whole mesh from this rank's
+    (``squares``, float32 of one element a leaf, the leaves in pytree
+    order): the shards of a split leaf summed over the ranks that hold
+    them, a leaf held alike on several ranks counted once (by the rank
+    whose coordinate is 0 on every axis that holds it alike). One
+    all-reduce, counted as ``BACKWARD["norm_sum"]``."""
+    coord = mesh_lib.coordinate(mesh)
+    mine = [s if not any(coord[a] for a in _whole_axes(sh, mesh))
+            else torch.zeros_like(s) for s, sh in zip(squares, shardings)]
+    total = _reduce_raw(torch.stack(mine), mesh_lib.mesh_group(mesh),
+                        BACKWARD, "norm_sum")
+    return list(total.unbind())

@@ -100,6 +100,13 @@ class NamedSharding:
             out[d] //= n
         return tuple(out)
 
+    def global_shape(self, local_shape) -> Tuple[int, ...]:
+        """The shape of the whole array whose shard is ``local_shape``."""
+        out = list(local_shape)
+        for d, entry in enumerate(self.spec):
+            out[d] *= axis_size(self.mesh, *_entry_axes(entry))
+        return tuple(out)
+
     def local_index(self, shape, rank: Optional[int] = None) -> tuple:
         """The slices of a ``shape`` array that ``rank`` (default: this
         rank) holds, on a live mesh."""
@@ -338,6 +345,40 @@ def gather_params(local, shardings, mesh):
                 leaf = gather(leaf, d, _entry_axes(entry))
         return leaf.contiguous()
     return tr.tree_map(one, local, shardings)
+
+
+def gather_to_writer(t: torch.Tensor, sharding: NamedSharding, mesh):
+    """The whole of the leaf whose shard this rank holds as ``t``, in
+    ``t``'s dtype, on the mesh's first rank (``mesh.is_writer``); None on
+    every other rank. Every rank sends its shard (raw bytes, so any dtype
+    crosses) and the first places each at its ``local_index``, where the
+    group's collectives put them (``mesh.collective_device``: the host for
+    a ``gloo`` group, the card for an ``nccl`` one): one gather a split
+    leaf, none for a whole one, which stays where it is. What a checkpoint
+    of a sharded state writes (``checkpoint/ckpt.py``); :func:`gather_params`
+    gives the whole tree to every rank instead."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import (collective_device, is_writer,
+                                         mesh_group)
+    sh = _sharding_on(sharding, mesh)
+    writer = is_writer(mesh)
+    if not _is_split(sh.spec):
+        return t if writer else None
+    group = mesh_group(mesh)
+    raw = t.contiguous().reshape(-1).view(torch.uint8).to(
+        collective_device(group))
+    ranks = dist.get_process_group_ranks(group)
+    first = int(mesh.mesh.flatten()[0])
+    parts = [torch.empty_like(raw) for _ in ranks] if writer else None
+    dist.gather(raw, parts, dst=first, group=group)
+    if not writer:
+        return None
+    shape = sh.global_shape(tuple(t.shape))
+    whole = torch.empty(shape, dtype=t.dtype, device=raw.device)
+    for r, part in zip(ranks, parts):
+        whole[sh.local_index(shape, rank=r)] = part.view(t.dtype).reshape(
+            t.shape)
+    return whole
 
 
 def shard_bytes(abstract_params, shardings) -> int:

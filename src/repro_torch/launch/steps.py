@@ -6,12 +6,14 @@ dtypes and shardings of their arguments, the activation layout
 (:func:`make_act_constrainer`), the MoE layout hints and context-parallel
 decode.
 
-The prefill step runs on a live mesh with its weights split by the
-placement rules (``sharding.local_params``): each rank holds its shards,
-and the step issues the collectives XLA's partitioner would place
-(``launch/partition.py``). Context-parallel decode (``cp_axes``) runs each
-rank's shard of the KV cache and merges the partials with collectives over
-the mesh. The train and decode steps run on rank-local, whole weights.
+The prefill and train steps run on a live mesh with their weights (and
+the train step's AdamW moments) split by the placement rules
+(``sharding.local_params``): each rank holds its shards, and the step
+issues the collectives XLA's partitioner would place, and in the backward
+their transposes (``launch/partition.py``). Context-parallel decode
+(``cp_axes``) runs each rank's shard of the KV cache and merges the
+partials with collectives over the mesh. The decode step runs on
+rank-local, whole weights.
 """
 from __future__ import annotations
 
@@ -107,28 +109,80 @@ def check_model_device(model, device) -> None:
                          f"asked for {dev}")
 
 
-def loss_and_grads(model, params, batch):
-    """(loss, metrics, grads): ``Model.loss_fn`` and its gradient with
-    respect to every leaf of ``params`` (``torch.autograd.grad``; a leaf the
-    loss does not reach gets zeros, as ``jax.grad`` gives). ``params`` is
-    not written: the gradient is taken on detached views of its leaves.
-    On the card each kernel's gradient is its plain version's
-    (``kernels/_lm.py::KernelWithPlainBackward``)."""
-    flat = tr.leaves(params)
-    leaves = [p.detach().requires_grad_(True) for p in flat]
+def _grads(model, params, batch, act_spec, part):
+    """(loss, metrics, grads) of ``Model.loss_fn`` before the leaf sums:
+    :func:`loss_and_grads` without them."""
+    flat = tr.flatten_with_path(params)
+    leaves = [p.detach().requires_grad_(True) for _path, p in flat]
     it = iter(leaves)
     p = tr.tree_map(lambda _leaf: next(it), params)
     with torch.enable_grad():
-        loss, metrics = model.loss_fn(p, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
+        loss, metrics = model.loss_fn(p, batch, act_spec=act_spec)
+        if part is None:
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        else:
+            seed = torch.full_like(loss, 1.0 / mesh_lib.world_of(part.mesh))
+            grads = list(torch.autograd.grad(loss, leaves, grad_outputs=seed,
+                                             allow_unused=True))
+            unread = model.unread_params()
+            for i, ((path, leaf), g) in enumerate(zip(flat, grads)):
+                if g is not None:
+                    continue
+                if path not in unread:
+                    raise RuntimeError(
+                        f"the sharded loss does not reach leaf "
+                        f"{'/'.join(path)}: a collective cut the graph")
+                grads[i] = torch.zeros_like(leaf)
     it = iter(grads)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tr.tree_map(lambda _leaf: next(it), params))
 
 
-def build_train_step(model, opt_cfg: adamw.AdamWConfig,
-                     microbatches: int = 1, device=None):
+def loss_and_grads(model, params, batch, act_spec=None):
+    """(loss, metrics, grads): ``Model.loss_fn`` and its gradient with
+    respect to every leaf of ``params`` (``torch.autograd.grad``; a leaf the
+    loss does not reach gets zeros, as ``jax.grad`` gives). ``params`` is
+    not written: the gradient is taken on detached views of its leaves.
+    On the card each kernel's gradient is its plain version's
+    (``kernels/_lm.py::KernelWithPlainBackward``).
+
+    ``act_spec`` of a live mesh (``make_act_constrainer``): ``params`` are
+    this rank's shards (``sharding.local_params``), ``batch`` its rows, and
+    the gradients this rank's shards of the whole batch's gradient. Each
+    rank's backward starts from 1/|world| (the loss is the same on every
+    rank, its cotangent held as partial sums: ``launch/partition.py``), the
+    collectives' transposes run in the backward, and each leaf is summed
+    over the axes its spec leaves it whole on
+    (``partition.sum_whole_leaves``). There a leaf the loss does not reach
+    raises, naming it, but for the leaves the forward never reads
+    (``Model.unread_params``): a collective that cut the graph would
+    otherwise give zeros."""
+    part = partition.for_model(act_spec, model.cfg,
+                               partition.local(batch["tokens"]))
+    loss, metrics, grads = _grads(model, params, batch, act_spec, part)
+    if part is not None:
+        grads = partition.sum_whole_leaves(
+            grads, shd.shard_params(model.param_shapes(), part.mesh),
+            part.mesh)
+    return loss, metrics, grads
+
+
+def _default_act_spec(model, act_spec, mesh):
+    """``act_spec``, or for a ``mesh`` alone the constrainer
+    :func:`plan_cell` makes: the batch on the dp axes, the sequence on
+    'model' between layers for an attention-only stack."""
+    if act_spec is None and mesh is not None:
+        attn_only = all(m in ("attn", "xattn") for m, _ in model.cfg.pattern)
+        return make_act_constrainer(mesh, mesh_lib.dp_axes(mesh),
+                                    sequence_parallel=attn_only)
+    if mesh is not None and act_spec.mesh is not mesh:
+        raise ValueError("act_spec was made for another mesh")
+    return act_spec
+
+
+def build_train_step(model, opt_cfg: adamw.AdamWConfig, act_spec=None,
+                     microbatches: int = 1, device=None, mesh=None):
     """``train_step(params, opt_state, batch)`` -> (params, opt_state,
     metrics): the gradient of ``Model.loss_fn`` (:func:`loss_and_grads`),
     then ``adamw.apply``. Metrics: ``loss``, ``xent``, ``moe_aux``,
@@ -137,12 +191,30 @@ def build_train_step(model, opt_cfg: adamw.AdamWConfig,
     and divided by ``microbatches``; the metrics are then the mean loss as
     ``loss`` and ``xent`` and a ``moe_aux`` of 0, as the JAX package's scan.
     The step writes into none of its arguments. ``device=None`` means the
-    card (and raises without one); the model must live there."""
+    card (and raises without one); the model must live there.
+
+    With ``act_spec`` of a live mesh, or a live ``mesh`` (its constrainer
+    then as :func:`build_prefill_step` makes it), the step is sharded:
+    ``params`` and ``opt_state`` are this rank's shards
+    (``sharding.local_params`` over the trees of ``shard_params`` and
+    ``shard_opt_state``), the batch this rank's rows
+    (``data.pipeline.shard_batch``), and the new params and state this
+    rank's shards; the metrics are the same on every rank. Microbatches
+    split this rank's rows, the leaves are summed over the mesh once after
+    the accumulation, and AdamW clips by the whole tree's norm. A world of
+    one rank gives the step without a mesh bit for bit."""
     check_model_device(model, device)
+    act_spec = _default_act_spec(model, act_spec, mesh)
+    live = act_spec is not None and mesh_lib.is_live(act_spec.mesh)
+    shardings = shd.shard_params(model.param_shapes(), act_spec.mesh) \
+        if live else None
 
     def train_step(params, opt_state, batch):
+        batch = {k: partition.local(v) for k, v in batch.items()}
+        part = partition.for_model(act_spec, model.cfg, batch["tokens"])
         if microbatches <= 1:
-            loss, metrics, grads = loss_and_grads(model, params, batch)
+            loss, metrics, grads = _grads(model, params, batch, act_spec,
+                                          part)
         else:
             def split(x):
                 if x.shape[0] % microbatches:
@@ -157,18 +229,23 @@ def build_train_step(model, opt_cfg: adamw.AdamWConfig,
             loss = torch.zeros((), dtype=torch.float32,
                                device=model.device)
             for i in range(microbatches):
-                l_i, _m, g = loss_and_grads(
-                    model, params, {k: v[i] for k, v in mb.items()})
+                l_i, _m, g = _grads(model, params,
+                                    {k: v[i] for k, v in mb.items()},
+                                    act_spec, part)
                 grads = tr.tree_map(lambda a, gi: a + gi.to(torch.float32),
                                     grads, g)
                 loss = loss + l_i
+        if part is not None:
+            grads = partition.sum_whole_leaves(grads, shardings, part.mesh)
+        if microbatches > 1:
             grads = tr.tree_map(lambda g: g / microbatches, grads)
             loss = loss / microbatches
             metrics = {"loss": loss, "xent": loss,
                        "moe_aux": torch.zeros((), dtype=torch.float32,
                                               device=model.device)}
-        new_params, new_opt, om = adamw.apply(opt_cfg, params, opt_state,
-                                              grads)
+        new_params, new_opt, om = adamw.apply(
+            opt_cfg, params, opt_state, grads,
+            shardings=shardings if part is not None else None)
         return new_params, new_opt, {**metrics, **om}
     return train_step
 
@@ -191,12 +268,7 @@ def build_prefill_step(model, act_spec=None, mesh=None, device=None):
     (B/|dp|, 1, Vpad/|model|) of the JAX package's ``P(dp, None,
     "model")``."""
     check_model_device(model, device)
-    if act_spec is None and mesh is not None:
-        attn_only = all(m in ("attn", "xattn") for m, _ in model.cfg.pattern)
-        act_spec = make_act_constrainer(mesh, mesh_lib.dp_axes(mesh),
-                                        sequence_parallel=attn_only)
-    elif mesh is not None and act_spec.mesh is not mesh:
-        raise ValueError("act_spec was made for another mesh")
+    act_spec = _default_act_spec(model, act_spec, mesh)
 
     def prefill_step(params, batch):
         return model.last_logits(params, batch, act_spec=act_spec)
@@ -445,7 +517,7 @@ def plan_cell(arch: str, shape_name: str, mesh=None, *,
         oshard = shd.shard_opt_state(ab_opt, pshard, mesh)
         opt_specs = shd.abstract_with_shardings(ab_opt, oshard)
         batch = shd.batch_specs(cfg, shape, mesh)
-        fn = build_train_step(model, opt_cfg,
+        fn = build_train_step(model, opt_cfg, act_spec=act_spec,
                               microbatches=cfg.train_microbatches,
                               device=device)
         metric_sh = shd.NamedSharding(mesh, shd.P())

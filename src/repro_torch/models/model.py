@@ -238,16 +238,37 @@ class Model:
             return self.head(params, x[:, -1:])
         return self.head(params, pt.last_position(part, x), part)
 
-    def loss_fn(self, params: Dict, batch: Dict):
+    def loss_fn(self, params: Dict, batch: Dict, act_spec=None):
         """(loss, metrics): the mean next-token cross-entropy of
         ``batch["labels"]`` plus ``moe_aux``, and a dict of ``loss``,
         ``xent`` and ``moe_aux``, as the JAX package's ``loss_fn``. On the
         card its gradient runs through each kernel's
-        ``_lm.KernelWithPlainBackward``."""
-        logits, aux = self.forward(params, batch)
-        xent = softmax_xent(logits, batch["labels"])
+        ``_lm.KernelWithPlainBackward``.
+
+        ``act_spec`` (as :meth:`hidden_states` takes it): on a live mesh
+        ``params`` are this rank's shards and ``batch`` its rows; the loss
+        is the vocab-parallel cross-entropy of this rank's logit columns,
+        averaged over the global batch (``partition.xent``), and ``loss``,
+        ``xent`` and ``moe_aux`` are the same on every rank."""
+        part = self._partition(act_spec, batch)
+        x, aux = self._hidden(params, batch, part)
+        if part is None:
+            xent = softmax_xent(self.head(params, x), batch["labels"])
+        else:
+            logits = self.head(params, part.gather_seq(x), part)
+            xent = pt.xent(part, logits, pt.local(batch["labels"]))
         loss = xent + aux
         return loss, {"loss": loss, "xent": xent, "moe_aux": aux}
+
+    def unread_params(self) -> set:
+        """The paths (``tree.flatten_with_path``'s) of the leaves the forward
+        never reads: a parallel block's ``norm2`` (its FFN reads the mixer's
+        normed input). Their gradient is zero, as ``jax.grad`` gives it."""
+        if not self.cfg.parallel_block:
+            return set()
+        return {("layers", f"slot{j}", "norm2")
+                for j, (_m, ffn) in enumerate(self.cfg.pattern)
+                if ffn != "none"}
 
     # ------------------------------------------------------------------
     # serving: cache init + single-token decode

@@ -84,21 +84,34 @@ def state_shapes(param_shapes) -> AdamWState:
                       v=tr.tree_map(f32, param_shapes))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shardings=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in float32, the leaves
-    summed in pytree order."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in tr.leaves(tree)))
+    summed in pytree order. ``shardings``: a tree like ``tree`` of
+    ``launch.sharding.NamedSharding`` on a live mesh, whose leaves are this
+    rank's shards: each leaf's sum of squares is then taken over the whole
+    mesh, a leaf held alike on several ranks counted once
+    (``launch.partition.sum_squares``)."""
+    squares = [torch.sum(torch.square(g.to(torch.float32)))
+               for g in tr.leaves(tree)]
+    if shardings is not None:
+        from repro_torch.launch import partition
+        shards = tr.leaves(shardings)
+        squares = partition.sum_squares(squares, shards, shards[0].mesh)
+    return torch.sqrt(sum(squares))
 
 
 @torch.no_grad()
 def apply(cfg: AdamWConfig, params, state: AdamWState, grads,
-          decay_mask=None) -> Tuple[Any, AdamWState, Dict]:
+          decay_mask=None, shardings=None) -> Tuple[Any, AdamWState, Dict]:
     """One AdamW update: (new params, new state, {"grad_norm", "lr"}).
     Grads may be bf16; the math is float32; params keep their dtype.
     ``decay_mask``: a tree of floats like params (default 1.0 for leaves of
-    2 or more dims, 0.0 for norms and biases)."""
-    gnorm = global_norm(grads)
+    2 or more dims, 0.0 for norms and biases). ``shardings``: on a live
+    mesh, the params' (``sharding.shard_params``); params, grads and the
+    moments are then this rank's shards (``sharding.shard_opt_state``),
+    the clipping norm is the whole tree's (:func:`global_norm`), and the
+    update stays elementwise on each shard."""
+    gnorm = global_norm(grads, shardings)
     if cfg.clip_norm > 0:
         scale = torch.clamp(_scalar(cfg.clip_norm, gnorm)
                             / torch.clamp_min(gnorm, 1e-9), max=1.0)

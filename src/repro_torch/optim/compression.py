@@ -4,11 +4,12 @@
 Each gradient tensor is quantized to int8 with one float32 scale a tensor
 before the (cross-pod) reduction, and the quantization residual is kept in
 an error-feedback buffer (EF-SGD), which restores convergence to the
-uncompressed trajectory. On one card there is no reduction to compress:
-the train step applies the quantize -> dequantize sandwich to the gradients
-it reduces (``launch/train.py``), so the numerics are those of the
-compressed wire; the wire itself waits for the sharded train step
-(Queue A 10c).
+uncompressed trajectory. As in the JAX package, the compression is the
+quantize -> dequantize sandwich of the unsharded training entry point
+(``launch/train.py``) on its gradients, so the numerics are those of the
+compressed wire; the sharded train step (``launch/steps.py::
+build_train_step`` on a mesh) does not compress its reductions, as the JAX
+package's does not.
 """
 from __future__ import annotations
 

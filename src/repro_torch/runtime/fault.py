@@ -7,12 +7,14 @@
   step functions never write into (``optim/adamw.py``, ``launch/steps.py``):
   the run then ends bit-equal to an uninterrupted one.
   ``FailureInjector`` simulates node loss deterministically in tests,
+* elastic restart: with ``state_shardings`` the state is this rank's
+  shards; every checkpoint holds the whole arrays (written by the mesh's
+  first rank), and a resume reads each rank's slice of them whatever mesh
+  wrote them (``load_checkpoint(shardings=)``), so a run resumes onto
+  another mesh, or from a checkpoint of an unsharded run,
 * straggler mitigation: a per-step wall-time EMA per data rank
   (``StragglerMonitor``) for the work-stealing scheduler's
   ``straggler_rebalance``.
-
-Training a state split across ranks (``state_shardings``) waits for the
-sharded train step (Queue A 10c).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch import tree as tr
 from repro_torch.checkpoint import ckpt as ckpt_mod
 from repro_torch.service import resilience as rz
 
@@ -88,12 +91,30 @@ def run_training(
 ) -> Dict:
     """Crash-safe training loop. Returns {"final_step", "restarts",
     "losses"} (a loss for every step run, re-run steps included). A
-    checkpoint restores onto the devices of ``init_state``'s leaves."""
+    checkpoint restores onto the devices of ``init_state``'s leaves.
+
+    ``state_shardings``: a tree like ``init_state`` of
+    ``launch.sharding.NamedSharding`` on a live mesh, whose leaves are this
+    rank's shards (``sharding.local_params`` of the state;
+    ``step_fn`` a sharded step, e.g. ``steps.build_train_step``'s on the
+    mesh). Every rank runs the loop: the checkpoints gather the whole
+    arrays onto the mesh's first rank, which writes them, and a restore
+    reads this rank's slice of each (the local tensors of
+    ``load_checkpoint(shardings=)``'s leaves)."""
+    template = init_state
     if state_shardings is not None:
-        raise NotImplementedError("run_training(state_shardings=) trains "
-                                  "a state split across ranks, which needs "
-                                  "a sharded train step the port has not "
-                                  "yet (Queue A 10c)")
+        # the stored arrays are whole: the template gives their shapes
+        template = tr.tree_map(
+            lambda t, sh: (sh.global_shape(tuple(t.shape)), t.dtype),
+            init_state, state_shardings)
+
+    def restore():
+        got, st, _ = ckpt_mod.load_checkpoint(loop_cfg.ckpt_dir, template,
+                                              shardings=state_shardings)
+        if state_shardings is not None:
+            st = tr.tree_map(lambda t: t.to_local(), st)
+        return got, st
+
     state = init_state
     start_step = 0
     restarts = 0
@@ -102,8 +123,7 @@ def run_training(
     # resume if a committed checkpoint exists
     steps = ckpt_mod.list_steps(loop_cfg.ckpt_dir)
     if steps:
-        start_step, state, _ = ckpt_mod.load_checkpoint(loop_cfg.ckpt_dir,
-                                                        state)
+        start_step, state = restore()
         start_step += 1
 
     step = start_step
@@ -124,7 +144,7 @@ def run_training(
                     loop_cfg.ckpt_dir, step, state,
                     extra={"losses_tail": losses[-3:]},
                     async_write=loop_cfg.async_ckpt,
-                    keep_last=loop_cfg.keep_last)
+                    keep_last=loop_cfg.keep_last, shardings=state_shardings)
             step += 1
         except InjectedFailure:
             restarts += 1
@@ -132,8 +152,7 @@ def run_training(
                 raise
             steps = ckpt_mod.list_steps(loop_cfg.ckpt_dir)
             if steps:
-                got_step, state, _ = ckpt_mod.load_checkpoint(
-                    loop_cfg.ckpt_dir, state)
+                got_step, state = restore()
                 step = got_step + 1       # data pipeline fast-forwards by step
             else:
                 state = init_state
@@ -141,5 +160,6 @@ def run_training(
     if ckpt_handle is not None:
         ckpt_handle.join()
     ckpt_mod.save_checkpoint(loop_cfg.ckpt_dir, loop_cfg.total_steps - 1,
-                             state, keep_last=loop_cfg.keep_last)
+                             state, keep_last=loop_cfg.keep_last,
+                             shardings=state_shardings)
     return {"final_step": step, "restarts": restarts, "losses": losses}

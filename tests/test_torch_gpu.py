@@ -1380,6 +1380,67 @@ def test_sharded_prefill_on_an_nccl_mesh_of_one_is_bit_equal(nccl_mesh,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ("bfloat16", "float32"))
+def test_sharded_train_step_on_an_nccl_mesh_of_one_is_bit_equal(nccl_mesh,
+                                                                dtype):
+    """The reduced qwen3's train step with its weights and AdamW moments
+    laid out by the placement rules on a (1, 1) NCCL mesh (every collective
+    and its transpose a real NCCL call over a group of one, sequence
+    parallelism on) gives the unsharded step's metrics, weights and moments
+    bit for bit over two steps, through the kernels (one ``rms_norm`` a
+    norm and one ``flash_attention`` a layer a step, none in the
+    backward), with the collectives of PERF.md's train formula."""
+    import dataclasses
+    from repro_torch import tree as ptr
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import partition as ppart
+    from repro_torch.launch import sharding as pshd
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(
+        d_model=256, head_dim=128), param_dtype=dtype)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(2))
+    rng = np.random.default_rng(5)
+    batches = [{k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 64)),
+                                   dtype=torch.int64, device="cuda")
+                for k in ("tokens", "labels")} for _ in range(2)]
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=10)
+    plain = build_train_step(model, opt)
+    want_p, want_o = params, adamw.init(params)
+    local = pshd.local_params(params, pshd.shard_params(
+        model.param_shapes(), nccl_mesh), nccl_mesh)
+    got_p, got_o = local, adamw.init(local)
+    sharded = build_train_step(model, opt, mesh=nccl_mesh)
+    L = cfg.n_layers
+    for b in batches:
+        want_p, want_o, want_m = plain(want_p, want_o, b)
+        ops.reset_counts()
+        ppart.reset_counts()
+        got_p, got_o, got_m = sharded(got_p, got_o, shard_batch(b,
+                                                                nccl_mesh))
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["rms_norm"] == 4 * L + 1
+        assert ops.launch_counts()["flash_attention"] == L
+        gathers = 9 * L + 3
+        assert ppart.counts()["collectives"] == dict(
+            all_gather=gathers, reduce_scatter=2 * L + 1, all_reduce=4,
+            broadcast=0)
+        assert ppart.backward_counts() == dict(
+            all_gather=2 * L + 1, reduce_scatter=gathers, all_reduce=2,
+            leaf_sum=5, norm_sum=1)
+        for k, v in want_m.items():
+            assert torch.equal(got_m[k], v), k
+        for (path, a), (_p, w) in zip(
+                ptr.flatten_with_path({"p": got_p, "o": got_o}),
+                ptr.flatten_with_path({"p": want_p, "o": want_o})):
+            assert torch.equal(a, w), path
+
+
+@pytest.mark.gpu
 def test_run_rows_on_an_nccl_mesh_equals_run_rows(nccl_mesh):
     """Each body's sweep through ``run_rows(mesh=)`` on the card: one launch,
     every field equal to ``run_rows()``'s."""

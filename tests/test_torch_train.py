@@ -58,6 +58,7 @@ from repro_torch.models import build_model as pbuild
 from repro_torch.models.interop import params_from_jax
 from repro_torch.optim import adamw
 from repro_torch.optim import compression as comp
+from repro_torch.tree import leaves as tr_leaves
 from repro_torch.runtime.fault import (FailureInjector, StragglerMonitor,
                                        TrainLoopConfig, run_training)
 
@@ -352,11 +353,112 @@ def test_straggler_monitor():
         np.testing.assert_array_equal(p.ema, j.ema)
 
 
-def test_the_loop_on_a_mesh_waits_for_queue_a10(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
-        run_training(TrainLoopConfig(ckpt_dir=str(tmp_path)),
-                     lambda s, b: (s, {}), {}, lambda s: {},
-                     state_shardings={})
+def _mesh_state(model, params, mesh):
+    """(this rank's shards of ``{"params", "opt"}``, their shardings)."""
+    from repro_torch.launch import sharding as shd
+    sh = shd.shard_params(model.param_shapes(), mesh)
+    lp = shd.local_params(params, sh, mesh)
+    return ({"params": lp, "opt": adamw.init(lp)},
+            {"params": sh, "opt": shd.shard_opt_state(
+                adamw.state_shapes(model.param_shapes()), sh, mesh)})
+
+
+@pytest.mark.parametrize("async_ckpt", [False, True])
+def test_the_loop_on_a_mesh_of_one_is_the_loop_without(tmp_path,
+                                                       async_ckpt):
+    """``run_training(state_shardings=)`` with the sharded step on a (1, 1)
+    mesh, failures at steps 2 (a restart from the initial state) and 5 (a
+    resume from step 3's checkpoint, restored through
+    ``load_checkpoint(shardings=)``): the same losses, restarts and final
+    step as the loop without a mesh, bit for bit, and its checkpoints the
+    same files, byte for byte (the sharded save gathers each leaf whole
+    and writes it from the mesh's first rank)."""
+    from test_torch_common import cpu_mesh
+    cfg = dataclasses.replace(pget("qwen3-1.7b").reduced(),
+                              param_dtype="float32")
+    model = pbuild(cfg, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=8)
+    shape = ShapeSpec("cli", 16, 4, "train")
+    loop = TrainLoopConfig(total_steps=8, ckpt_every=2,
+                           async_ckpt=async_ckpt)
+
+    def batch_fn(s):
+        return ppipe.batch_at(cfg, shape, s, device="cpu")
+
+    def step_of(step):
+        def step_fn(st, b):
+            p, o, met = step(st["params"], st["opt"], b)
+            return {"params": p, "opt": o}, met
+        return step_fn
+
+    plain = run_training(
+        dataclasses.replace(loop, ckpt_dir=str(tmp_path / "plain")),
+        step_of(build_train_step(model, opt, device="cpu")),
+        {"params": params, "opt": adamw.init(params)}, batch_fn,
+        injector=FailureInjector(fail_at=(2, 5)))
+    with cpu_mesh() as mesh:
+        state, state_sh = _mesh_state(model, params, mesh)
+        sharded = run_training(
+            dataclasses.replace(loop, ckpt_dir=str(tmp_path / "mesh")),
+            step_of(build_train_step(model, opt, mesh=mesh, device="cpu")),
+            state, batch_fn, injector=FailureInjector(fail_at=(2, 5)),
+            state_shardings=state_sh)
+    assert sharded == plain and plain["restarts"] == 2
+    assert ckpt.list_steps(tmp_path / "mesh") == ckpt.list_steps(
+        tmp_path / "plain") == [3, 5, 7]
+    for f in sorted((tmp_path / "plain" / "step_7").glob("*.npy")):
+        assert f.read_bytes() == (tmp_path / "mesh" / "step_7" /
+                                  f.name).read_bytes(), f.name
+
+
+def test_the_loop_on_a_mesh_resumes_an_unsharded_checkpoint(tmp_path):
+    """A checkpoint of the loop without a mesh (the JAX package's files)
+    resumed by the loop on a (1, 1) mesh: each rank reads its slice, the
+    state comes back as plain tensors (its DTensors' local tensors), and the
+    run ends as the uninterrupted loop without a mesh."""
+    from test_torch_common import cpu_mesh
+    cfg = dataclasses.replace(pget("qwen3-1.7b").reduced(),
+                              param_dtype="float32")
+    model = pbuild(cfg, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(1))
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=4)
+    shape = ShapeSpec("cli", 16, 4, "train")
+    step = build_train_step(model, opt, device="cpu")
+    got = {}
+
+    def step_fn(st, b):
+        p, o, met = step(st["params"], st["opt"], b)
+        got["state"] = {"params": p, "opt": o}
+        return got["state"], met
+
+    def batch_fn(s):
+        return ppipe.batch_at(cfg, shape, s, device="cpu")
+
+    init = {"params": params, "opt": adamw.init(params)}
+    whole = run_training(TrainLoopConfig(total_steps=4, ckpt_every=10,
+                                         ckpt_dir=str(tmp_path / "a")),
+                         step_fn, init, batch_fn)
+    want = got.pop("state")
+    run_training(TrainLoopConfig(total_steps=2, ckpt_every=10,
+                                 ckpt_dir=str(tmp_path / "b")),
+                 step_fn, init, batch_fn)
+    with cpu_mesh() as mesh:
+        state, state_sh = _mesh_state(model, params, mesh)
+        mesh_step = build_train_step(model, opt, mesh=mesh, device="cpu")
+
+        def sharded_fn(st, b):
+            p, o, met = mesh_step(st["params"], st["opt"], b)
+            assert all(type(t) is torch.Tensor for t in tr_leaves(p))
+            got["state"] = {"params": p, "opt": o}
+            return got["state"], met
+        rest = run_training(TrainLoopConfig(total_steps=4, ckpt_every=10,
+                                            ckpt_dir=str(tmp_path / "b")),
+                            sharded_fn, state, batch_fn,
+                            state_shardings=state_sh)
+    assert rest["losses"] == whole["losses"][2:]
+    for (path, a), (_p, b) in zip(_flat(got["state"]), _flat(want)):
+        assert torch.equal(a, b), path
 
 
 # ---------------------------------------------------------------------------
