@@ -31,8 +31,10 @@ embeddings, 8 of its 80 layers), each served and prefilled at full width.
 Then training: ``qwen3-1.7b`` trained at full width through the port's
 training entry points, its checkpoint, the float32 parity of a train step,
 and ``examples/train_lm_torch.py``'s command line. Then the mesh: the
-mesh-sharded sweep and context-parallel decode on a world of one NCCL rank
-and on four gloo ranks sharing the card.
+mesh-sharded sweep, context-parallel decode and the sharded prefill and
+train steps of qwen3-1.7b and of mixtral-8x7b (its experts split over the
+mesh) on a world of one NCCL rank and on four gloo ranks sharing the
+card.
 
 Phases, one JSON line each (and after each a ``phase_seconds`` line with
 its wall seconds): ``build`` (seconds, ptxas's registers and spills,
@@ -157,7 +159,15 @@ whole for three steps through ``run_training(state_shardings=)``, each
 step bit-equal to the step without a mesh and its collectives PERF.md's
 formula, its checkpoint saved; world 4 trains it at 2 of 28 layers in bf16
 and float32, within 1e-4 · max|leaf| of the step without a mesh, and its
-checkpoint resumes on a world of one).
+checkpoint resumes on a world of one; last, step ``moe``: mixtral-8x7b at
+full width through ``plan_cell``'s plans, its experts split on "data" and
+their d_ff on "model" — world 1 prefills 4 x 2048 at 4 layers (bf16) and 2
+(float32) and trains 3 steps at 1 layer, each bit-equal to the step
+without a mesh; world 4, with 4 dispatch groups and the G <-> E
+all-to-all, prefills at 2 layers and trains 2 steps a dtype at 1 layer,
+within tolerance of the steps without a mesh with the same groups, and
+one MoE layer's dropped and stolen fractions equal to theirs; every sharded
+step's collectives PERF.md's formula, its launches exact).
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any
 failed phase raises: the exit code is then not 0 and no result line is
@@ -2729,6 +2739,11 @@ def lm_rms_cases(gen, dtype):
     for mesh_rows in (PREFILL_B // 2 * PREFILL_S, TRAIN_B // 2 * TRAIN_S):
         shapes += ((mesh_rows // 2, 2048), (mesh_rows * 8, 128),
                    (mesh_rows * 4, 128))
+    # phase mesh's step moe (mixtral-8x7b, d_model 4096, no q/k norms):
+    # world 1's prefill and train step on every row, a 2 x 2 rank's
+    # (B/2 x S/2) rows
+    for rows in (PREFILL_B * PREFILL_S, TRAIN_B * TRAIN_S):
+        shapes += ((rows, 4096), (rows // 4, 4096))
     tol = LM_TOL[("rms_norm", dtype)]
     out = []
     for R, D in shapes:
@@ -2812,7 +2827,15 @@ def lm_attention_cases(gen, dtype):
              (PREFILL_B // 2, PREFILL_S, PREFILL_S, 16 // 2, 8 // 2, 128,
               True, 0, 0),
              (TRAIN_B // 2, TRAIN_S, TRAIN_S, 16 // 2, 8 // 2, 128, True, 0,
-              0))
+              0),
+             # phase mesh's step moe (mixtral-8x7b, window 4096): world 1's
+             # train step, and a 2 x 2 rank's prefill and train step (its
+             # rows over "data", its heads over "model")
+             (TRAIN_B, TRAIN_S, TRAIN_S, *MOE_HEADS, 128, True, 4096, 0),
+             (PREFILL_B // 2, PREFILL_S, PREFILL_S, MOE_HEADS[0] // 2,
+              MOE_HEADS[1] // 2, 128, True, 4096, 0),
+             (TRAIN_B // 2, TRAIN_S, TRAIN_S, MOE_HEADS[0] // 2,
+              MOE_HEADS[1] // 2, 128, True, 4096, 0))
     tol = LM_TOL[("attention", dtype)]
     out = []
     for B, Sq, Skv, H, KV, hd, causal, win, qo in cases:
@@ -4784,7 +4807,10 @@ def phase_lm_timing(main: dict) -> list:
                      # a rank's rows in phase mesh's sharded prefill and
                      # train step on the 2 x 2 mesh (B/2 x S/2)
                      lm_time_rms(gen, PREFILL_B * PREFILL_S // 4, 2048, 50),
-                     lm_time_rms(gen, TRAIN_B * TRAIN_S // 4, 2048, 50)],
+                     lm_time_rms(gen, TRAIN_B * TRAIN_S // 4, 2048, 50),
+                     # a rank's rows in step moe's (mixtral's width)
+                     lm_time_rms(gen, PREFILL_B * PREFILL_S // 4, 4096, 50),
+                     lm_time_rms(gen, TRAIN_B * TRAIN_S // 4, 4096, 50)],
         "flash_attention": [lm_time_attention(gen, PREFILL_B, PREFILL_S, 10),
                             lm_time_attention(gen, PREFILL_B, PREFILL_S, 10,
                                               H, KV),
@@ -4812,7 +4838,12 @@ def phase_lm_timing(main: dict) -> list:
                             lm_time_attention(gen, PREFILL_B // 2, PREFILL_S,
                                               10, 16 // 2, 8 // 2),
                             lm_time_attention(gen, TRAIN_B // 2, TRAIN_S,
-                                              10, 16 // 2, 8 // 2)],
+                                              10, 16 // 2, 8 // 2),
+                            # a rank's heads in step moe's (mixtral's)
+                            lm_time_attention(gen, PREFILL_B // 2, PREFILL_S,
+                                              10, H // 2, KV // 2),
+                            lm_time_attention(gen, TRAIN_B // 2, TRAIN_S,
+                                              10, H // 2, KV // 2)],
         "flash_decode": [lm_time_decode(gen, SERVE_REQUESTS, serve_kv,
                                         serve_kv, 200),
                          lm_time_decode(gen, SERVE_REQUESTS, 2048, 2048, 50),
@@ -5252,12 +5283,13 @@ def prefill_collectives(cfg, model_size: int, sp: bool) -> dict:
     calls = dict(fsdp_gather=7 * L + 2, column=5 * L, row=2 * L,
                  sp_gather=2 * L if sp else 0,
                  head_gather=2 * L if cut else 0, embed=1, head=1,
-                 last_position=1)
+                 last_position=1, moe=0)
     collectives = dict(
         all_gather=calls["fsdp_gather"] + calls["sp_gather"]
         + calls["head_gather"],
         reduce_scatter=2 * L + 1 if sp else 0,
-        all_reduce=0 if sp else 2 * L + 1, broadcast=1 if sp else 0)
+        all_reduce=0 if sp else 2 * L + 1, broadcast=1 if sp else 0,
+        all_to_all=0)
     return {"calls": calls, "collectives": collectives}
 
 
@@ -5283,7 +5315,6 @@ def mesh_prefill(mesh, world: int, work: Path) -> dict:
     bounded; each step's seconds and the rank's peak memory."""
     from repro_torch.data.pipeline import shard_batch
     from repro_torch.launch import mesh as ml
-    from repro_torch.launch import partition as pt
     from repro_torch.launch import sharding as shd
     from repro_torch.launch.steps import make_act_constrainer
     cfg = get_lm_config(LM_ARCH)
@@ -5328,7 +5359,6 @@ def mesh_prefill(mesh, world: int, work: Path) -> dict:
                            whole_leaves=sorted(whole))
     batch = shard_batch(batch, mesh)
     act = make_act_constrainer(mesh, ml.dp_axes(mesh), sequence_parallel=True)
-    norms = 4 * cfg.n_layers + 1
     formula = prefill_collectives(cfg, ml.mesh_shape(mesh)["model"], True)
     rows = PREFILL_B // ml.axis_size(mesh, "data")
     vocab = cfg.padded_vocab // ml.axis_size(mesh, "model")
@@ -5337,28 +5367,16 @@ def mesh_prefill(mesh, world: int, work: Path) -> dict:
 
     def counted(model_, p, dtype):
         step = build_prefill_step(model_, act_spec=act)
-        torch.cuda.reset_peak_memory_stats()
-        reset_all_counts()
-        pt.reset_counts()
-        logits, seconds = timed(step, p)
-        counts, by_variant = lm_counts_since_reset(
-            {"rms_norm": {"row_in_registers": norms},
-             "flash_attention": {ATTN_VARIANT[dtype]: cfg.n_layers}},
-            rms_norm=norms, flash_attention=cfg.n_layers)
-        if pt.counts() != formula:
-            raise AssertionError(f"mesh prefill {dtype}: collectives "
-                                 f"{pt.counts()}, PERF.md's formula "
-                                 f"{formula}")
+        logits, run = counted_mesh_step(step, (p, batch), cfg, dtype,
+                                        formula, f"mesh prefill {dtype}")
         if logits.shape != (rows, 1, vocab) or \
                 logits.dtype != torch.float32 or \
                 not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"mesh prefill {dtype}: logits "
                                  f"{tuple(logits.shape)} {logits.dtype} "
                                  "or not finite")
-        run = dict(seconds=seconds, launches=counts,
-                   launches_by_variant=by_variant,
-                   collectives=formula["collectives"],
-                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        run["seconds"] = run.pop("ms") / 1e3
+        run["collectives"] = formula["collectives"]
         if world == 1:
             _again, again_s = timed(step, p)
             run["ms"] = again_s * 1e3
@@ -5455,18 +5473,18 @@ def train_collectives(cfg, model_size: int, sp: bool = True) -> dict:
     calls = dict(fsdp_gather=7 * L + 2, column=5 * L, row=2 * L,
                  sp_gather=2 * L + 1 if sp else 0,
                  head_gather=2 * L if cut else 0, embed=1, head=1,
-                 last_position=0)
+                 last_position=0, moe=0)
     gathers = calls["fsdp_gather"] + calls["sp_gather"] \
         + calls["head_gather"]
     return {"calls": calls,
             "collectives": dict(all_gather=gathers,
                                 reduce_scatter=R if sp else 0,
                                 all_reduce=(0 if sp else R) + 4,
-                                broadcast=0),
+                                broadcast=0, all_to_all=0),
             "backward": dict(all_gather=R if sp else 0,
                              reduce_scatter=gathers,
                              all_reduce=(0 if sp else R) + 2,
-                             leaf_sum=5, norm_sum=1)}
+                             all_to_all=0, leaf_sum=5, norm_sum=1)}
 
 
 def train_state_sh(model, mesh) -> tuple:
@@ -5503,22 +5521,23 @@ def leaf_distance(got, want, scale=None) -> dict:
                 worst_leaf=where)
 
 
-def metric_distance(got: dict, want: dict) -> dict:
-    """|got - want| of loss and grad_norm as a share of MESH_TRAIN_TOL x
+def metric_distance(got: dict, want: dict,
+                    keys=("loss", "grad_norm")) -> dict:
+    """|got - want| of each of ``keys`` as a share of MESH_TRAIN_TOL x
     |want|, and whether lr is equal."""
     out = {k: abs(float(got[k]) - float(want[k]))
-           / (MESH_TRAIN_TOL * abs(float(want[k])))
-           for k in ("loss", "grad_norm")}
+           / (MESH_TRAIN_TOL * abs(float(want[k]))) for k in keys}
     out["lr_equal"] = float(got["lr"]) == float(want["lr"])
     return out
 
 
-def counted_train_step(step, st, batch, cfg, dtype, formula) -> tuple:
-    """One sharded step with every count at 0 just before and read just
-    after: one ``rms_norm`` a norm (``row_in_registers``) and one
-    ``flash_attention`` a layer (the dtype's variant) in the forward, none
-    in the backward (the plain versions' gradients), and the collectives
-    of ``formula``. Returns (state, metrics, its line)."""
+def counted_mesh_step(fn, args, cfg, dtype, formula, what: str) -> tuple:
+    """One sharded step ``fn(*args)`` with every count at 0 just before
+    and read just after: one ``rms_norm`` a norm (``row_in_registers``:
+    :func:`train_rms_per_step`) and one ``flash_attention`` a layer (the
+    dtype's variant) in the forward, none in a backward (the plain
+    versions' gradients), and the collectives of ``formula`` (with its
+    ``backward`` where it has one). Returns (its output, its line)."""
     from repro_torch.launch import partition as mpt
     rms = train_rms_per_step(cfg)
     reset_all_counts()
@@ -5527,7 +5546,7 @@ def counted_train_step(step, st, batch, cfg, dtype, formula) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    p, o, met = step(st["params"], st["opt"], batch)
+    out = fn(*args)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -5535,17 +5554,69 @@ def counted_train_step(step, st, batch, cfg, dtype, formula) -> tuple:
         {"rms_norm": {"row_in_registers": rms},
          "flash_attention": {ATTN_VARIANT[dtype]: cfg.n_layers}},
         rms_norm=rms, flash_attention=cfg.n_layers)
-    got = dict(mpt.counts(), backward=mpt.backward_counts())
+    got = dict(mpt.counts(), **({"backward": mpt.backward_counts()}
+                                if "backward" in formula else {}))
     if got != formula:
-        raise AssertionError(f"mesh train {dtype}: collectives {got}, "
-                             f"PERF.md's formula {formula}")
+        raise AssertionError(f"{what}: collectives {got}, PERF.md's "
+                             f"formula {formula}")
+    return out, dict(ms=seconds * 1e3, peak_gib=peak / 2**30,
+                     step_gib=(peak - base) / 2**30, launches=counts,
+                     launches_by_variant=by_variant)
+
+
+def counted_train_step(step, st, batch, cfg, dtype, formula,
+                       what: str = "mesh train") -> tuple:
+    """:func:`counted_mesh_step` of a train step from the state ``st``
+    {"params", "opt"}, its metrics finite. Returns (the new state, its
+    metrics, its line with the metrics)."""
+    what = f"{what} {dtype}"
+    (p, o, met), line = counted_mesh_step(
+        step, (st["params"], st["opt"], batch), cfg, dtype, formula, what)
     if not all(math.isfinite(float(v)) for v in met.values()):
-        raise AssertionError(f"mesh train {dtype}: metrics {met}")
-    line = dict(ms=seconds * 1e3, peak_gib=peak / 2**30,
-                step_gib=(peak - base) / 2**30, launches=counts,
-                launches_by_variant=by_variant,
-                **{k: float(v) for k, v in met.items()})
+        raise AssertionError(f"{what}: metrics {met}")
+    line.update({k: float(v) for k, v in met.items()})
     return {"params": p, "opt": o}, met, line
+
+
+def whole_leaves(local, whole) -> set:
+    """The names of the leaves that ``local_params`` left whole: those of
+    ``local`` that are ``whole``'s own tensors."""
+    return {path[-1] for (path, a), b in zip(tr.flatten_with_path(local),
+                                              tr.leaves(whole)) if a is b}
+
+
+def state_bytes(st, model, sh, state_sh, what: str) -> dict:
+    """A rank's bytes of the train state ``st`` {"params", "opt"}, the
+    whole state's, and its shards' (the weights' and both moments' shard
+    shapes summed, and AdamW's step counter); raises unless the rank holds
+    exactly its shards."""
+    from repro_torch.launch import sharding as shd
+    out = dict(local=tree_bytes(st), whole=sum(
+        math.prod(s.global_shape(tuple(t.shape))) * t.element_size()
+        for t, s in zip(tr.leaves(st), tr.leaves(state_sh))),
+        shards=shd.shard_bytes(model.param_shapes(), sh)
+        + 2 * shd.shard_bytes(adamw.state_shapes(
+            model.param_shapes()).m, sh) + 4)
+    if out["local"] != out["shards"]:
+        raise AssertionError(f"{what}: the rank holds {out}")
+    return out
+
+
+def in_turns(mesh, turn: int, fn) -> tuple:
+    """``fn()`` on every rank of ``mesh``, ``turn`` ranks at a time in rank
+    order, the others waiting at a barrier (the card's memory holds
+    ``turn`` of them at once). Returns (its result on this rank, the
+    seconds of all the turns)."""
+    from repro_torch.launch import mesh as ml
+    rank = torch.distributed.get_rank()
+    t0 = time.perf_counter()
+    out = None
+    for first in range(0, ml.world_of(mesh), turn):
+        if first <= rank < first + turn:
+            out = fn()
+            torch.cuda.empty_cache()
+        ml.barrier(mesh)
+    return out, time.perf_counter() - t0
 
 
 def train_batch(cfg, step: int, batch: int = TRAIN_B) -> dict:
@@ -5712,11 +5783,13 @@ def mesh_train_depth_refs(mesh, work: Path, act) -> dict:
     return out
 
 
-def unsharded_refs(model, params, cfg, mesh, sh, state_sh,
-                   whole: bool) -> tuple:
-    """MESH_TRAIN_W4_STEPS float32 steps without a mesh on the whole
+def unsharded_refs(model, params, cfg, mesh, sh, state_sh, whole: bool,
+                   steps: int = MESH_TRAIN_W4_STEPS,
+                   each: bool = True) -> tuple:
+    """``steps`` float32 steps of ``model`` without a mesh on the whole
     weights (``params`` cast): (for each step its metrics, each whole
-    leaf's max|.| and this rank's slices of the state, on the host; with
+    leaf's max|.| and, after every step with ``each`` or else after the
+    last only, this rank's slices of the state, on the host; with
     ``whole``, the last state whole on the host and its metrics, else
     None). Nothing of it stays on the card."""
     from repro_torch.launch import sharding as shd
@@ -5725,15 +5798,19 @@ def unsharded_refs(model, params, cfg, mesh, sh, state_sh,
     ref = {"params": p, "opt": adamw.init(p)}
     del p
     refs = []
-    for k in range(MESH_TRAIN_W4_STEPS):
+    for k in range(steps):
         pp, po, met = plain(ref["params"], ref["opt"], train_batch(cfg, k))
         ref = {"params": pp, "opt": po}
         del pp, po
         refs.append(dict(
             metrics={k_: float(v) for k_, v in met.items()},
-            scale=[float(t.abs().max()) for t in tr.leaves(ref)],
-            state=tr.tree_map(lambda t: t.cpu(), shd.local_params(
-                ref, {"params": sh, "opt": state_sh["opt"]}, mesh))))
+            scale=[float(t.abs().max()) for t in tr.leaves(ref)]))
+        if each or k == steps - 1:
+            refs[-1]["state"] = tr.tree_map(lambda t: t.cpu(),
+                                            shd.local_params(ref, {
+                                                "params": sh,
+                                                "opt": state_sh["opt"]},
+                                                mesh))
     keep = dict(state=tr.tree_map(lambda t: t.cpu(), ref),
                 metrics=refs[-1]["metrics"]) if whole else None
     return refs, keep
@@ -5776,23 +5853,17 @@ def mesh_train_world4(mesh, work: Path) -> dict:
         p = tree_to(params, dtype)
         sh, state_sh = train_state_sh(model, mesh)
         local = shd.local_params(p, sh, mesh)
-        whole = {path[-1] for (path, a), b in zip(
-            tr.flatten_with_path(local), tr.leaves(p)) if a is b}
+        whole = whole_leaves(local, p)
         del p
         st = {"params": local, "opt": adamw.init(local)}
         refs = []
         if dtype == torch.float32:
             # the step without a mesh, MESH_TRAIN_TURN ranks at a time
-            t0 = time.perf_counter()
-            for first in range(0, ml.world_of(mesh), MESH_TRAIN_TURN):
-                if first <= rank < first + MESH_TRAIN_TURN:
-                    refs, keep = unsharded_refs(model, params, cfg, mesh,
-                                                sh, state_sh, rank == 0)
-                    torch.cuda.empty_cache()
-                ml.barrier(mesh)
+            (refs, keep), line["turns_seconds"] = in_turns(
+                mesh, MESH_TRAIN_TURN, lambda: unsharded_refs(
+                    model, params, cfg, mesh, sh, state_sh, rank == 0))
             line["reserved_gib_after_turns"] = \
                 torch.cuda.memory_reserved() / 2**30
-            line["turns_seconds"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
         step = build_train_step(model, opt, act_spec=act)
         runs, kept = [], {}
@@ -5836,16 +5907,11 @@ def mesh_train_world4(mesh, work: Path) -> dict:
         for s in range(first, MESH_TRAIN_W4_STEPS):
             st, met = step_fn(st, batch_fn(s))
             check(s, met, kept.pop("row"))
-        bytes_ = dict(local=tree_bytes(st), whole=sum(
-            math.prod(s.global_shape(tuple(t.shape))) * t.element_size()
-            for t, s in zip(tr.leaves(st), tr.leaves(state_sh))),
-            shards=shd.shard_bytes(model.param_shapes(), sh)
-            + 2 * shd.shard_bytes(adamw.state_shapes(
-                model.param_shapes()).m, sh) + 4)
-        if bytes_["local"] != bytes_["shards"] or \
-                whole != MESH_WHOLE_LEAVES:
-            raise AssertionError(f"mesh train world 4 {name}: the rank "
-                                 f"holds {bytes_}, whole leaves {whole}")
+        bytes_ = state_bytes(st, model, sh, state_sh,
+                             f"mesh train world 4 {name}")
+        if whole != MESH_WHOLE_LEAVES:
+            raise AssertionError(f"mesh train world 4 {name}: whole leaves "
+                                 f"{whole}")
         line[name] = dict(steps=runs, bytes=bytes_,
                           share=bytes_["local"] / bytes_["whole"],
                           whole_leaves=sorted(whole))
@@ -5903,6 +5969,460 @@ def mesh_train_elastic(work: Path, want) -> dict:
                 leaves=d, vs_uninterrupted=m, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase mesh, step moe: mixtral-8x7b's sharded prefill and train step
+# ---------------------------------------------------------------------------
+
+#: world 1's prefill depth (phase lm_moe's 4 of 32 layers) and its float32
+#: step's (lm_moe's parity depth); world 4 prefills at the latter in both
+#: dtypes
+MESH_MOE_REPEATS, MESH_MOE_F32_REPEATS = MOE_REPEATS, MOE_PARITY_REPEATS
+#: the train steps' depth in both worlds: 1 layer (1.71 B parameters). A
+#: step from a state holds the old and the new state (12 bytes a parameter
+#: each), the gradient and AdamW's float32 temporaries of the largest leaf:
+#: at 2 layers (3.16 B) ≈ 92 GB on one rank, at 1 ≈ 51 GB; on world 4's
+#: four ranks sharing the card ≈ 114 GB and ≈ 57 GB
+MESH_MOE_TRAIN_REPEATS = 1
+#: world 1's bit-equal train steps; world 4's steps in each dtype
+MESH_MOE_STEPS, MESH_MOE_W4_STEPS = 3, 2
+MESH_MOE_SEED = MOE_SEED + 17
+#: the dispatch groups of world 4's references (plan_cell's |dp|·|model|)
+MESH_MOE_W4_GROUPS = 4
+#: the leaves a rank holds whole: the norms (mixtral has no q/k norms)
+MESH_MOE_WHOLE_LEAVES = {"final_norm", "norm1", "norm2"}
+
+
+def moe_collectives(cfg, shape: tuple, B: int, S: int, train: bool) -> dict:
+    """PERF.md §6's count of a sharded prefill (``train`` False) or
+    train step of mixtral's attn + moe stack of L layers on a (|data|,
+    |model|) mesh, B x S tokens, SP where S splits over "model". Attention
+    a layer: 4 FSDP gathers, 3 column and 1 row product (wo's sum over
+    "model"), with SP one sequence gather. MoE a layer
+    (``partition.moe``): the router's FSDP gather; with SP a sequence
+    gather unless the rank's SP slice is its groups (``direct``); with EP
+    two all-to-alls; with d_ff split on "model" the groups' gather and the
+    partial sums' reduce-scatter (one all-reduce where a "model" column
+    shares its groups); the output's gather unless direct or shared; aux's
+    all-reduce over the group axes. A step: the embedding's and head's
+    FSDP gathers, the embedding's sum over "model", the prefill's
+    last-position broadcast (SP), the train step's sequence gather before
+    the head, the loss's 3 + 1 all-reduces, the transposes (an all-to-all's
+    the reverse all-to-all), a leaf sum for the 3 norm leaves, the router
+    and, where no EP or d_ff whole, w_gate, w_up and w_down, and AdamW's
+    norm sum."""
+    dsz, msz = shape
+    L = cfg.n_layers
+    G = cfg.moe_groups if (B * S) % cfg.moe_groups == 0 else 1
+    shared = (G // dsz) % msz != 0
+    sp = S % msz == 0
+    direct = sp and B // dsz == 1 and not shared
+    ep, ff = cfg.n_experts % dsz == 0, cfg.expert_d_ff % msz == 0
+    router = cfg.d_model % dsz == 0
+    calls = dict(fsdp_gather=(4 + router) * L + 2, column=3 * L, row=L,
+                 sp_gather=((1 + (not direct)) * L + train) if sp else 0,
+                 head_gather=L * (2 * (cfg.n_kv_heads % msz != 0)
+                                  + (cfg.n_heads % msz != 0)),
+                 embed=1, head=1, last_position=int(not train), moe=L)
+    gathers = calls["fsdp_gather"] + calls["sp_gather"] \
+        + calls["head_gather"] + L * ((ff and not shared)
+                                      + (not direct and not shared))
+    sums, moe_ar = L + 1, L * (ff and shared) + L
+    fwd = dict(all_gather=gathers,
+               reduce_scatter=(sums if sp else 0) + L * (ff and not shared),
+               all_reduce=(0 if sp else sums) + moe_ar + 4 * train,
+               broadcast=int(sp and not train), all_to_all=2 * ep * L)
+    out = {"calls": calls, "collectives": fwd}
+    if train:
+        out["backward"] = dict(
+            all_gather=fwd["reduce_scatter"], reduce_scatter=gathers,
+            all_reduce=(0 if sp else sums) + moe_ar + 2,
+            all_to_all=fwd["all_to_all"],
+            leaf_sum=4 + 3 * (not (ep and ff)), norm_sum=1)
+    return out
+
+
+def moe_plan(mesh, kind: str, repeats: int):
+    """``plan_cell``'s plan of mixtral-8x7b at ``repeats`` layers on
+    ``mesh`` (its prefill_32k or train_4k plan: the batch on the dp axes,
+    SP, the dispatch groups it sets for the mesh), on the card."""
+    from repro_torch.launch.steps import plan_cell
+    return plan_cell(MOE_ARCH, "prefill_32k" if kind == "prefill"
+                     else "train_4k", mesh, opt_cfg=MESH_TRAIN_OPT,
+                     cfg_overrides=dict(repeats=repeats), device=DEV)
+
+
+def moe_weights_in(tree, dtype):
+    """bf16 weights (their float32 routers) as they are, or every leaf cast
+    to float32 (exact)."""
+    return tree if dtype == torch.bfloat16 else tree_to(tree, torch.float32)
+
+
+def moe_layer_input(cfg) -> torch.Tensor:
+    """One MoE layer's input (PREFILL_B, PREFILL_S, D) in bf16 from the
+    seed: normal tokens and MOE_SKEW times a direction they share, which
+    skews the routing (experts overflow, idle ones steal)."""
+    gen = torch.Generator(device=DEV).manual_seed(MESH_MOE_SEED + 1)
+    D = cfg.d_model
+    x = torch.randn((PREFILL_B, PREFILL_S, D), generator=gen, device=DEV)
+    x = x + MOE_SKEW * torch.randn((D,), generator=gen, device=DEV)
+    return x.to(torch.bfloat16)
+
+
+def moe_tokens(cfg) -> torch.Tensor:
+    return torch.as_tensor(np.random.default_rng(MESH_MOE_SEED).integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S)), dtype=torch.int64,
+        device=DEV)
+
+
+#: the metrics a MoE train step is held to (:func:`metric_distance`)
+MOE_METRICS = ("loss", "xent", "moe_aux", "grad_norm")
+
+
+def mesh_moe_world1(mesh, work: Path) -> dict:
+    """World 1 (NCCL, 1 x 1), mixtral-8x7b at full width through
+    ``plan_cell``'s plans (one dispatch group: a world of one). (a) The
+    bf16 prefill of PREFILL_B x PREFILL_S at MESH_MOE_REPEATS layers, its
+    logits equal to the unsharded step's bit for bit, ms of both. (b) At
+    MESH_MOE_F32_REPEATS layers (weights from the seed at that depth): the
+    float32 step (the bf16 weights cast) against the unsharded one; the
+    unsharded steps with world 4's MESH_MOE_W4_GROUPS groups in both dtypes,
+    whose logits world 4 holds its own to. (c) MESH_MOE_STEPS bf16 train
+    steps of TRAIN_B x TRAIN_S at MESH_MOE_TRAIN_REPEATS layers, each from
+    the same state as the step without a mesh and equal to it bit for bit
+    (metrics; every leaf by :func:`fingerprint`), ms of both; and the
+    unsharded bf16 steps with world 4's groups, whose metrics world 4's
+    bf16 steps are recorded against. Each sharded step counted
+    (:func:`counted_mesh_step`)."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import sharding as shd
+    t0 = time.perf_counter()
+    line = dict(arch=MOE_ARCH)
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    # ---- (a) the prefill at MESH_MOE_REPEATS layers, bf16 -------------------
+    plan = moe_plan(mesh, "prefill", MESH_MOE_REPEATS)
+    cfg = plan.cfg
+    model = build_lm_model(cfg)
+    params, _ = init_weights(model, MESH_MOE_SEED)
+    tokens = moe_tokens(cfg)
+    plain = build_prefill_step(model)
+    timed(plain, params, {"tokens": tokens})                    # warm
+    want, plain_ms = timed(plain, params, {"tokens": tokens})
+    lp = shd.local_params(params, shd.shard_params(model.param_shapes(),
+                                                   mesh), mesh)
+    del params
+    batch = shard_batch({"tokens": tokens}, mesh)
+    formula = moe_collectives(cfg, (1, 1), PREFILL_B, PREFILL_S, False)
+    got, run = counted_mesh_step(plan.fn, (lp, batch), cfg, torch.bfloat16,
+                                 formula, "mesh moe world 1 prefill bf16")
+    if not torch.equal(got, want):
+        raise AssertionError(f"mesh moe world 1: the sharded bf16 logits "
+                             f"are not the unsharded step's: "
+                             f"{float((got - want).abs().max())} apart")
+    _again, run["ms"] = timed(plan.fn, lp, batch)
+    line["prefill"] = dict(layers=cfg.n_layers, batch=PREFILL_B,
+                           seq=PREFILL_S, groups=cfg.moe_groups,
+                           unsharded_ms=plain_ms, equal_to_unsharded=True,
+                           collectives=formula, **run)
+    del lp, want, got, _again
+    torch.cuda.empty_cache()
+    # ---- (b) MESH_MOE_F32_REPEATS layers: float32; world 4's references ---
+    cfg2 = dataclasses.replace(cfg, repeats=MESH_MOE_F32_REPEATS)
+    p2, _ = init_weights(build_lm_model(cfg2), MESH_MOE_SEED)
+    refs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        cfg_d = dataclasses.replace(cfg2, param_dtype=name)
+        p = moe_weights_in(p2, dtype)
+        four = build_lm_model(dataclasses.replace(
+            cfg_d, moe_groups=MESH_MOE_W4_GROUPS))
+        refs[name] = build_prefill_step(four)(p, {"tokens": tokens})
+        if dtype == torch.float32:
+            model32 = build_lm_model(cfg_d)
+            want, plain_ms = timed(build_prefill_step(model32), p,
+                                   {"tokens": tokens})
+            lp = shd.local_params(p, shd.shard_params(
+                model32.param_shapes(), mesh), mesh)
+            f32 = build_prefill_step(model32, act_spec=plan.act_spec)
+            got, run = counted_mesh_step(
+                f32, (lp, batch), cfg_d, dtype,
+                moe_collectives(cfg_d, (1, 1), PREFILL_B, PREFILL_S, False),
+                "mesh moe world 1 prefill float32")
+            tol = 1e-3 * float(want.abs().max()) + 1e-3
+            err = float((got - want).abs().max())
+            if not err <= tol:
+                raise AssertionError(f"mesh moe world 1 float32 prefill: "
+                                     f"{err} from the unsharded, limit {tol}")
+            line["prefill_float32"] = dict(
+                layers=cfg_d.n_layers, unsharded_ms=plain_ms,
+                equal_to_unsharded=bool(torch.equal(got, want)),
+                max_abs=err, **run)
+            del lp, want, got
+        del p
+    # one MoE layer (layer 0's FFN, bf16) with world 4's groups
+    y, aux, st = moe_mod.moe_apply(
+        {k: v[0] for k, v in p2["layers"]["slot0"]["ffn"].items()},
+        moe_layer_input(cfg2), n_experts=cfg2.n_experts,
+        top_k=cfg2.experts_per_tok, capacity_factor=cfg2.capacity_factor,
+        ws_rebalance=cfg2.ws_rebalance, n_groups=MESH_MOE_W4_GROUPS)
+    refs["layer_y"] = y.float()
+    (work / "moe_layer_ref.json").write_text(json.dumps(dict(
+        aux=float(aux), dropped=float(st.dropped), stolen=float(st.stolen),
+        load_std=float(st.load_std))))
+    np.savez(work / "moe_prefill_refs.npz",
+             **{k: v.cpu().numpy() for k, v in refs.items()})
+    del p2, refs
+    torch.cuda.empty_cache()
+    # ---- (c) the train steps at MESH_MOE_TRAIN_REPEATS layers, bf16 -------
+    plan = moe_plan(mesh, "train", MESH_MOE_TRAIN_REPEATS)
+    cfg = plan.cfg
+    model = build_lm_model(cfg)
+    params, _ = init_weights(model, MESH_MOE_SEED)
+    plain = build_train_step(model, MESH_TRAIN_OPT)
+    four = build_train_step(build_lm_model(dataclasses.replace(
+        cfg, moe_groups=MESH_MOE_W4_GROUPS)), MESH_TRAIN_OPT)
+    st = {"params": params, "opt": adamw.init(params)}
+    w4 = []
+    for k in range(MESH_MOE_W4_STEPS):
+        p, o, met = four(st["params"], st["opt"], train_batch(cfg, k))
+        st = {"params": p, "opt": o}
+        w4.append({m: float(v) for m, v in met.items()})
+        del p, o
+    (work / "moe_train_refs.json").write_text(json.dumps(w4))
+    del st
+    torch.cuda.empty_cache()
+    local = shd.local_params(params, shd.shard_params(model.param_shapes(),
+                                                      mesh), mesh)
+    del params
+    formula = moe_collectives(cfg, (1, 1), TRAIN_B, TRAIN_S, True)
+    st = {"params": local, "opt": adamw.init(local)}
+    del local
+    steps = []
+    for k in range(MESH_MOE_STEPS):
+        b = train_batch(cfg, k)
+        (p, o, want), plain_ms = timed(plain, st["params"], st["opt"], b)
+        want_fp = fingerprint({"params": p, "opt": o})
+        del p, o
+        torch.cuda.empty_cache()
+        st, met, run = counted_train_step(plan.fn, st, shard_batch(b, mesh),
+                                          cfg, torch.bfloat16, formula,
+                                          f"mesh moe world 1 step {k}")
+        got_fp = fingerprint(st)
+        equal = got_fp == want_fp and all(
+            torch.equal(met[m], want[m]) for m in want)
+        if not equal:
+            raise AssertionError(f"mesh moe world 1 train step {k}: not "
+                                 f"bit-equal to the step without a mesh: "
+                                 f"{metric_distance(met, want, MOE_METRICS)}")
+        steps.append(dict(step=k, plain_ms=plain_ms, leaves=len(got_fp),
+                          bit_equal=True, **run))
+        torch.cuda.empty_cache()
+    del st
+    torch.cuda.empty_cache()
+    line["train"] = dict(layers=cfg.n_layers, batch=TRAIN_B, seq=TRAIN_S,
+                         groups=cfg.moe_groups, steps=steps,
+                         collectives=formula)
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
+def moe_layer_world4(plan, lp, batch, work: Path, coord: dict,
+                     shape: tuple) -> dict:
+    """Layer 0's MoE FFN (bf16) on this rank's dispatch groups
+    (``partition.moe`` with its statistics) against world 1's
+    ``moe_apply`` on the whole input with the same groups: ``dropped`` and
+    ``stolen`` equal (fractions of 2 x 2048 assignments a group: exact in
+    float32), ``aux`` and ``load_std`` within 1e-4 of it, ``y``'s
+    distance recorded (bf16)."""
+    from repro_torch.launch import partition as mpt
+    cfg = plan.cfg
+    part = mpt.for_model(plan.act_spec, cfg, mpt.local(batch["tokens"]))
+    rows = PREFILL_B // shape[0]
+    x = moe_layer_input(cfg)[coord["data"] * rows:(coord["data"] + 1) * rows]
+    ffn = {k: v[0] for k, v in lp["layers"]["slot0"]["ffn"].items()}
+    y, aux, st = mpt.moe(part, part.into_layout(x), ffn, stats=True)
+    want = json.loads((work / "moe_layer_ref.json").read_text())
+    got = dict(aux=float(aux), dropped=float(st.dropped),
+               stolen=float(st.stolen), load_std=float(st.load_std))
+    if not (got["dropped"] == want["dropped"]
+            and got["stolen"] == want["stolen"] and got["stolen"] > 0
+            and all(abs(got[k] - want[k]) <= 1e-4 * abs(want[k])
+                    for k in ("aux", "load_std"))):
+        raise AssertionError(f"mesh moe world 4 layer: {got} against the "
+                             f"unsharded {want}")
+    ref = np.load(work / "moe_prefill_refs.npz")["layer_y"][
+        coord["data"] * rows:(coord["data"] + 1) * rows]
+    n = PREFILL_S // shape[1]
+    ref = torch.from_numpy(ref[:, coord["model"] * n:
+                               (coord["model"] + 1) * n]).to(DEV)
+    return dict(got, unsharded=want, layout=part.moe._asdict(),
+                y_vs_unsharded_max_abs=float((y.float() - ref).abs().max()),
+                y_max_abs=float(ref.abs().max()))
+
+
+def mesh_moe_world4(mesh, work: Path) -> dict:
+    """World 4 (gloo, 2 x 2, four processes on the card), mixtral-8x7b at
+    full width through ``plan_cell``'s plans: MESH_MOE_W4_GROUPS dispatch
+    groups, the 8 experts split on "data" (4 a rank: EP, the all-to-all),
+    their d_ff on "model". (a) The prefill at MESH_MOE_F32_REPEATS layers
+    in bf16, then float32 (the shards cast): the float32 logit shard
+    within 1e-3·max|logit| + 1e-3 of the unsharded step's with the same
+    groups (world 1's), the bf16 distance and equal argmax recorded; layer
+    0's MoE FFN's routing against world 1's (:func:`moe_layer_world4`). (b)
+    MESH_MOE_W4_STEPS bf16 train steps at MESH_MOE_TRAIN_REPEATS layers,
+    loss, xent, moe_aux and grad_norm against world 1's unsharded steps with
+    the same groups (recorded, not bounded); then float32: each rank in
+    turn runs the unsharded steps on the whole weights and keeps its
+    slices of the result, then the sharded steps, each step's metrics
+    within MESH_TRAIN_TOL of the unsharded step's, every weight and moment
+    shard within MESH_TRAIN_TOL x max|leaf| after the last. Not through
+    ``run_training``: its final checkpoint of this 20.6 GB state, gathered
+    through gloo onto the first rank, took 37.1 s on an H100 80GB HBM3 at
+    700 W, half of what the step may add to the script. The loop's sharded
+    save runs on step ``train``'s state; that of a state with expert
+    leaves split on "data" is held on the CPU only
+    (tests/test_torch_sharded_moe.py). Each rank holds its
+    shard bytes, only the norms whole. Each sharded step counted
+    (:func:`counted_mesh_step`)."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import mesh as ml
+    from repro_torch.launch import sharding as shd
+    t0 = time.perf_counter()
+    shape = (ml.axis_size(mesh, "data"), ml.axis_size(mesh, "model"))
+    coord = ml.coordinate(mesh)
+    line = dict(mesh=ml.mesh_shape(mesh))
+    # ---- (a) the prefill ---------------------------------------------------
+    plan = moe_plan(mesh, "prefill", MESH_MOE_F32_REPEATS)
+    cfg = plan.cfg
+    if cfg.moe_groups != MESH_MOE_W4_GROUPS:
+        raise AssertionError(f"plan_cell set {cfg.moe_groups} groups")
+    model = build_lm_model(cfg)
+    params, _ = init_weights(model, MESH_MOE_SEED)
+    sh = shd.shard_params(model.param_shapes(), mesh)
+    lp = shd.local_params(params, sh, mesh)
+    whole = whole_leaves(lp, params)
+    local_bytes = tree_bytes(lp)
+    if local_bytes != shd.shard_bytes(model.param_shapes(), sh) or \
+            whole != MESH_MOE_WHOLE_LEAVES:
+        raise AssertionError(f"mesh moe world 4 prefill: {local_bytes} "
+                             f"bytes, whole leaves {whole}")
+    line["prefill_weights"] = dict(local_bytes=local_bytes, share=(
+        local_bytes / tree_bytes(params)), whole_leaves=sorted(whole))
+    del params
+    torch.cuda.empty_cache()
+    batch = shard_batch({"tokens": moe_tokens(cfg)}, mesh)
+    refs = np.load(work / "moe_prefill_refs.npz")
+    rows = PREFILL_B // shape[0]
+    vocab = cfg.padded_vocab // shape[1]
+    lo_b, lo_v = coord["data"] * rows, coord["model"] * vocab
+    formula = moe_collectives(cfg, shape, PREFILL_B, PREFILL_S, False)
+    line["prefill"] = dict(layers=cfg.n_layers, batch=PREFILL_B,
+                           seq=PREFILL_S, groups=cfg.moe_groups,
+                           collectives=formula)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        cfg_d = dataclasses.replace(cfg, param_dtype=name)
+        fn = plan.fn if dtype == torch.bfloat16 else build_prefill_step(
+            build_lm_model(cfg_d), act_spec=plan.act_spec)
+        p = moe_weights_in(lp, dtype)
+        got, run = counted_mesh_step(fn, (p, batch), cfg_d, dtype, formula,
+                                     f"mesh moe world 4 prefill {name}")
+        del p
+        ref = torch.from_numpy(refs[name][lo_b:lo_b + rows, :,
+                                          lo_v:lo_v + vocab]).to(DEV)
+        err = float((got - ref).abs().max())
+        run.update(vs_unsharded_max_abs=err, argmax_equal=int(
+            (got.argmax(-1) == ref.argmax(-1)).sum()), rows=rows)
+        if dtype == torch.float32:
+            tol = 1e-3 * float(ref.abs().max()) + 1e-3
+            if not err <= tol:
+                raise AssertionError(f"mesh moe world 4 float32 prefill: "
+                                     f"{err} from the unsharded, limit {tol}")
+            run.update(tol=tol, share_of_tol=err / tol)
+        line[f"prefill_{name}"] = run
+        del got, ref
+    line["moe_layer"] = moe_layer_world4(plan, lp, batch, work, coord, shape)
+    del lp
+    torch.cuda.empty_cache()
+    # ---- (b) the train steps -----------------------------------------------
+    plan = moe_plan(mesh, "train", MESH_MOE_TRAIN_REPEATS)
+    cfg = plan.cfg
+    formula = moe_collectives(cfg, shape, TRAIN_B, TRAIN_S, True)
+    w1 = json.loads((work / "moe_train_refs.json").read_text())
+
+    def batch_fn(s):
+        return shard_batch(train_batch(cfg, s), mesh)
+
+    def local_state(dtype) -> tuple:
+        """(the model in ``dtype``, its shardings, those of its state, this
+        rank's state from the seed's weights, the leaves left whole)."""
+        model_ = build_lm_model(dataclasses.replace(
+            cfg, param_dtype=str(dtype).split(".")[1]))
+        whole_p = moe_weights_in(init_weights(build_lm_model(cfg),
+                                       MESH_MOE_SEED)[0], dtype)
+        sh_, state_sh_ = train_state_sh(model_, mesh)
+        local = shd.local_params(whole_p, sh_, mesh)
+        whole = whole_leaves(local, whole_p)
+        del whole_p
+        torch.cuda.empty_cache()
+        return (model_, sh_, state_sh_,
+                {"params": local, "opt": adamw.init(local)}, whole)
+
+    # bf16: counted steps, recorded against world 1's unsharded steps
+    model_, sh_, state_sh_, st, whole = local_state(torch.bfloat16)
+    if whole != MESH_MOE_WHOLE_LEAVES:
+        raise AssertionError(f"mesh moe world 4 train: whole {whole}")
+    runs = []
+    for k in range(MESH_MOE_W4_STEPS):
+        st, met, run = counted_train_step(plan.fn, st, batch_fn(k), cfg,
+                                          torch.bfloat16, formula,
+                                          f"mesh moe world 4 step {k}")
+        runs.append(dict(run, vs_unsharded=metric_distance(
+            met, w1[k], MOE_METRICS)))
+    line["train_bfloat16"] = dict(steps=runs, bytes=state_bytes(
+        st, model_, sh_, state_sh_, "mesh moe world 4 train bf16"),
+        whole_leaves=sorted(whole))
+    del st
+    torch.cuda.empty_cache()
+    # float32: the unsharded steps with the same groups, one rank at a time
+    # (≈ 57 GB each), this rank's slices of the last state kept
+    ref_model = build_lm_model(dataclasses.replace(
+        cfg, param_dtype="float32", moe_groups=MESH_MOE_W4_GROUPS))
+    ref_sh, ref_state_sh = train_state_sh(ref_model, mesh)
+    refs, line["turns_seconds"] = in_turns(mesh, 1, lambda: unsharded_refs(
+        ref_model, init_weights(build_lm_model(cfg), MESH_MOE_SEED)[0], cfg,
+        mesh, ref_sh, ref_state_sh, False, MESH_MOE_W4_STEPS,
+        each=False)[0])
+    model32, sh_, state_sh_, st, _whole = local_state(torch.float32)
+    fn32 = build_train_step(model32, MESH_TRAIN_OPT, act_spec=plan.act_spec)
+    runs = []
+    for k in range(MESH_MOE_W4_STEPS):
+        st, met, run = counted_train_step(fn32, st, batch_fn(k), cfg,
+                                          torch.float32, formula,
+                                          f"mesh moe world 4 step {k}")
+        m = metric_distance(met, refs[k]["metrics"], MOE_METRICS)
+        if not (m["lr_equal"] and max(m[n] for n in MOE_METRICS) <= 1.0):
+            raise AssertionError(f"mesh moe world 4 float32 step {k}: {m}")
+        runs.append(dict(run, vs_unsharded=m))
+    d = leaf_distance(st, refs[-1]["state"], scale=refs[-1]["scale"])
+    if not d["share_of_tol"] <= 1.0:
+        raise AssertionError(f"mesh moe world 4 float32: {d}")
+    line["train_float32"] = dict(steps=runs, leaves=d, bytes=state_bytes(
+        st, model32, sh_, state_sh_, "mesh moe world 4 train float32"))
+    line["train"] = dict(layers=cfg.n_layers, batch=TRAIN_B, seq=TRAIN_S,
+                         groups=cfg.moe_groups, collectives=formula)
+    del st, refs
+    torch.cuda.empty_cache()
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
 def run_mesh_rank(rank: int, world: int, init: str, work: str,
                   gate: str = "") -> None:
     """One rank of phase mesh (``python3 chip_smoke.py --mesh-rank RANK
@@ -5938,13 +6458,18 @@ def run_mesh_rank(rank: int, world: int, init: str, work: str,
         line["cp_attention"] = mesh_cp_attention(mesh)
         t_train = time.perf_counter()
         line["train"], keep = mesh_train_world4(mesh, work)
+    line["train"]["seconds"] = time.perf_counter() - t_train
+    # step moe: mixtral-8x7b's sharded prefill and train step
+    line["moe"] = (mesh_moe_world1 if world == 1 else mesh_moe_world4)(
+        mesh, work)
     ml.barrier(mesh)
     torch.distributed.destroy_process_group()
     if world > 1 and rank == 0:
         # the elastic check: world 4's checkpoint on a world of one
+        t_elastic = time.perf_counter()
         line["train"]["elastic"] = mesh_train_elastic(work, keep)
+        line["train"]["seconds"] += time.perf_counter() - t_elastic
         del keep
-    line["train"]["seconds"] = time.perf_counter() - t_train
     line["seconds"] = time.perf_counter() - t0
     (work / f"world{world}_rank{rank}.json").write_text(json.dumps(line))
 
@@ -6106,6 +6631,67 @@ def phase_mesh(work: Path) -> dict:
             s["launches"][k] for dt in ("bfloat16", "float32")
             for s in r["train"][dt]["steps"]) + r["train"].get(
             "elastic", {}).get("launches", {}).get(k, 0) for r in four]
+    # step moe's kernels: each sharded step of each world
+    def moe_launches(line, k):
+        runs = [v for v in line.values()
+                if isinstance(v, dict) and "launches" in v]
+        runs += line["train"].get("steps", []) + [
+            s for dt in ("bfloat16", "float32")
+            for s in line.get(f"train_{dt}", {}).get("steps", [])]
+        return sum(r["launches"][k] for r in runs)
+    for k in ("rms_norm", "flash_attention"):
+        launches[k]["moe_world1"] = moe_launches(one["moe"], k)
+        launches[k]["moe_world4"] = [moe_launches(r["moe"], k) for r in four]
+    m1, m4 = one["moe"], [r["moe"] for r in four]
+    say("mesh", step="moe_summary",
+        world1=dict(
+            prefill_ms=m1["prefill"]["ms"],
+            unsharded_prefill_ms=m1["prefill"]["unsharded_ms"],
+            prefill_peak_gib=m1["prefill"]["peak_gib"],
+            float32_prefill_ms=m1["prefill_float32"]["ms"],
+            unsharded_float32_prefill_ms=m1["prefill_float32"][
+                "unsharded_ms"],
+            float32_equal_to_unsharded=m1["prefill_float32"][
+                "equal_to_unsharded"],
+            train_ms=[s["ms"] for s in m1["train"]["steps"]],
+            unsharded_train_ms=[s["plain_ms"] for s in m1["train"]["steps"]],
+            train_peak_gib=max(s["peak_gib"] for s in m1["train"]["steps"]),
+            bit_equal=all(s["bit_equal"] for s in m1["train"]["steps"]),
+            prefill_collectives=m1["prefill"]["collectives"],
+            train_collectives=m1["train"]["collectives"],
+            seconds=m1["seconds"]),
+        world4=dict(
+            prefill_seconds={dt: [r[f"prefill_{dt}"]["ms"] / 1e3
+                                  for r in m4]
+                             for dt in ("bfloat16", "float32")},
+            prefill_float32_share_of_tol=max(
+                r["prefill_float32"]["share_of_tol"] for r in m4),
+            prefill_bf16_max_abs=max(r["prefill_bfloat16"][
+                "vs_unsharded_max_abs"] for r in m4),
+            prefill_bf16_argmax_equal=sum(r["prefill_bfloat16"][
+                "argmax_equal"] for r in m4),
+            weight_share=[r["prefill_weights"]["share"] for r in m4],
+            train_seconds={dt: [[s["ms"] / 1e3 for s in r[f"train_{dt}"][
+                "steps"]] for r in m4] for dt in ("bfloat16", "float32")},
+            peak_gib=[max(s["peak_gib"] for dt in ("bfloat16", "float32")
+                          for s in r[f"train_{dt}"]["steps"]) for r in m4],
+            float32_worst_share_of_tol=max(
+                max([r["train_float32"]["leaves"]["share_of_tol"]] + [
+                    max(v for k, v in s["vs_unsharded"].items()
+                        if k != "lr_equal")
+                    for s in r["train_float32"]["steps"]]) for r in m4),
+            bf16_vs_unsharded=[s["vs_unsharded"] for s in m4[0][
+                "train_bfloat16"]["steps"]],
+            weight_and_moment_share=[r["train_float32"]["bytes"]["local"]
+                                     / r["train_float32"]["bytes"]["whole"]
+                                     for r in m4],
+            turns_seconds=m4[0]["turns_seconds"],
+            layer=dict((k, m4[0]["moe_layer"][k]) for k in (
+                "dropped", "stolen", "aux", "y_vs_unsharded_max_abs")),
+            collectives=dict(prefill=m4[0]["prefill"]["collectives"],
+                             train=m4[0]["train"]["collectives"]),
+            seconds=[r["seconds"] for r in m4]),
+        card=card_line())
     say("mesh", step="train_summary",
         world1=dict(
             ms=[s["ms"] for s in w1["steps"]],

@@ -42,12 +42,18 @@ The patterns:
   rank that holds it (SP) to the others of its ``model`` group;
 * :func:`xent` — the train step's loss: a vocab-parallel softmax
   cross-entropy over this rank's logit columns, averaged over the global
-  batch.
+  batch;
+* :func:`moe` — a MoE FFN: this rank's dispatch groups routed, their
+  buffers traded for its experts' by an all-to-all over ``data`` (EP, where
+  the experts split there), gathered over ``model`` for its ``d_ff``
+  columns, the partial sums reduce-scattered back, the reverse all-to-all,
+  and each token's k contributions combined (:class:`MoELayout`).
 
 **The gradient.** Each all-gather, reduce-scatter and all-reduce is an
 autograd function whose backward is its linear transpose on the same
 group: an all-gather's a reduce-scatter of the cotangent along the same
-dim, a reduce-scatter's an all-gather, an all-reduce's an all-reduce. One
+dim, a reduce-scatter's an all-gather, an all-reduce's an all-reduce, an
+all-to-all's the reverse all-to-all. One
 convention holds throughout: the cotangent of a value that several ranks
 hold alike is held as partial sums, the true cotangent their sum over
 those ranks. So the loss, which every rank holds, seeds each rank's
@@ -68,7 +74,7 @@ the card; a group of one rank still issues its collective.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -77,26 +83,28 @@ from repro_torch import tree as tr
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding as shd
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_mod
 
 #: the slots the sharded step runs; another raises naming Queue A 10d
 MIXERS = ("attn",)
-FFNS = ("dense",)
+FFNS = ("dense", "moe")
 
 #: calls of each pattern since :func:`reset_counts`
 CALLS: Dict[str, int] = dict.fromkeys(
     ("fsdp_gather", "column", "row", "sp_gather", "head_gather", "embed",
-     "head", "last_position"), 0)
+     "head", "last_position", "moe"), 0)
 #: collectives issued by forward passes since :func:`reset_counts`
 COLLECTIVES: Dict[str, int] = dict.fromkeys(
-    ("all_gather", "reduce_scatter", "all_reduce", "broadcast"), 0)
+    ("all_gather", "reduce_scatter", "all_reduce", "broadcast",
+     "all_to_all"), 0)
 #: collectives of the gradient since :func:`reset_counts`: the forward's
 #: transposes, issued by autograd (``all_gather``, ``reduce_scatter``,
-#: ``all_reduce``), each leaf's sum over the axes its spec leaves it whole
-#: on (``leaf_sum``) and AdamW's sum of squares over the mesh
-#: (``norm_sum``), one all-reduce each
+#: ``all_reduce``, ``all_to_all``), each leaf's sum over the axes its spec
+#: leaves it whole on (``leaf_sum``) and AdamW's sum of squares over the
+#: mesh (``norm_sum``), one all-reduce each
 BACKWARD: Dict[str, int] = dict.fromkeys(
-    ("all_gather", "reduce_scatter", "all_reduce", "leaf_sum", "norm_sum"),
-    0)
+    ("all_gather", "reduce_scatter", "all_reduce", "all_to_all", "leaf_sum",
+     "norm_sum"), 0)
 
 
 def reset_counts() -> None:
@@ -139,9 +147,12 @@ def unsupported(cfg) -> Optional[str]:
 
 def weight_specs(cfg, mesh) -> Dict[str, tuple]:
     """The spec of each weight a layer or the step reads, by its path in a
-    layer (``attn/wq``) or in the tree (``tok_embed``): the placement rules
-    and their divisibility guard (``sharding.param_spec``), at the shapes
-    of one layer."""
+    layer (``attn/wq``; a MoE FFN's ``moe/w_gate``) or in the tree
+    (``tok_embed``): the placement rules and their divisibility guard
+    (``sharding.param_spec``), at the shapes of one layer. A MoE leaf's
+    spec is resolved at its stacked shape (repeats, E, ...) and its first
+    entry dropped: at one layer's (E, D, F) the dense rules would match
+    through their leading-repeats branch."""
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     F, V = cfg.d_ff, cfg.padded_vocab
     shapes = {"attn/wq": (D, H * hd), "attn/wk": (D, KV * hd),
@@ -150,8 +161,15 @@ def weight_specs(cfg, mesh) -> Dict[str, tuple]:
               "tok_embed": (V, D), "lm_head": (D, V)}
     if cfg.act == "swiglu":
         shapes["ffn/w_gate"] = (D, F)
-    return {k: shd.param_spec(tuple(k.split("/")), (s, None), mesh)
-            for k, s in shapes.items()}
+    specs = {k: shd.param_spec(tuple(k.split("/")), (s, None), mesh)
+             for k, s in shapes.items()}
+    if any(ffn == "moe" for _mixer, ffn in cfg.pattern):
+        E, Fe, R = cfg.n_experts, cfg.expert_d_ff, cfg.repeats
+        for name, s in (("router", (D, E)), ("w_gate", (E, D, Fe)),
+                        ("w_up", (E, D, Fe)), ("w_down", (E, Fe, D))):
+            specs[f"moe/{name}"] = shd.param_spec(
+                ("ffn", name), ((R,) + s, None), mesh)[1:]
+    return specs
 
 
 def axis_group(mesh, axis: str):
@@ -168,6 +186,55 @@ def axis_group(mesh, axis: str):
                                f"{ranks} out of their coordinates {order}")
         checked.add(axis)
     return group
+
+
+class MoELayout(NamedTuple):
+    """Where a sharded step's MoE dispatch groups live. The batch's B·S
+    tokens, flattened row by row, are ``groups`` groups of ``tokens``
+    tokens (the JAX package's ``moe_apply``: one group where
+    ``moe_groups`` does not divide them), each with ``capacity`` slots an
+    expert. Group g lives on the rank whose coordinate over the group axes
+    is g in row-major order: the groups of a data shard of the batch are
+    contiguous chunks of its flattened (B/|dp|, S) rows, one chunk (of
+    ``local`` groups) a ``model`` rank; where they do not split over
+    ``model`` (``shared``), every rank of a ``model`` column routes all of
+    its shard's groups alike."""
+    groups: int
+    tokens: int
+    capacity: int
+    local: int          # the groups this rank routes
+    shared: bool        # a ``model`` column routes the same groups
+    direct: bool        # this rank's SP slice is its groups' tokens
+    ep: bool            # the experts split on ``data``
+    split_ff: bool      # the experts' d_ff split on ``model``
+    axes: tuple         # the mesh axes over which the groups differ
+
+
+def moe_layout(part: "Partition") -> MoELayout:
+    """The :class:`MoELayout` of ``part``'s step: ``cfg.moe_groups`` over
+    the global batch (``plan_cell`` sets |dp|·|model|, |dp| or 1), which
+    must split over the batch's data shards; experts on ``data`` and
+    ``d_ff`` on ``model`` as the placement rules' guard leaves them."""
+    cfg, act = part.cfg, part.act_spec
+    dp = tuple(act.dp) if act.dp else ()
+    shards = mesh_lib.axis_size(part.mesh, *dp) if dp else 1
+    T = shards * part.batch_rows * part.seq_len
+    G = cfg.moe_groups if T % cfg.moe_groups == 0 else 1
+    if G % shards:
+        raise ValueError(f"{cfg.name}: {G} MoE dispatch groups of {T} "
+                         f"tokens do not split over the batch's {shards} "
+                         f"data shards (plan_cell sets moe_groups)")
+    per_shard, mp = G // shards, part.size["model"]
+    shared = per_shard % mp != 0
+    gate = part.specs["moe/w_gate"]
+    return MoELayout(
+        groups=G, tokens=T // G,
+        capacity=moe_mod.capacity(T // G, cfg.experts_per_tok,
+                                  cfg.capacity_factor, cfg.n_experts),
+        local=per_shard if shared else per_shard // mp, shared=shared,
+        direct=part.sp and part.batch_rows == 1 and not shared,
+        ep=gate[0] == "data", split_ff=gate[2] == "model",
+        axes=dp + (() if shared else ("model",)))
 
 
 class Partition:
@@ -187,11 +254,15 @@ class Partition:
                                                               "model")}
         self.coord = mesh_lib.coordinate(mesh)
         self.specs = weight_specs(cfg, mesh)
+        self.batch_rows = batch_rows
         rows = batch_rows * (mesh_lib.axis_size(mesh, *act_spec.dp)
                              if act_spec.dp else 1)
         spec = act_spec.spec((rows, seq_len, cfg.d_model))
         #: whether the activations between layers are (B/|dp|, S/|model|, D)
         self.sp = spec is not None and spec[1] == "model"
+        #: the MoE FFN's groups and layout (None without one)
+        self.moe = (moe_layout(self) if any(
+            ffn == "moe" for _mixer, ffn in cfg.pattern) else None)
 
     def group(self, axis: str):
         return axis_group(self.mesh, axis)
@@ -223,8 +294,8 @@ def for_model(act_spec, cfg, tokens) -> Optional[Partition]:
     if what is not None:
         if mesh_lib.world_of(mesh) > 1:
             raise NotImplementedError(
-                f"{cfg.name}: the sharded step runs attention and dense "
-                f"FFNs only; {what} under a mesh of several ranks is "
+                f"{cfg.name}: the sharded step runs attention with dense "
+                f"or MoE FFNs only; {what} under a mesh of several ranks is "
                 f"ROADMAP Queue A 10d")
         return None
     return Partition(act_spec, cfg, tokens.shape[0], tokens.shape[1])
@@ -274,6 +345,38 @@ def _reduce_raw(t: torch.Tensor, group, tally, key: str = "all_reduce",
         buf = t.clone()             # never into the caller's tensor
     dist.all_reduce(buf, op=op, group=group)
     return buf.to(t.device)
+
+
+def _all_to_all_raw(t: torch.Tensor, split_dim: int, cat_dim: int, group,
+                    tally) -> torch.Tensor:
+    """``t`` cut into the group's size of chunks along ``split_dim``, chunk
+    j sent to the group's rank j (by coordinate), the chunks received
+    concatenated along ``cat_dim`` in the order of their senders, on
+    ``t``'s device (counted in ``tally``)."""
+    tally["all_to_all"] += 1
+    n = dist.get_world_size(group)
+    src = _on(t.movedim(split_dim, 0), group)
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    parts = out.to(t.device).chunk(n)
+    return torch.cat([c.movedim(0, split_dim) for c in parts], cat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    """An all-to-all (:func:`_all_to_all_raw`); its transpose the reverse
+    all-to-all of the cotangent (``cat_dim`` split, ``split_dim``
+    concatenated) on the same group."""
+
+    @staticmethod
+    def forward(ctx, t, split_dim, cat_dim, group):
+        ctx.dims, ctx.group = (split_dim, cat_dim), group
+        return _all_to_all_raw(t, split_dim, cat_dim, group, COLLECTIVES)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, cat_dim = ctx.dims
+        return (_all_to_all_raw(g, cat_dim, split_dim, ctx.group, BACKWARD),
+                None, None, None)
 
 
 class _AllGather(torch.autograd.Function):
@@ -328,6 +431,11 @@ def _reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     return _AllReduce.apply(t, group)
+
+
+def _all_to_all(t: torch.Tensor, split_dim: int, cat_dim: int,
+                group) -> torch.Tensor:
+    return _AllToAll.apply(t, split_dim, cat_dim, group)
 
 
 def _broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
@@ -501,6 +609,85 @@ def last_position(part: Partition, x: torch.Tensor) -> torch.Tensor:
     src = part.size["model"] - 1
     got = _broadcast(last, src, part.group("model"))
     return last if part.coord["model"] == src else got
+
+
+def moe(part: Partition, h: torch.Tensor, p: Dict, stats: bool = False,
+        gathered: bool = False) -> tuple:
+    """A MoE FFN on this rank's dispatch groups (``part.moe``): (y in the
+    step's layout, the layer's aux — the mean over all the groups, the
+    same on every rank —, its :class:`models.moe.MoEStats` over all the
+    groups, or None without ``stats``). ``h`` is the normed input in the
+    step's layout (its whole sequence with ``gathered``: a parallel
+    block's), ``p`` this rank's shards of the FFN's weights.
+
+    The schedule, fixed: the router gathered over ``data`` (FSDP); this
+    rank's groups taken from its tokens (the sequence gathered first unless
+    its SP slice is its groups, ``direct``) and routed with
+    ``models/moe.py``'s ``_route`` at a global group's capacity; scattered
+    into (groups, E, C, D); with EP an all-to-all over ``data`` trades each
+    rank's expert chunks for the other ranks' groups; with d_ff split on
+    ``model`` the groups of the ``model`` column gathered (unless they are
+    ``shared``); gate and up on this rank's d_ff columns and down as
+    partial sums (``_expert_ffn`` on the local shards), reduce-scattered
+    over ``model`` back along the groups (all-reduced where they are
+    shared); the reverse all-to-all; each token's k contributions combined
+    in k order; the output gathered over ``model`` and put into the step's
+    layout (unless ``direct``). ``aux`` and the statistics are each one
+    all-reduce over the group axes, each group counted once."""
+    CALLS["moe"] += 1
+    cfg, lay = part.cfg, part.moe
+    E, k, D = cfg.n_experts, cfg.experts_per_tok, cfg.d_model
+    Tg, C, n = lay.tokens, lay.capacity, lay.local
+    m = part.coord["model"]
+    router = fsdp_gather(part, p["router"], "moe/router")
+    rows, S = h.shape[0], part.seq_len
+    if lay.direct and not gathered:
+        xt = h.reshape(n * Tg, D)
+    else:
+        full = (h if gathered else part.gather_seq(h)).reshape(rows * S, D)
+        lo = 0 if lay.shared else m * n * Tg
+        xt = full[lo:lo + n * Tg]
+    xg = xt.reshape(n, Tg, D)
+    routes = [moe_mod._route(xg[g], router, E, k, C, cfg.ws_rebalance)
+              for g in range(n)]
+    buf = moe_mod.dispatch(xg, routes, E, C)                    # (n,E,C,D)
+    if lay.ep:
+        buf = _all_to_all(buf, 1, 0, part.group("data"))
+    if lay.split_ff and not lay.shared:
+        buf = _all_gather(buf, 0, part.group("model"))
+    groups, e_local = buf.shape[0], buf.shape[1]
+    xb = buf.transpose(0, 1).reshape(e_local, groups * C, D)
+    out = moe_mod._expert_ffn(p, xb).reshape(e_local, groups, C, D) \
+        .transpose(0, 1)
+    if lay.split_ff:
+        out = (_all_reduce(out, part.group("model")) if lay.shared
+               else _reduce_scatter(out, 0, part.group("model")))
+    if lay.ep:
+        out = _all_to_all(out, 0, 1, part.group("data"))
+    y = moe_mod.combine(out, routes, k).reshape(n * Tg, D)
+    if lay.direct:
+        y = y.reshape(rows, -1, D)
+    else:
+        if not lay.shared:
+            y = _all_gather(y, 0, part.group("model"))
+        y = part.into_layout(y.reshape(rows, S, D))
+    aux, dropped, stolen, load = moe_mod.group_stats(routes, E)
+    group = (mesh_lib.axes_group(part.mesh, lay.axes) if lay.axes
+             else None)
+    aux = torch.stack(aux).sum()
+    if group is not None:
+        aux = _all_reduce(aux, group)
+    aux = aux / lay.groups
+    if not stats:
+        return y, aux, None
+    sums = torch.cat([torch.stack(dropped).sum()[None],
+                      torch.stack(stolen).sum()[None],
+                      torch.stack(load).sum(0).float()]).detach()
+    if group is not None:
+        sums = _reduce_raw(sums, group, COLLECTIVES)
+    return y, aux, moe_mod.MoEStats(
+        dropped=sums[0] / lay.groups, stolen=sums[1] / lay.groups,
+        load_std=torch.std(sums[2:], correction=0))
 
 
 # ---------------------------------------------------------------------------

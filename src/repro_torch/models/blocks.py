@@ -170,11 +170,12 @@ def slot_apply(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x, positions,
     made for it).
 
     ``part``: a sharded step's context (``launch/partition.py``; an
-    ``attn`` mixer and a ``dense`` FFN): ``x`` is this rank's activation
-    in the step's layout, each norm runs on it, the normed input is
-    gathered over the sequence before the mixer and before the FFN
-    (``part.gather_seq``), and the row-parallel products bring the outputs
-    back into the step's layout."""
+    ``attn`` mixer and a ``dense`` or ``moe`` FFN): ``x`` is this rank's
+    activation in the step's layout, each norm runs on it, the normed input
+    is gathered over the sequence before the mixer and before a dense FFN
+    (``part.gather_seq``; a MoE FFN takes its groups' tokens,
+    ``partition.moe``), and the row-parallel products and the MoE's
+    reductions bring the outputs back into the step's layout."""
     check_slot(mixer, ffn)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if part is not None:
@@ -235,15 +236,19 @@ def _ffn_apply(p: Dict, cfg: ArchConfig, kind: str, h, part=None):
     ``router_aux_coef``, 0.0 for a dense one). With a sharded step's
     ``part`` the dense FFN runs column- then row-parallel on the whole
     sequence: the normed input is gathered first, but in a parallel block,
-    whose input the mixer's gather already holds."""
-    if part is not None:
-        if not cfg.parallel_block:
-            h = part.gather_seq(h)
-        return mlp_apply(p["ffn"], h, cfg.act, part), 0.0
-    if kind == "dense":
-        return mlp_apply(p["ffn"], h, cfg.act), 0.0
-    y, aux, _stats = moe_mod.moe_apply(p["ffn"], h, **_moe_kw(cfg))
-    return y, aux * cfg.router_aux_coef
+    whose input the mixer's gather already holds. A MoE FFN runs on this
+    rank's dispatch groups (``partition.moe``), its aux the mean over all
+    of them."""
+    if kind == "moe":
+        if part is not None:
+            y, aux, _stats = pt.moe(part, h, p["ffn"],
+                                    gathered=cfg.parallel_block)
+        else:
+            y, aux, _stats = moe_mod.moe_apply(p["ffn"], h, **_moe_kw(cfg))
+        return y, aux * cfg.router_aux_coef
+    if part is not None and not cfg.parallel_block:
+        h = part.gather_seq(h)
+    return mlp_apply(p["ffn"], h, cfg.act, part), 0.0
 
 
 def _ffn_output(p: Dict, cfg: ArchConfig, kind: str, h):

@@ -19,7 +19,10 @@ device value on the host, so a decode step that runs it can be captured in
 a CUDA graph. The layout hints (:func:`set_shard_hints`, set by
 ``launch/steps.py::plan_cell``) pin the dispatch groups' layout at the JAX
 package's four places on a DTensor; on a rank-local tensor they are the
-identity, so routing is rank-local and unchanged.
+identity. A sharded step on a live mesh does not run :func:`moe_apply`: it
+routes each rank's groups with the same :func:`_route`, :func:`dispatch`
+and :func:`combine`, and moves the buffers between groups and experts with
+explicit collectives (``launch/partition.py::moe``).
 """
 from __future__ import annotations
 
@@ -195,6 +198,38 @@ def capacity(n_tokens: int, top_k: int, capacity_factor: float,
     return int(max(1, round(n_tokens * top_k * capacity_factor / n_experts)))
 
 
+def dispatch(xg: torch.Tensor, routes, n_experts: int,
+             C: int) -> torch.Tensor:
+    """xg (G, Tg, D) scattered by each group's :class:`_Route` into (G, E,
+    C, D): each kept (expert, slot) is written by one assignment; dropped
+    ones go to a spare last row, never read."""
+    G, Tg, D = xg.shape
+    top_k = routes[0].flat_e.numel() // Tg
+    tok_idx = torch.arange(Tg, device=xg.device).repeat_interleave(top_k)
+    spare_row = n_experts * C
+    buf = torch.zeros((G, spare_row + 1, D), dtype=xg.dtype, device=xg.device)
+    for g, r in enumerate(routes):
+        rows = torch.where(r.keep, r.flat_e * C + r.slot_c, spare_row)
+        buf[g].index_copy_(0, rows, xg[g][tok_idx])
+    return buf[:, :spare_row].reshape(G, n_experts, C, D)
+
+
+def combine(out_buf: torch.Tensor, routes, top_k: int) -> torch.Tensor:
+    """(G, Tg, D): token t of each group sums its k contributions from
+    ``out_buf`` (G, E, C, D) in order, in its dtype (the JAX package's
+    scatter-add applies them in index order on the CPU)."""
+    ys = []
+    for g, r in enumerate(routes):
+        contrib = out_buf[g][r.flat_e, r.slot_c] \
+            * r.gates[:, None].to(out_buf.dtype)                  # (Tg*k, D)
+        contrib = contrib.reshape(-1, top_k, out_buf.shape[-1])
+        y = contrib[:, 0]
+        for j in range(1, top_k):
+            y = y + contrib[:, j]
+        ys.append(y)
+    return torch.stack(ys)
+
+
 def _moe(params: dict, x: torch.Tensor, n_experts: int, top_k: int,
          capacity_factor: float, ws_rebalance: bool, n_groups: int):
     """The layer's output (B, S, D) and each group's :class:`_Route`."""
@@ -206,34 +241,22 @@ def _moe(params: dict, x: torch.Tensor, n_experts: int, top_k: int,
     xg = _hint(x.reshape(G, Tg, D), "tokens")
     routes = [_route(xg[g], params["router"], n_experts, top_k, C,
                      ws_rebalance) for g in range(G)]
-
-    # scatter tokens into (G, E, C, D): each kept (expert, slot) is written
-    # by one assignment; dropped ones go to a spare last row, never read
-    tok_idx = torch.arange(Tg, device=x.device).repeat_interleave(top_k)
-    spare_row = n_experts * C
-    buf = torch.zeros((G, spare_row + 1, D), dtype=x.dtype, device=x.device)
-    for g, r in enumerate(routes):
-        rows = torch.where(r.keep, r.flat_e * C + r.slot_c, spare_row)
-        buf[g].index_copy_(0, rows, xg[g][tok_idx])
-    buf = _hint(buf[:, :spare_row].reshape(G, n_experts, C, D), "experts")
+    buf = _hint(dispatch(xg, routes, n_experts, C), "experts")
 
     # expert FFN over all groups: the groups' slots side by side, per expert
     xb = buf.transpose(0, 1).reshape(n_experts, G * C, D)
     out_buf = _hint(_expert_ffn(params, xb).reshape(n_experts, G, C, D)
                     .transpose(0, 1), "experts")                 # (G,E,C,D)
+    return _hint(combine(out_buf, routes, top_k), "tokens").reshape(
+        B, S, D), routes
 
-    # gather: token t sums its k contributions in order, in x's dtype (the
-    # JAX package's scatter-add applies them in index order on the CPU)
-    ys = []
-    for g, r in enumerate(routes):
-        contrib = out_buf[g][r.flat_e, r.slot_c] \
-            * r.gates[:, None].to(x.dtype)                        # (Tg*k, D)
-        contrib = contrib.reshape(Tg, top_k, D)
-        y = contrib[:, 0]
-        for j in range(1, top_k):
-            y = y + contrib[:, j]
-        ys.append(y)
-    return _hint(torch.stack(ys), "tokens").reshape(B, S, D), routes
+
+def group_stats(routes, n_experts: int):
+    """(aux, dropped, stolen, load) of each group, each a list, as
+    :func:`_route_stats` and :class:`_Route` give them."""
+    aux, dropped, stolen = (list(v) for v in zip(
+        *(_route_stats(r, n_experts) for r in routes)))
+    return aux, dropped, stolen, [r.load for r in routes]
 
 
 def moe_apply(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
@@ -250,10 +273,10 @@ def moe_apply(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     """
     y, routes = _moe(params, x, n_experts, top_k, capacity_factor,
                      ws_rebalance, n_groups)
-    aux, dropped, stolen = (torch.stack(v).mean() for v in
-                            zip(*(_route_stats(r, n_experts)
-                                  for r in routes)))
-    load = torch.stack([r.load for r in routes]).sum(0)
+    aux, dropped, stolen, load = group_stats(routes, n_experts)
+    aux, dropped, stolen = (torch.stack(v).mean()
+                            for v in (aux, dropped, stolen))
+    load = torch.stack(load).sum(0)
     stats = MoEStats(dropped=dropped, stolen=stolen,
                      load_std=torch.std(load.float(), correction=0))
     return y, aux, stats

@@ -1376,7 +1376,49 @@ def test_sharded_prefill_on_an_nccl_mesh_of_one_is_bit_equal(nccl_mesh,
     assert ops.launch_counts()["flash_attention"] == L
     assert ppart.counts()["collectives"] == dict(
         all_gather=9 * L + 2, reduce_scatter=2 * L + 1, all_reduce=0,
-        broadcast=1)
+        broadcast=1, all_to_all=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ("bfloat16", "float32"))
+def test_sharded_moe_prefill_on_an_nccl_mesh_of_one_is_bit_equal(nccl_mesh,
+                                                                 dtype):
+    """The reduced mixtral's prefill with its weights laid out by the
+    placement rules on a (1, 1) NCCL mesh (its experts split on "data" and
+    d_ff on "model" over groups of one: the all-to-alls real NCCL calls,
+    sequence parallelism on, one dispatch group as ``plan_cell`` sets on a
+    world of one) gives the unsharded step's logits bit for bit, through
+    the kernels (one ``rms_norm`` a norm, one ``flash_attention`` a
+    layer)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import partition as ppart
+    from repro_torch.launch import sharding as pshd
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("mixtral-8x7b").reduced(
+        d_model=256, head_dim=128), param_dtype=dtype)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(2))
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (4, 64)), dtype=torch.int64, device="cuda")
+    want = build_prefill_step(model)(params, {"tokens": tokens})
+    local = pshd.local_params(params, pshd.shard_params(
+        model.param_shapes(), nccl_mesh), nccl_mesh)
+    ops.reset_counts()
+    ppart.reset_counts()
+    got = build_prefill_step(model, mesh=nccl_mesh)(
+        local, shard_batch({"tokens": tokens}, nccl_mesh))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    L = cfg.n_layers
+    assert ops.launch_counts()["rms_norm"] == 2 * L + 1
+    assert ops.launch_counts()["flash_attention"] == L
+    assert ppart.counts()["collectives"] == dict(
+        all_gather=9 * L + 2, reduce_scatter=2 * L + 1, all_reduce=L,
+        broadcast=1, all_to_all=2 * L)
 
 
 @pytest.mark.gpu
@@ -1428,10 +1470,10 @@ def test_sharded_train_step_on_an_nccl_mesh_of_one_is_bit_equal(nccl_mesh,
         gathers = 9 * L + 3
         assert ppart.counts()["collectives"] == dict(
             all_gather=gathers, reduce_scatter=2 * L + 1, all_reduce=4,
-            broadcast=0)
+            broadcast=0, all_to_all=0)
         assert ppart.backward_counts() == dict(
             all_gather=2 * L + 1, reduce_scatter=gathers, all_reduce=2,
-            leaf_sum=5, norm_sum=1)
+            all_to_all=0, leaf_sum=5, norm_sum=1)
         for k, v in want_m.items():
             assert torch.equal(got_m[k], v), k
         for (path, a), (_p, w) in zip(

@@ -172,18 +172,19 @@ for name, (shape, sp, key) in cases.items():
                          cfg_overrides=over, device="cpu")
         out["plan"] = plan.fn(lp, shard_batch({"tokens": tokens}, mesh)
                               ).numpy()
-        # a config the sharded step does not run, on four ranks
-        moe = build_model(get_config("mixtral-8x7b").reduced(),
+        # a config the sharded step does not run, on four ranks: jamba's
+        # Mamba slots (its MoE slots alone would run)
+        rec = build_model(get_config("jamba-v0.1-52b").reduced(),
                           device="cpu")
-        mp = moe.init_params(torch.Generator().manual_seed(0))
+        rp = rec.init_params(torch.Generator().manual_seed(0))
         try:
-            build_prefill_step(moe, mesh=mesh, device="cpu")(
-                shd.local_params(mp, shd.shard_params(moe.param_shapes(),
+            build_prefill_step(rec, mesh=mesh, device="cpu")(
+                shd.local_params(rp, shd.shard_params(rec.param_shapes(),
                                                       mesh), mesh),
                 {"tokens": tokens[:2]})
-            out["moe"] = None
+            out["recurrent"] = None
         except NotImplementedError as e:
-            out["moe"] = str(e)
+            out["recurrent"] = str(e)
 (d / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
 dist.destroy_process_group()
 """
@@ -316,12 +317,12 @@ def test_the_collectives_follow_the_formula(ranks, case):
                  sp_gather=(1 if cfg.parallel_block else 2) * L if sp
                  else 0,
                  head_gather=L * (2 * (KV % mp != 0) + (H % mp != 0)),
-                 embed=1, head=1, last_position=1)
+                 embed=1, head=1, last_position=1, moe=0)
     coll = dict(all_gather=calls["fsdp_gather"] + calls["sp_gather"]
                 + calls["head_gather"],
                 reduce_scatter=reduced if sp else 0,
                 all_reduce=0 if sp else reduced,
-                broadcast=1 if sp else 0)
+                broadcast=1 if sp else 0, all_to_all=0)
     for r in ranks["ranks"]:
         assert r[case]["counts"] == {"calls": calls, "collectives": coll}
 
@@ -347,9 +348,11 @@ def test_the_cell_plan_s_prefill_fn_runs_the_sharded_step(ranks):
         np.testing.assert_array_equal(r["plan"], r["2x2_sp"]["logits"])
 
 
-def test_a_moe_config_on_four_ranks_names_queue_a_10d(ranks):
+def test_a_recurrent_config_on_four_ranks_names_queue_a_10d(ranks):
     for r in ranks["ranks"]:
-        assert r["moe"] is not None and "Queue A 10d" in r["moe"]
+        got = r["recurrent"]
+        assert got is not None and "Queue A 10d" in got
+        assert "'mamba'" in got
 
 
 # ---------------------------------------------------------------------------

@@ -266,18 +266,19 @@ for name, (shape, sp, key, mb) in cases.items():
         _p, _o, met = plan.fn(p0, adamw.init(p0), batch(mesh, 0))
         out["plan"] = dict(metrics={m: float(v) for m, v in met.items()},
                            params=arrays(_p))
-        # a config the sharded step does not run, on four ranks
-        moe = build_model(get_config("mixtral-8x7b").reduced(),
+        # a config the sharded step does not run, on four ranks: jamba's
+        # Mamba slots (its MoE slots alone would run)
+        rec = build_model(get_config("jamba-v0.1-52b").reduced(),
                           device="cpu")
-        mp = moe.init_params(torch.Generator().manual_seed(0))
-        mlp = shd.local_params(mp, shd.shard_params(moe.param_shapes(),
+        rp = rec.init_params(torch.Generator().manual_seed(0))
+        rlp = shd.local_params(rp, shd.shard_params(rec.param_shapes(),
                                                     mesh), mesh)
         try:
-            build_train_step(moe, OPT, mesh=mesh, device="cpu")(
-                mlp, adamw.init(mlp), batch(mesh, 0))
-            out["moe"] = None
+            build_train_step(rec, OPT, mesh=mesh, device="cpu")(
+                rlp, adamw.init(rlp), batch(mesh, 0))
+            out["recurrent"] = None
         except NotImplementedError as e:
-            out["moe"] = str(e)
+            out["recurrent"] = str(e)
 
 
 # ---- the loop: (2, 2) with a checkpoint a step, then resumes -------------
@@ -509,12 +510,13 @@ def _train_formula(case) -> dict:
     calls = dict(fsdp_gather=7 * L + 2, column=5 * L, row=2 * L,
                  sp_gather=sp_g,
                  head_gather=L * (2 * (KV % mp != 0) + (H % mp != 0)),
-                 embed=1, head=1, last_position=0)
+                 embed=1, head=1, last_position=0, moe=0)
     gathers = calls["fsdp_gather"] + sp_g + calls["head_gather"]
     fwd = dict(all_gather=gathers, reduce_scatter=R if sp else 0,
-               all_reduce=(0 if sp else R) + 3 + 1, broadcast=0)
+               all_reduce=(0 if sp else R) + 3 + 1, broadcast=0,
+               all_to_all=0)
     bwd = dict(all_gather=R if sp else 0, reduce_scatter=gathers,
-               all_reduce=(0 if sp else R) + 1 + 1)
+               all_reduce=(0 if sp else R) + 1 + 1, all_to_all=0)
     norms = 3 + 2 * cfg.qk_norm
     whole_ffn = 3 * (F % mp != 0)
     scale = {k: v * mb for k, v in calls.items()}
@@ -549,9 +551,11 @@ def test_the_cell_plan_s_train_fn_runs_the_sharded_step(ranks):
         assert r["plan"]["metrics"] == r["2x2_sp"]["metrics"][0]
 
 
-def test_a_moe_config_on_four_ranks_names_queue_a_10d(ranks):
+def test_a_recurrent_config_on_four_ranks_names_queue_a_10d(ranks):
     for r in ranks["ranks"]:
-        assert r["moe"] is not None and "Queue A 10d" in r["moe"]
+        got = r["recurrent"]
+        assert got is not None and "Queue A 10d" in got
+        assert "'mamba'" in got
 
 
 # ---------------------------------------------------------------------------
@@ -741,11 +745,13 @@ def test_the_collectives_transposes_on_a_group_of_one():
         pt.reset_counts()
         for fn in (lambda t: pt._all_gather(t, 1, group),
                    lambda t: pt._reduce_scatter(t, 1, group),
-                   lambda t: pt._all_reduce(t, group)):
+                   lambda t: pt._all_reduce(t, group),
+                   lambda t: pt._all_to_all(t, 2, 0, group)):
             g, = torch.autograd.grad(fn(x), x, grad_outputs=x.detach() * 3)
             assert torch.equal(g, x.detach() * 3)
         assert pt.backward_counts() == dict(
-            all_gather=1, reduce_scatter=1, all_reduce=1, leaf_sum=0,
-            norm_sum=0)
+            all_gather=1, reduce_scatter=1, all_reduce=1, all_to_all=1,
+            leaf_sum=0, norm_sum=0)
         assert pt.counts()["collectives"] == dict(
-            all_gather=1, reduce_scatter=1, all_reduce=1, broadcast=0)
+            all_gather=1, reduce_scatter=1, all_reduce=1, broadcast=0,
+            all_to_all=1)
