@@ -32,9 +32,9 @@ Then training: ``qwen3-1.7b`` trained at full width through the port's
 training entry points, its checkpoint, the float32 parity of a train step,
 and ``examples/train_lm_torch.py``'s command line. Then the mesh: the
 mesh-sharded sweep, context-parallel decode and the sharded prefill and
-train steps of qwen3-1.7b and of mixtral-8x7b (its experts split over the
-mesh) on a world of one NCCL rank and on four gloo ranks sharing the
-card.
+train steps of qwen3-1.7b, of mixtral-8x7b (its experts split over the
+mesh) and of jamba-v0.1-52b and xlstm-350m (the recurrent mixers) on a
+world of one NCCL rank and on four gloo ranks sharing the card.
 
 Phases, one JSON line each (and after each a ``phase_seconds`` line with
 its wall seconds): ``build`` (seconds, ptxas's registers and spills,
@@ -166,8 +166,15 @@ their d_ff on "model" — world 1 prefills 4 x 2048 at 4 layers (bf16) and 2
 without a mesh; world 4, with 4 dispatch groups and the G <-> E
 all-to-all, prefills at 2 layers and trains 2 steps a dtype at 1 layer,
 within tolerance of the steps without a mesh with the same groups, and
-one MoE layer's dropped and stolen fractions equal to theirs; every sharded
-step's collectives PERF.md's formula, its launches exact).
+one MoE layer's dropped and stolen fractions equal to theirs; then step
+``recurrent``: jamba-v0.1-52b and xlstm-350m at full width through
+``plan_cell``'s plans (SP off) — world 1 prefills jamba's period in bf16
+and its first two slots in float32, trains its first slot and prefills and
+trains xlstm at 2 layers, each bit-equal to the step without a mesh;
+world 4 prefills jamba's first two slots (bf16) and first slot (float32)
+and trains its first slot, and prefills and trains xlstm, in both dtypes,
+float32 within tolerance of the steps without a mesh; every sharded step's collectives PERF.md's formula, its launches
+exact).
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any
 failed phase raises: the exit code is then not 0 and no result line is
@@ -2744,6 +2751,13 @@ def lm_rms_cases(gen, dtype):
     # (B/2 x S/2) rows
     for rows in (PREFILL_B * PREFILL_S, TRAIN_B * TRAIN_S):
         shapes += ((rows, 4096), (rows // 4, 4096))
+    # phase mesh's step recurrent (SP off: a rank's B/2 x S rows):
+    # xlstm-350m's width 1024 on world 1's rows and a 2 x 2 rank's over
+    # MESH_REC_W4_XLSTM_S positions (jamba's 4096 on its rows is above)
+    shapes += tuple((rows, 1024) for rows in (
+        PREFILL_B * PREFILL_S, TRAIN_B * TRAIN_S,
+        PREFILL_B // 2 * MESH_REC_W4_XLSTM_S,
+        TRAIN_B // 2 * MESH_REC_W4_XLSTM_S))
     tol = LM_TOL[("rms_norm", dtype)]
     out = []
     for R, D in shapes:
@@ -2776,6 +2790,9 @@ def lm_attention_cases(gen, dtype):
     H / KV of 1, 2 and 4, at every head dim."""
     cases = ((PREFILL_B, PREFILL_S, PREFILL_S, 16, 8, 128, True, 0, 0),
              (PREFILL_B, PREFILL_S, PREFILL_S, 32, 8, 128, True, 4096, 0),
+             # jamba-v0.1-52b's prefill (32 / 8 heads, no window): phase
+             # lm_recurrent's and step recurrent's world 1
+             (PREFILL_B, PREFILL_S, PREFILL_S, 32, 8, 128, True, 0, 0),
              (2, 128, 128, 4, 2, 64, True, 0, 0),
              (1, 256, 256, 4, 4, 32, True, 64, 0),
              (2, 100, 100, 2, 1, 16, True, 0, 0),
@@ -3955,10 +3972,19 @@ def train_groups(rows) -> dict:
 
 
 def train_rms_per_step(cfg) -> int:
-    """RMSNorm launches of a train step's forward: norm1, norm2 and, with
-    q/k norms, q_norm and k_norm a layer, then the final norm (the backward
-    is the plain version's gradient: no launch)."""
-    return cfg.n_layers * (4 if cfg.qk_norm else 2) + 1
+    """RMSNorm launches of a train step's forward: norm1, norm2 (a layer
+    with an FFN) and, with q/k norms, q_norm and k_norm (an attention
+    layer), then the final norm (the backward is the plain version's
+    gradient: no launch)."""
+    return cfg.repeats * sum(
+        1 + (ffn != "none") + 2 * (cfg.qk_norm and mixer in ("attn", "xattn"))
+        for mixer, ffn in cfg.pattern) + 1
+
+
+def attention_layers(cfg) -> int:
+    """The layers of ``cfg`` with an attention mixer: one
+    ``flash_attention`` each a step's forward."""
+    return cfg.repeats * sum(m in ("attn", "xattn") for m, _f in cfg.pattern)
 
 
 def train_step_bound(model, B: int, S: int) -> dict:
@@ -4810,7 +4836,12 @@ def phase_lm_timing(main: dict) -> list:
                      lm_time_rms(gen, TRAIN_B * TRAIN_S // 4, 2048, 50),
                      # a rank's rows in step moe's (mixtral's width)
                      lm_time_rms(gen, PREFILL_B * PREFILL_S // 4, 4096, 50),
-                     lm_time_rms(gen, TRAIN_B * TRAIN_S // 4, 4096, 50)],
+                     lm_time_rms(gen, TRAIN_B * TRAIN_S // 4, 4096, 50),
+                     # step recurrent's: xlstm's width on world 1's prefill
+                     # rows and on a 2 x 2 rank's (B/2 x its sequence)
+                     lm_time_rms(gen, PREFILL_B * PREFILL_S, 1024, 50),
+                     lm_time_rms(gen, PREFILL_B // 2 * MESH_REC_W4_XLSTM_S,
+                                 1024, 50)],
         "flash_attention": [lm_time_attention(gen, PREFILL_B, PREFILL_S, 10),
                             lm_time_attention(gen, PREFILL_B, PREFILL_S, 10,
                                               H, KV),
@@ -5531,15 +5562,24 @@ def metric_distance(got: dict, want: dict,
     return out
 
 
+def timed_ms(fn, *args) -> tuple:
+    """(``fn(*args)``, its wall ms between two synchronizations)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
 def counted_mesh_step(fn, args, cfg, dtype, formula, what: str) -> tuple:
     """One sharded step ``fn(*args)`` with every count at 0 just before
     and read just after: one ``rms_norm`` a norm (``row_in_registers``:
-    :func:`train_rms_per_step`) and one ``flash_attention`` a layer (the
-    dtype's variant) in the forward, none in a backward (the plain
-    versions' gradients), and the collectives of ``formula`` (with its
-    ``backward`` where it has one). Returns (its output, its line)."""
+    :func:`train_rms_per_step`) and one ``flash_attention`` an attention
+    layer (the dtype's variant) in the forward, none in a backward (the
+    plain versions' gradients), and the collectives of ``formula`` (with
+    its ``backward`` where it has one). Returns (its output, its line)."""
     from repro_torch.launch import partition as mpt
-    rms = train_rms_per_step(cfg)
+    rms, attn = train_rms_per_step(cfg), attention_layers(cfg)
     reset_all_counts()
     mpt.reset_counts()
     torch.cuda.synchronize()
@@ -5552,8 +5592,8 @@ def counted_mesh_step(fn, args, cfg, dtype, formula, what: str) -> tuple:
     peak = torch.cuda.max_memory_allocated()
     counts, by_variant = lm_counts_since_reset(
         {"rms_norm": {"row_in_registers": rms},
-         "flash_attention": {ATTN_VARIANT[dtype]: cfg.n_layers}},
-        rms_norm=rms, flash_attention=cfg.n_layers)
+         "flash_attention": {ATTN_VARIANT[dtype]: attn}},
+        rms_norm=rms, flash_attention=attn)
     got = dict(mpt.counts(), **({"backward": mpt.backward_counts()}
                                 if "backward" in formula else {}))
     if got != formula:
@@ -5619,8 +5659,9 @@ def in_turns(mesh, turn: int, fn) -> tuple:
     return out, time.perf_counter() - t0
 
 
-def train_batch(cfg, step: int, batch: int = TRAIN_B) -> dict:
-    return batch_at(cfg, ShapeSpec("train", TRAIN_S, batch, "train"), step,
+def train_batch(cfg, step: int, batch: int = TRAIN_B,
+                seq: int = TRAIN_S) -> dict:
+    return batch_at(cfg, ShapeSpec("train", seq, batch, "train"), step,
                     DataConfig(seed=TRAIN_SEED + 99))
 
 
@@ -5785,21 +5826,23 @@ def mesh_train_depth_refs(mesh, work: Path, act) -> dict:
 
 def unsharded_refs(model, params, cfg, mesh, sh, state_sh, whole: bool,
                    steps: int = MESH_TRAIN_W4_STEPS,
-                   each: bool = True) -> tuple:
+                   each: bool = True, batch_fn=None) -> tuple:
     """``steps`` float32 steps of ``model`` without a mesh on the whole
     weights (``params`` cast): (for each step its metrics, each whole
     leaf's max|.| and, after every step with ``each`` or else after the
     last only, this rank's slices of the state, on the host; with
     ``whole``, the last state whole on the host and its metrics, else
-    None). Nothing of it stays on the card."""
+    None). Nothing of it stays on the card. ``batch_fn(step)``: the
+    batches (:func:`train_batch`'s by default)."""
     from repro_torch.launch import sharding as shd
     plain = build_train_step(model, MESH_TRAIN_OPT)
+    batch_fn = batch_fn or (lambda k: train_batch(cfg, k))
     p = tree_to(params, torch.float32)
     ref = {"params": p, "opt": adamw.init(p)}
     del p
     refs = []
     for k in range(steps):
-        pp, po, met = plain(ref["params"], ref["opt"], train_batch(cfg, k))
+        pp, po, met = plain(ref["params"], ref["opt"], batch_fn(k))
         ref = {"params": pp, "opt": po}
         del pp, po
         refs.append(dict(
@@ -6097,14 +6140,6 @@ def mesh_moe_world1(mesh, work: Path) -> dict:
     from repro_torch.launch import sharding as shd
     t0 = time.perf_counter()
     line = dict(arch=MOE_ARCH)
-
-    def timed(fn, *args):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn(*args)
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t) * 1e3
-
     # ---- (a) the prefill at MESH_MOE_REPEATS layers, bf16 -------------------
     plan = moe_plan(mesh, "prefill", MESH_MOE_REPEATS)
     cfg = plan.cfg
@@ -6112,8 +6147,8 @@ def mesh_moe_world1(mesh, work: Path) -> dict:
     params, _ = init_weights(model, MESH_MOE_SEED)
     tokens = moe_tokens(cfg)
     plain = build_prefill_step(model)
-    timed(plain, params, {"tokens": tokens})                    # warm
-    want, plain_ms = timed(plain, params, {"tokens": tokens})
+    timed_ms(plain, params, {"tokens": tokens})                 # warm
+    want, plain_ms = timed_ms(plain, params, {"tokens": tokens})
     lp = shd.local_params(params, shd.shard_params(model.param_shapes(),
                                                    mesh), mesh)
     del params
@@ -6125,7 +6160,7 @@ def mesh_moe_world1(mesh, work: Path) -> dict:
         raise AssertionError(f"mesh moe world 1: the sharded bf16 logits "
                              f"are not the unsharded step's: "
                              f"{float((got - want).abs().max())} apart")
-    _again, run["ms"] = timed(plan.fn, lp, batch)
+    _again, run["ms"] = timed_ms(plan.fn, lp, batch)
     line["prefill"] = dict(layers=cfg.n_layers, batch=PREFILL_B,
                            seq=PREFILL_S, groups=cfg.moe_groups,
                            unsharded_ms=plain_ms, equal_to_unsharded=True,
@@ -6145,7 +6180,7 @@ def mesh_moe_world1(mesh, work: Path) -> dict:
         refs[name] = build_prefill_step(four)(p, {"tokens": tokens})
         if dtype == torch.float32:
             model32 = build_lm_model(cfg_d)
-            want, plain_ms = timed(build_prefill_step(model32), p,
+            want, plain_ms = timed_ms(build_prefill_step(model32), p,
                                    {"tokens": tokens})
             lp = shd.local_params(p, shd.shard_params(
                 model32.param_shapes(), mesh), mesh)
@@ -6206,7 +6241,7 @@ def mesh_moe_world1(mesh, work: Path) -> dict:
     steps = []
     for k in range(MESH_MOE_STEPS):
         b = train_batch(cfg, k)
-        (p, o, want), plain_ms = timed(plain, st["params"], st["opt"], b)
+        (p, o, want), plain_ms = timed_ms(plain, st["params"], st["opt"], b)
         want_fp = fingerprint({"params": p, "opt": o})
         del p, o
         torch.cuda.empty_cache()
@@ -6423,6 +6458,540 @@ def mesh_moe_world4(mesh, work: Path) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# Phase mesh, step recurrent: jamba-v0.1-52b's Mamba (beside its attention
+# and MoE slots) and xlstm-350m's mLSTM and sLSTM in the sharded prefill and
+# train steps, through plan_cell's plans (SP off: the stacks are not
+# attention-only)
+# ---------------------------------------------------------------------------
+
+MESH_REC_SEED = REC_SEED + 29
+#: jamba's slots: world 1's bf16 prefill runs one period (0: all 8, as
+#: lm_recurrent serves it); world 1's float32 prefill and world 4's the
+#: first two, ("mamba", "dense") and ("mamba", "moe"); the train steps the
+#: first alone (0.81 B parameters: the ("mamba", "moe") slot is 2.9 B,
+#: ≈ 81 GB at ≈ 28 bytes a parameter for a step from a state)
+MESH_REC_JAMBA_PREFILL_SLOTS, MESH_REC_JAMBA_TRAIN_SLOTS = 2, 1
+#: xlstm-350m cut to one repeat of its pattern: one mLSTM and one sLSTM
+MESH_REC_XLSTM_REPEATS = 1
+#: world 1's bit-equal train steps of each config; world 4's steps a dtype
+MESH_REC_STEPS = {JAMBA_ARCH: 1, XLSTM_ARCH: 2}
+MESH_REC_W4_STEPS = 1
+#: world 4's xlstm sequence (prefill and train). Not cut: at 512 one
+#: element of sLSTM's normalizer n (of 2 x 4 x 256 x 512) lay within
+#: 1.2e-6 of the kink of max(|n|, 1), the unsharded and sharded float32
+#: steps (n 1e-5 apart) took its two sides, and the gradient's leaves left
+#: the tolerance (3.33x on m of w_in; PERF.md §6)
+MESH_REC_W4_XLSTM_S = TRAIN_S
+#: world 4's prefill depth (jamba's slots, 0: xlstm's one repeat) by
+#: (arch, dtype): jamba's float32 prefill at its first slot alone (at two
+#: slots it took 5.1 s of a 60.3 s step, whose limit is 60 s; H100 80GB
+#: HBM3, 700.00 W): its MoE slot runs in bf16
+MESH_REC_W4_PREFILL_SLOTS = {
+    (JAMBA_ARCH, "bfloat16"): MESH_REC_JAMBA_PREFILL_SLOTS,
+    (JAMBA_ARCH, "float32"): 1,
+    (XLSTM_ARCH, "bfloat16"): 0, (XLSTM_ARCH, "float32"): 0}
+#: the dispatch groups of world 4's jamba (plan_cell's |dp|·|model|)
+MESH_REC_W4_GROUPS = 4
+#: world 4's ranks run the float32 train step without a mesh this many at
+#: a time (jamba's first slot ≈ 25 GB each, xlstm's two layers ≈ 3 GB)
+MESH_REC_TURN = {JAMBA_ARCH: 2, XLSTM_ARCH: 4}
+#: the leaves a rank holds whole: the norms and the mixers' whole leaves
+MESH_REC_WHOLE = {
+    JAMBA_ARCH: {"final_norm", "norm1", "norm2", "dt_bias", "A_log", "D"},
+    XLSTM_ARCH: {"final_norm", "norm1", "out_norm", "r_rec", "bias"}}
+#: the metrics a recurrent train step is held to (jamba's first slot and
+#: xlstm have no MoE: moe_aux is 0)
+REC_METRICS = ("loss", "xent", "grad_norm")
+
+
+def recurrent_collectives(cfg, shape: tuple, B: int, S: int,
+                          train: bool, sp: bool = False) -> dict:
+    """PERF.md §6's count of a sharded prefill (``train`` False) or train
+    step of a stack of ``attn``, ``mamba``, ``mlstm`` and ``slstm`` mixers
+    with ``dense``, ``moe`` or no FFNs on a (|data|, |model|) mesh, B x S
+    tokens, SP as ``plan_cell`` sets it for a stack that is not
+    attention-only (off), every split dim dividing its axis. A layer:
+
+    * with SP, a sequence gather before the mixer and before a dense or
+      MoE FFN (unless the MoE is ``direct``);
+    * Mamba: 2 FSDP gathers (in_proj, out_proj), 1 column product and the
+      x/z exchange (a head gather), 3 row products (bc_proj and dt_proj
+      all-reduced whole, out_proj reduced over "model"), a head gather of
+      the conv's output where the channels cut a head; 6 leaf sums a slot
+      (conv_w, bc_proj, dt_proj, dt_bias, A_log, D);
+    * mLSTM: 6 FSDP gathers, 5 column products (up_proj, wq, wk, wv, w_if)
+      and the x/z exchange, 3 head gathers (q, k, v) where its columns cut
+      a head, 1 row product (down_proj); 2 leaf sums (w_if, out_norm);
+    * sLSTM: 2 FSDP gathers, 2 column products (w_in, out_proj), a head
+      gather of the pre-activations where the split cuts a head or else of
+      the heads' h where |model| > 1, 1 of out_proj's output; 2 leaf sums
+      (r_rec, bias);
+    * attention, dense and MoE FFNs as :func:`moe_collectives`;
+    * a leaf sum for each norm of a slot.
+
+    A step: the embedding's and head's FSDP gathers and the embedding's sum
+    over "model"; the prefill's last-position broadcast (SP); the train
+    step's sequence gather before the head, the loss's 3 + 1 all-reduces,
+    the transposes (the loss's backward 2 all-reduces), AdamW's norm
+    sum."""
+    dsz, msz = shape
+    D, R = cfg.d_model, cfg.repeats
+    E = 2 * D
+    sp = sp and S % msz == 0
+    calls = dict.fromkeys(("fsdp_gather", "column", "row", "sp_gather",
+                           "head_gather", "embed", "head", "last_position",
+                           "moe"), 0)
+    n = dict(ag=0, rs=0, ar=0, a2a=0)
+    leaf = 1                                      # final_norm
+
+    def add(key, k=1):                            # k a layer, R layers
+        if key in calls:
+            calls[key] += R * k
+        else:
+            n[key] += R * k
+    reduce_model = "rs" if sp else "ar"           # a row product's sum
+    G = cfg.moe_groups if (B * S) % cfg.moe_groups == 0 else 1
+    shared = (G // dsz) % msz != 0
+    direct = sp and B // dsz == 1 and not shared
+    for mixer, ffn in cfg.pattern:
+        add("sp_gather", sp)
+        leaf += 1                                 # norm1
+        if mixer == "mamba":
+            add("fsdp_gather", 2)
+            add("column")
+            add("row", 3)
+            add("head_gather", 1 + ((E // msz) % cfg.ssm_head_p != 0))
+            add("ar", 2)
+            add(reduce_model)
+            leaf += 6
+        elif mixer == "mlstm":
+            add("fsdp_gather", 6)
+            add("column", 5)
+            add("row")
+            add("head_gather", 1 + 3 * ((E // (D // cfg.n_heads)) % msz
+                                        != 0))
+            add(reduce_model)
+            leaf += 2
+        elif mixer == "slstm":
+            add("fsdp_gather", 2)
+            add("column", 2)
+            add("head_gather", int(msz > 1) + 1)
+            leaf += 2
+        else:
+            add("fsdp_gather", 4)
+            add("column", 3)
+            add("row")
+            add("head_gather", 2 * (cfg.n_kv_heads % msz != 0)
+                + (cfg.n_heads % msz != 0))
+            add(reduce_model)
+            leaf += 2 * cfg.qk_norm
+        if ffn == "dense":
+            add("sp_gather", sp)
+            add("fsdp_gather", 3 if cfg.act == "swiglu" else 2)
+            add("column", 2 if cfg.act == "swiglu" else 1)
+            add("row")
+            add(reduce_model)
+            leaf += 1                             # norm2
+        elif ffn == "moe":
+            ep = cfg.n_experts % dsz == 0
+            ff = cfg.expert_d_ff % msz == 0
+            add("moe")
+            add("fsdp_gather")                    # the router
+            add("sp_gather", sp and not direct)
+            add("ag", (ff and not shared) + (not direct and not shared))
+            add("rs", ff and not shared)
+            add("ar", (ff and shared) + 1)        # + aux
+            add("a2a", 2 * ep)
+            leaf += 2 + 3 * (not (ep and ff))     # norm2, the router
+    calls["fsdp_gather"] += 2
+    calls["embed"] = calls["head"] = 1
+    n[reduce_model] += 1                          # the embedding's sum
+    calls["last_position"] = int(not train)
+    calls["sp_gather"] += sp and train
+    gathers = calls["fsdp_gather"] + calls["sp_gather"] \
+        + calls["head_gather"] + n["ag"]
+    fwd = dict(all_gather=gathers, reduce_scatter=n["rs"],
+               all_reduce=n["ar"] + 4 * train,
+               broadcast=int(sp and not train), all_to_all=n["a2a"])
+    out = {"calls": calls, "collectives": fwd}
+    if train:
+        out["backward"] = dict(all_gather=n["rs"], reduce_scatter=gathers,
+                               all_reduce=n["ar"] + 2, all_to_all=n["a2a"],
+                               leaf_sum=leaf, norm_sum=1)
+    return out
+
+
+def rec_plan(mesh, arch: str, kind: str, slots: int = 0):
+    """``plan_cell``'s plan of ``arch`` on ``mesh`` (its prefill_32k or
+    train_4k plan, on the card): jamba at one repeat, its pattern cut to
+    the first ``slots`` slots (0: the whole period), xlstm at
+    MESH_REC_XLSTM_REPEATS. Raises unless the plan's layout is SP off."""
+    from repro_torch.launch.steps import plan_cell
+    cfg = get_lm_config(arch)
+    over = (dict(repeats=MESH_REC_XLSTM_REPEATS) if arch == XLSTM_ARCH
+            else dict(repeats=1, pattern=cfg.pattern[:slots or None]))
+    plan = plan_cell(arch, "prefill_32k" if kind == "prefill" else
+                     "train_4k", mesh, opt_cfg=MESH_TRAIN_OPT,
+                     cfg_overrides=over, device=DEV)
+    if plan.act_spec.sequence_parallel:
+        raise AssertionError(f"{arch}: plan_cell turned SP on")
+    return plan
+
+
+#: the scale of the leaves the model initializes to 0, drawn from the seed
+REC_ZERO_SCALE = 0.02
+
+
+def rec_weights(model) -> dict:
+    """Random weights of ``model`` from MESH_REC_SEED on the card, every
+    leaf the model initializes to 0 (Mamba's dt_bias, sLSTM's bias) drawn
+    from the seed too, N(0, REC_ZERO_SCALE²): a leaf at 0 is at most lr
+    after a step (3e-6 at the first), and world 4's 1e-4·max|leaf| would
+    then fall below the float32 rounding of AdamW's update where an
+    element's gradient is near AdamW's eps (1e-8)."""
+    params, _ = init_weights(model, MESH_REC_SEED)
+    gen = torch.Generator(device=DEV).manual_seed(MESH_REC_SEED + 1)
+    for leaf in tr.leaves(params):
+        if not bool(leaf.any()):
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device=DEV)
+                       * REC_ZERO_SCALE)
+    return params
+
+
+def rec_tokens(cfg, B: int, S: int) -> torch.Tensor:
+    return torch.as_tensor(np.random.default_rng(MESH_REC_SEED).integers(
+        0, cfg.vocab_size, (B, S)), dtype=torch.int64, device=DEV)
+
+
+def rec_prefill_world1(mesh, arch: str, slots: int, tokens, dtype,
+                       what: str) -> dict:
+    """World 1's sharded prefill of ``arch`` (:func:`rec_plan`) on
+    ``tokens`` in ``dtype`` (the seed's bf16 weights, cast), its logits
+    equal to the unsharded step's bit for bit, ms of both and a second
+    sharded run; counted (:func:`counted_mesh_step`)."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import sharding as shd
+    plan = rec_plan(mesh, arch, "prefill", slots)
+    name = str(dtype).split(".")[1]
+    cfg = dataclasses.replace(plan.cfg, param_dtype=name)
+    model = build_lm_model(cfg)
+    params = moe_weights_in(rec_weights(build_lm_model(plan.cfg)), dtype)
+    plain = build_prefill_step(model)
+    timed_ms(plain, params, {"tokens": tokens})                 # warm
+    want, plain_ms = timed_ms(plain, params, {"tokens": tokens})
+    lp = shd.local_params(params, shd.shard_params(model.param_shapes(),
+                                                   mesh), mesh)
+    del params
+    fn = plan.fn if dtype == torch.bfloat16 else build_prefill_step(
+        model, act_spec=plan.act_spec)
+    batch = shard_batch({"tokens": tokens}, mesh)
+    formula = recurrent_collectives(cfg, (1, 1), *tokens.shape, False)
+    got, run = counted_mesh_step(fn, (lp, batch), cfg, dtype, formula, what)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: the sharded logits are not the "
+                             f"unsharded step's: "
+                             f"{float((got - want).abs().max())} apart")
+    _again, run["ms"] = timed_ms(fn, lp, batch)
+    del lp, want, got, _again
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, batch=tokens.shape[0],
+                seq=tokens.shape[1], groups=cfg.moe_groups,
+                unsharded_ms=plain_ms, equal_to_unsharded=True,
+                collectives=formula, **run)
+
+
+def rec_train_world1(mesh, arch: str, slots: int, what: str) -> tuple:
+    """World 1's MESH_REC_STEPS[arch] bf16 train steps of ``arch`` (its
+    :func:`rec_plan` train plan) from the seed's weights, each from the
+    same state as the step without a mesh and equal to it bit for bit
+    (metrics; every leaf by :func:`fingerprint`), ms of both; counted.
+    Returns (its line, the unsharded steps' metrics, world 4's bf16
+    reference)."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import sharding as shd
+    plan = rec_plan(mesh, arch, "train", slots)
+    cfg = plan.cfg
+    model = build_lm_model(cfg)
+    params = rec_weights(model)
+    plain = build_train_step(model, MESH_TRAIN_OPT)
+    local = shd.local_params(params, shd.shard_params(model.param_shapes(),
+                                                      mesh), mesh)
+    del params
+    formula = recurrent_collectives(cfg, (1, 1), TRAIN_B, TRAIN_S, True)
+    st = {"params": local, "opt": adamw.init(local)}
+    del local
+    steps, refs = [], []
+    for k in range(MESH_REC_STEPS[arch]):
+        b = train_batch(cfg, k)
+        (p, o, want), plain_ms = timed_ms(plain, st["params"], st["opt"], b)
+        refs.append({m: float(v) for m, v in want.items()})
+        want_fp = fingerprint({"params": p, "opt": o})
+        del p, o
+        torch.cuda.empty_cache()
+        st, met, run = counted_train_step(plan.fn, st, shard_batch(b, mesh),
+                                          cfg, torch.bfloat16, formula,
+                                          f"{what} step {k}")
+        if not (fingerprint(st) == want_fp and all(
+                torch.equal(met[m], want[m]) for m in want)):
+            raise AssertionError(f"{what} step {k}: not bit-equal to the "
+                                 f"step without a mesh: "
+                                 f"{metric_distance(met, want, REC_METRICS)}")
+        steps.append(dict(step=k, plain_ms=plain_ms, bit_equal=True, **run))
+        torch.cuda.empty_cache()
+    del st
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, batch=TRAIN_B, seq=TRAIN_S,
+                steps=steps, collectives=formula), refs
+
+
+def mesh_recurrent_world1(mesh, work: Path) -> dict:
+    """World 1 (NCCL, 1 x 1) through ``plan_cell``'s plans, SP off, every
+    case bit-equal to the step without a mesh and counted
+    (:func:`counted_mesh_step`): jamba-v0.1-52b at full width, the bf16
+    prefill of PREFILL_B x PREFILL_S at one period (8 layers) and the
+    float32 one at its first MESH_REC_JAMBA_PREFILL_SLOTS slots, then a
+    bf16 train step of TRAIN_B x TRAIN_S at its first slot; xlstm-350m at
+    full width and MESH_REC_XLSTM_REPEATS repeat (one mLSTM, one sLSTM),
+    its bf16 prefill and two train steps (MESH_REC_STEPS). Writes world 4's
+    references: the unsharded prefill logits at world 4's depth
+    (MESH_REC_W4_PREFILL_SLOTS), sequence and groups in each dtype, and the
+    unsharded bf16 train steps' metrics."""
+    t0 = time.perf_counter()
+    line = {}
+    jamba = get_lm_config(JAMBA_ARCH)
+    tokens = rec_tokens(jamba, PREFILL_B, PREFILL_S)
+    line["jamba_prefill"] = rec_prefill_world1(
+        mesh, JAMBA_ARCH, 0, tokens, torch.bfloat16,
+        "mesh recurrent world 1 jamba prefill bf16")
+    line["jamba_prefill_float32"] = rec_prefill_world1(
+        mesh, JAMBA_ARCH, MESH_REC_JAMBA_PREFILL_SLOTS, tokens,
+        torch.float32, "mesh recurrent world 1 jamba prefill float32")
+    line["jamba_train"], jamba_refs = rec_train_world1(
+        mesh, JAMBA_ARCH, MESH_REC_JAMBA_TRAIN_SLOTS,
+        "mesh recurrent world 1 jamba train")
+    xl = get_lm_config(XLSTM_ARCH)
+    line["xlstm_prefill"] = rec_prefill_world1(
+        mesh, XLSTM_ARCH, 0, rec_tokens(xl, PREFILL_B, PREFILL_S),
+        torch.bfloat16, "mesh recurrent world 1 xlstm prefill bf16")
+    line["xlstm_train"], xlstm_refs = rec_train_world1(
+        mesh, XLSTM_ARCH, 0, "mesh recurrent world 1 xlstm train")
+    # world 4's references without a mesh, in both dtypes
+    t1 = time.perf_counter()
+    refs = {}
+    for (arch, name), slots in MESH_REC_W4_PREFILL_SLOTS.items():
+        cfg = dataclasses.replace(rec_plan(mesh, arch, "prefill",
+                                           slots).cfg,
+                                  moe_groups=MESH_REC_W4_GROUPS)
+        S = PREFILL_S if arch == JAMBA_ARCH else MESH_REC_W4_XLSTM_S
+        params = rec_weights(build_lm_model(cfg))
+        model = build_lm_model(dataclasses.replace(cfg, param_dtype=name))
+        refs[f"{arch}_{name}"] = build_prefill_step(model)(
+            moe_weights_in(params, getattr(torch, name)),
+            {"tokens": rec_tokens(cfg, PREFILL_B, S)}).cpu().numpy()
+        del params
+        torch.cuda.empty_cache()
+    np.savez(work / "recurrent_prefill_refs.npz", **refs)
+    train_refs = {JAMBA_ARCH: jamba_refs[:MESH_REC_W4_STEPS],
+                  XLSTM_ARCH: xlstm_refs[:MESH_REC_W4_STEPS]}
+    if MESH_REC_W4_XLSTM_S != TRAIN_S:
+        # world 4's sequence: the unsharded bf16 steps at its length
+        cfg = rec_plan(mesh, XLSTM_ARCH, "train").cfg
+        model = build_lm_model(cfg)
+        st = rec_weights(model)
+        st = (st, adamw.init(st))
+        step, train_refs[XLSTM_ARCH] = build_train_step(
+            model, MESH_TRAIN_OPT), []
+        for k in range(MESH_REC_W4_STEPS):
+            *st, met = step(*st, train_batch(cfg, k,
+                                             seq=MESH_REC_W4_XLSTM_S))
+            train_refs[XLSTM_ARCH].append({m: float(v)
+                                           for m, v in met.items()})
+        del st
+    (work / "recurrent_train_refs.json").write_text(json.dumps(train_refs))
+    line["refs_seconds"] = time.perf_counter() - t1
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
+def rec_world4(mesh, work: Path, arch: str, train_slots: int,
+               S: int) -> dict:
+    """World 4's cases of ``arch``: the prefill of PREFILL_B x S in bf16,
+    then float32 (each at its MESH_REC_W4_PREFILL_SLOTS depth, the seed's
+    bf16 weights cast), the float32 logit shard within 1e-3·max|logit| +
+    1e-3 of world 1's unsharded step at the same depth and groups, the
+    bf16 distance and equal argmax recorded; then
+    MESH_REC_W4_STEPS train steps of TRAIN_B x S a dtype: bf16 recorded
+    against world 1's unsharded steps, float32 (each rank in turn runs the
+    unsharded steps on the whole weights and keeps its slices) with the
+    metrics within MESH_TRAIN_TOL and every weight and moment shard within
+    MESH_TRAIN_TOL x max|leaf|. Each rank holds its shard bytes, only
+    MESH_REC_WHOLE whole; each step counted."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import mesh as ml
+    from repro_torch.launch import sharding as shd
+    shape = (ml.axis_size(mesh, "data"), ml.axis_size(mesh, "model"))
+    coord = ml.coordinate(mesh)
+    out = {}
+    t0 = time.perf_counter()
+    parts = out["seconds_by_part"] = {}
+
+    def mark(part):
+        nonlocal t0
+        parts[part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    # ---- the prefill: each dtype at its MESH_REC_W4_PREFILL_SLOTS depth ---
+    refs = np.load(work / "recurrent_prefill_refs.npz")
+    rows = PREFILL_B // shape[0]
+    lo_b = coord["data"] * rows
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        plan = rec_plan(mesh, arch, "prefill",
+                        MESH_REC_W4_PREFILL_SLOTS[arch, name])
+        cfg = plan.cfg
+        if arch == JAMBA_ARCH and cfg.moe_groups != MESH_REC_W4_GROUPS:
+            raise AssertionError(f"plan_cell set {cfg.moe_groups} groups")
+        model = build_lm_model(cfg)
+        params = rec_weights(model)
+        sh = shd.shard_params(model.param_shapes(), mesh)
+        lp = shd.local_params(params, sh, mesh)
+        whole = whole_leaves(lp, params)
+        local_bytes = tree_bytes(lp)
+        if local_bytes != shd.shard_bytes(model.param_shapes(), sh) or \
+                whole != MESH_REC_WHOLE[arch]:
+            raise AssertionError(f"mesh recurrent world 4 {arch}: "
+                                 f"{local_bytes} bytes, whole leaves "
+                                 f"{whole}")
+        weights = dict(local_bytes=local_bytes, share=(
+            local_bytes / tree_bytes(params)), whole_leaves=sorted(whole))
+        del params
+        torch.cuda.empty_cache()
+        batch = shard_batch({"tokens": rec_tokens(cfg, PREFILL_B, S)}, mesh)
+        vocab = cfg.padded_vocab // shape[1]
+        lo_v = coord["model"] * vocab
+        formula = recurrent_collectives(cfg, shape, PREFILL_B, S, False)
+        cfg_d = dataclasses.replace(cfg, param_dtype=name)
+        fn = plan.fn if dtype == torch.bfloat16 else build_prefill_step(
+            build_lm_model(cfg_d), act_spec=plan.act_spec)
+        p = moe_weights_in(lp, dtype)
+        del lp
+        got, run = counted_mesh_step(fn, (p, batch), cfg_d, dtype, formula,
+                                     f"mesh recurrent world 4 {arch} "
+                                     f"prefill {name}")
+        del p
+        ref = torch.from_numpy(refs[f"{arch}_{name}"][
+            lo_b:lo_b + rows, :, lo_v:lo_v + vocab]).to(DEV)
+        err = float((got - ref).abs().max())
+        run.update(layers=cfg.n_layers, batch=PREFILL_B, seq=S,
+                   groups=cfg.moe_groups, collectives=formula,
+                   weights=weights, vs_unsharded_max_abs=err,
+                   argmax_equal=int((got.argmax(-1) == ref.argmax(-1)).sum()),
+                   rows=rows)
+        if dtype == torch.float32:
+            tol = 1e-3 * float(ref.abs().max()) + 1e-3
+            if not err <= tol:
+                raise AssertionError(f"mesh recurrent world 4 {arch} "
+                                     f"float32 prefill: {err} from the "
+                                     f"unsharded, limit {tol}")
+            run.update(tol=tol, share_of_tol=err / tol)
+        out[f"prefill_{name}"] = run
+        del got, ref
+        torch.cuda.empty_cache()
+    mark("prefill")
+    # ---- the train steps ---------------------------------------------------
+    plan = rec_plan(mesh, arch, "train", train_slots)
+    cfg = plan.cfg
+    formula = recurrent_collectives(cfg, shape, TRAIN_B, S, True)
+    w1 = json.loads((work / "recurrent_train_refs.json").read_text())[arch]
+
+    def batch_fn(s):
+        return shard_batch(train_batch(cfg, s, seq=S), mesh)
+
+    def local_state(dtype) -> tuple:
+        model_ = build_lm_model(dataclasses.replace(
+            cfg, param_dtype=str(dtype).split(".")[1]))
+        whole_p = moe_weights_in(rec_weights(build_lm_model(cfg)), dtype)
+        sh_, state_sh_ = train_state_sh(model_, mesh)
+        local = shd.local_params(whole_p, sh_, mesh)
+        whole_ = whole_leaves(local, whole_p)
+        if whole_ != MESH_REC_WHOLE[arch]:
+            raise AssertionError(f"mesh recurrent world 4 {arch} train: "
+                                 f"whole {whole_}")
+        del whole_p
+        torch.cuda.empty_cache()
+        return (model_, sh_, state_sh_,
+                {"params": local, "opt": adamw.init(local)})
+
+    model_, sh_, state_sh_, st = local_state(torch.bfloat16)
+    runs = []
+    for k in range(MESH_REC_W4_STEPS):
+        st, met, run = counted_train_step(
+            plan.fn, st, batch_fn(k), cfg, torch.bfloat16, formula,
+            f"mesh recurrent world 4 {arch} step {k}")
+        runs.append(dict(run, vs_unsharded=metric_distance(
+            met, w1[k], REC_METRICS)))
+    out["train_bfloat16"] = dict(steps=runs, bytes=state_bytes(
+        st, model_, sh_, state_sh_, f"mesh recurrent world 4 {arch} bf16"))
+    del st
+    torch.cuda.empty_cache()
+    mark("train_bfloat16")
+    ref_model = build_lm_model(dataclasses.replace(cfg,
+                                                   param_dtype="float32"))
+    ref_sh, ref_state_sh = train_state_sh(ref_model, mesh)
+    refs, out["turns_seconds"] = in_turns(
+        mesh, MESH_REC_TURN[arch], lambda: unsharded_refs(
+            ref_model, rec_weights(build_lm_model(cfg)),
+            cfg, mesh, ref_sh, ref_state_sh, False, MESH_REC_W4_STEPS,
+            each=False, batch_fn=lambda k: train_batch(cfg, k, seq=S))[0])
+    mark("turns")
+    model32, sh_, state_sh_, st = local_state(torch.float32)
+    fn32 = build_train_step(model32, MESH_TRAIN_OPT, act_spec=plan.act_spec)
+    runs = []
+    for k in range(MESH_REC_W4_STEPS):
+        st, met, run = counted_train_step(
+            fn32, st, batch_fn(k), cfg, torch.float32, formula,
+            f"mesh recurrent world 4 {arch} step {k}")
+        m = metric_distance(met, refs[k]["metrics"], REC_METRICS)
+        if not (m["lr_equal"] and max(m[n] for n in REC_METRICS) <= 1.0):
+            raise AssertionError(f"mesh recurrent world 4 {arch} float32 "
+                                 f"step {k}: {m}")
+        runs.append(dict(run, vs_unsharded=m))
+    d = leaf_distance(st, refs[-1]["state"], scale=refs[-1]["scale"])
+    if not d["share_of_tol"] <= 1.0:
+        raise AssertionError(f"mesh recurrent world 4 {arch} float32: {d}")
+    out["train_float32"] = dict(steps=runs, leaves=d, bytes=state_bytes(
+        st, model32, sh_, state_sh_, f"mesh recurrent world 4 {arch} f32"))
+    out["train"] = dict(layers=cfg.n_layers, batch=TRAIN_B, seq=S,
+                        collectives=formula)
+    del st, refs
+    torch.cuda.empty_cache()
+    mark("train_float32")
+    return out
+
+
+def mesh_recurrent_world4(mesh, work: Path) -> dict:
+    """World 4 (gloo, 2 x 2, four processes on the card) through
+    ``plan_cell``'s plans, SP off (:func:`rec_world4`): jamba-v0.1-52b at
+    full width, its first MESH_REC_JAMBA_PREFILL_SLOTS slots prefilled in
+    bf16 (4 dispatch groups, its 16 experts split on "data", d_ff on
+    "model") and its first slot in float32, its first slot trained;
+    xlstm-350m at full width and
+    MESH_REC_XLSTM_REPEATS repeat over MESH_REC_W4_XLSTM_S positions.
+    Not through ``run_training``: the loop's sharded save is held on step
+    ``train``'s state here, and on a recurrent state on the CPU
+    (tests/test_torch_sharded_recurrent.py)."""
+    t0 = time.perf_counter()
+    line = {}
+    for arch, train_slots, S in (
+            (JAMBA_ARCH, MESH_REC_JAMBA_TRAIN_SLOTS, PREFILL_S),
+            (XLSTM_ARCH, 0, MESH_REC_W4_XLSTM_S)):
+        t1 = time.perf_counter()
+        line[arch] = rec_world4(mesh, work, arch, train_slots, S)
+        line[arch]["seconds"] = time.perf_counter() - t1
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
 def run_mesh_rank(rank: int, world: int, init: str, work: str,
                   gate: str = "") -> None:
     """One rank of phase mesh (``python3 chip_smoke.py --mesh-rank RANK
@@ -6462,6 +7031,11 @@ def run_mesh_rank(rank: int, world: int, init: str, work: str,
     # step moe: mixtral-8x7b's sharded prefill and train step
     line["moe"] = (mesh_moe_world1 if world == 1 else mesh_moe_world4)(
         mesh, work)
+    # step recurrent: jamba's Mamba, xlstm's mLSTM and sLSTM sharded
+    t_rec = time.perf_counter()
+    line["recurrent"] = (mesh_recurrent_world1 if world == 1
+                         else mesh_recurrent_world4)(mesh, work)
+    line["recurrent"]["seconds"] = time.perf_counter() - t_rec
     ml.barrier(mesh)
     torch.distributed.destroy_process_group()
     if world > 1 and rank == 0:
@@ -6582,9 +7156,12 @@ def phase_mesh(work: Path) -> dict:
     its weights split by the placement rules (:func:`mesh_prefill`), and
     trains it with its weights, gradients and AdamW moments split
     (:func:`mesh_train_world1`, :func:`mesh_train_world4`, the elastic
-    resume :func:`mesh_train_elastic`). Returns the ``ws_sim`` launches of
-    each rank and world by body, and the prefill's and the train steps'
-    ``rms_norm`` and ``flash_attention`` launches."""
+    resume :func:`mesh_train_elastic`), then the MoE steps
+    (:func:`mesh_moe_world1`, :func:`mesh_moe_world4`) and the recurrent
+    mixers' (:func:`mesh_recurrent_world1`, :func:`mesh_recurrent_world4`:
+    one ``mesh_recurrent`` line a rank, a ``recurrent_summary`` line).
+    Returns the ``ws_sim`` launches of each rank and world by body, and the
+    sharded steps' ``rms_norm`` and ``flash_attention`` launches."""
     torch.cuda.empty_cache()
     main_gib = torch.cuda.memory_allocated() / 2**30
     t0 = time.perf_counter()
@@ -6596,12 +7173,17 @@ def phase_mesh(work: Path) -> dict:
         ranks4 = mesh_spawn(4, work, gate)
         one = mesh_wait(1, work, ranks1)[0]
         gate.touch()
-        say("mesh", **one, card=card_line())
+        say("mesh", **{k: v for k, v in one.items() if k != "recurrent"},
+            card=card_line())
+        say("mesh", step="mesh_recurrent", world=1, rank=0,
+            **one["recurrent"], card=card_line())
         four = mesh_wait(4, work, ranks4)
     finally:
         mesh_reap(ranks1 + ranks4)
     for r in four:
-        say("mesh", **r)
+        say("mesh", **{k: v for k, v in r.items() if k != "recurrent"})
+        say("mesh", step="mesh_recurrent", world=4, rank=r["rank"],
+            **r["recurrent"])
     launches = {b: {"world1": 0, "world4": [0] * 4} for b in BODIES}
     for path, line in one["sweeps"].items():
         body = MAIN_PATHS[path]["body"]
@@ -6642,6 +7224,14 @@ def phase_mesh(work: Path) -> dict:
     for k in ("rms_norm", "flash_attention"):
         launches[k]["moe_world1"] = moe_launches(one["moe"], k)
         launches[k]["moe_world4"] = [moe_launches(r["moe"], k) for r in four]
+    # step recurrent's kernels: each sharded step of each world
+    for k in ("rms_norm", "flash_attention"):
+        launches[k]["recurrent_world1"] = sum(
+            r["launches"][k] for r in launch_runs(one["recurrent"]))
+        launches[k]["recurrent_world4"] = [sum(
+            r_["launches"][k] for r_ in launch_runs(r["recurrent"]))
+            for r in four]
+    recurrent_summary(one["recurrent"], [r["recurrent"] for r in four])
     m1, m4 = one["moe"], [r["moe"] for r in four]
     say("mesh", step="moe_summary",
         world1=dict(
@@ -6769,6 +7359,81 @@ def phase_mesh(work: Path) -> dict:
                                      for r in four),
         card=card_line())
     return launches
+
+
+def launch_runs(line) -> list:
+    """Every counted run in a step's line: each dict with ``launches``."""
+    if isinstance(line, dict):
+        if "launches" in line:
+            return [line]
+        return [r for v in line.values() for r in launch_runs(v)]
+    if isinstance(line, list):
+        return [r for v in line for r in launch_runs(v)]
+    return []
+
+
+def recurrent_summary(r1: dict, r4: list) -> None:
+    """Step recurrent's ``recurrent_summary`` line from world 1's line and
+    each world-4 rank's."""
+    def w1(case):
+        c = r1[case]
+        if "steps" in c:
+            return dict(ms=[s["ms"] for s in c["steps"]],
+                        unsharded_ms=[s["plain_ms"] for s in c["steps"]],
+                        peak_gib=max(s["peak_gib"] for s in c["steps"]),
+                        layers=c["layers"], collectives=c["collectives"])
+        return dict(ms=c["ms"], unsharded_ms=c["unsharded_ms"],
+                    peak_gib=c["peak_gib"], layers=c["layers"],
+                    collectives=c["collectives"])
+
+    def w4(arch):
+        lines = [r[arch] for r in r4]
+        dts = ("bfloat16", "float32")
+        return dict(
+            prefill_layers={dt: lines[0][f"prefill_{dt}"]["layers"]
+                            for dt in dts},
+            train_layers=lines[0]["train"]["layers"],
+            seq=lines[0]["train"]["seq"],
+            prefill_seconds={dt: [l[f"prefill_{dt}"]["ms"] / 1e3
+                                  for l in lines] for dt in dts},
+            train_seconds={dt: [[s["ms"] / 1e3 for s in l[f"train_{dt}"][
+                "steps"]] for l in lines] for dt in dts},
+            peak_gib=[max(r["peak_gib"] for r in launch_runs(l))
+                      for l in lines],
+            weight_share={dt: [l[f"prefill_{dt}"]["weights"]["share"]
+                               for l in lines] for dt in dts},
+            weight_and_moment_share=[
+                l["train_float32"]["bytes"]["local"]
+                / l["train_float32"]["bytes"]["whole"] for l in lines],
+            float32_prefill_share_of_tol=max(
+                l["prefill_float32"]["share_of_tol"] for l in lines),
+            float32_train_worst_share_of_tol=max(
+                max([l["train_float32"]["leaves"]["share_of_tol"]] + [
+                    max(v for k, v in s["vs_unsharded"].items()
+                        if k != "lr_equal")
+                    for s in l["train_float32"]["steps"]])
+                for l in lines),
+            bf16_prefill_max_abs=max(l["prefill_bfloat16"][
+                "vs_unsharded_max_abs"] for l in lines),
+            bf16_argmax_equal=sum(l["prefill_bfloat16"]["argmax_equal"]
+                                  for l in lines),
+            bf16_train_vs_unsharded=[s["vs_unsharded"] for s in lines[0][
+                "train_bfloat16"]["steps"]],
+            turns_seconds=lines[0]["turns_seconds"],
+            collectives=dict(train=lines[0]["train"]["collectives"], **{
+                f"prefill_{dt}": lines[0][f"prefill_{dt}"]["collectives"]
+                for dt in dts}),
+            seconds_by_part=lines[0]["seconds_by_part"],
+            seconds=[l["seconds"] for l in lines])
+    say("mesh", step="recurrent_summary",
+        world1=dict({case: w1(case) for case in (
+            "jamba_prefill", "jamba_prefill_float32", "jamba_train",
+            "xlstm_prefill", "xlstm_train")}, bit_equal=True,
+            refs_seconds=r1["refs_seconds"], seconds=r1["seconds"]),
+        world4={arch: w4(arch) for arch in (JAMBA_ARCH, XLSTM_ARCH)},
+        seconds=dict(world1=r1["seconds"],
+                     world4=[r["seconds"] for r in r4]),
+        card=card_line())
 
 
 def card_line() -> str:

@@ -27,13 +27,18 @@ The patterns:
 * :func:`column` — ``x @ w``, w's output dim on ``model``: this rank's
   columns, no collective of its own;
 * :func:`row` — ``x @ w``, w's input dim on ``model``: partial sums,
-  reduce-scattered over ``model`` along S with SP, else all-reduced;
+  reduce-scattered over ``model`` along S with SP, else all-reduced
+  (all-reduced with SP too where every rank needs the whole sum: Mamba's
+  B, C and dt);
 * :func:`sp_gather` — S gathered over ``model`` before each mixer and each
   FFN (``steps.make_act_constrainer``'s ``constrain`` calls it, through
   :meth:`Partition.gather_seq`);
-* :func:`head_gather` — q, k or v gathered over ``model`` where the split
-  of its columns cuts a head in two (qwen3's 8 KV heads of 128 on a
-  ``model`` axis of 16: 64 columns a rank, half a head);
+* :func:`head_gather` — a projection's output gathered over ``model``
+  along its last dim: q, k or v where the split of its columns cuts a
+  head in two (qwen3's 8 KV heads of 128 on a ``model`` axis of 16: 64
+  columns a rank, half a head); a recurrent mixer's input projection
+  (the x/z exchange); sLSTM's heads before its column-parallel
+  ``out_proj``, and that product's output;
 * :func:`embed` — the vocab-parallel embedding: the ids outside this
   rank's rows masked, then reduced over ``model``;
 * :func:`head` — the vocab-parallel head through ``layers.logits_f32``:
@@ -47,7 +52,9 @@ The patterns:
   buffers traded for its experts' by an all-to-all over ``data`` (EP, where
   the experts split there), gathered over ``model`` for its ``d_ff``
   columns, the partial sums reduce-scattered back, the reverse all-to-all,
-  and each token's k contributions combined (:class:`MoELayout`).
+  and each token's k contributions combined (:class:`MoELayout`);
+* :func:`mamba`, :func:`mlstm`, :func:`slstm` — the recurrent mixers on
+  this rank's channels and heads, from the patterns above.
 
 **The gradient.** Each all-gather, reduce-scatter and all-reduce is an
 autograd function whose backward is its linear transpose on the same
@@ -84,10 +91,12 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding as shd
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 
 #: the slots the sharded step runs; another raises naming Queue A 10d
-MIXERS = ("attn",)
-FFNS = ("dense", "moe")
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
+FFNS = ("dense", "moe", "none")
 
 #: calls of each pattern since :func:`reset_counts`
 CALLS: Dict[str, int] = dict.fromkeys(
@@ -145,14 +154,31 @@ def unsupported(cfg) -> Optional[str]:
     return None
 
 
+def _mixer_shapes(cfg) -> Dict[str, tuple]:
+    """One layer's shape of each leaf of the recurrent mixers ``cfg``'s
+    pattern has, by its path in a layer (``mamba/in_proj``): their init's,
+    on the meta device."""
+    inits = {"mamba": lambda: ssm_mod.mamba_init(
+                 None, ssm_mod.config_dims(cfg), torch.float32),
+             "mlstm": lambda: xlstm_mod.mlstm_init(
+                 None, xlstm_mod.config_dims(cfg), torch.float32),
+             "slstm": lambda: xlstm_mod.slstm_init(
+                 None, xlstm_mod.config_dims(cfg), torch.float32)}
+    out = {}
+    for mixer in sorted({m for m, _f in cfg.pattern} & set(inits)):
+        out.update({f"{mixer}/{k}": tuple(v.shape)
+                    for k, v in inits[mixer]().items()})
+    return out
+
+
 def weight_specs(cfg, mesh) -> Dict[str, tuple]:
     """The spec of each weight a layer or the step reads, by its path in a
-    layer (``attn/wq``; a MoE FFN's ``moe/w_gate``) or in the tree
-    (``tok_embed``): the placement rules and their divisibility guard
-    (``sharding.param_spec``), at the shapes of one layer. A MoE leaf's
-    spec is resolved at its stacked shape (repeats, E, ...) and its first
-    entry dropped: at one layer's (E, D, F) the dense rules would match
-    through their leading-repeats branch."""
+    layer (``attn/wq``; a MoE FFN's ``moe/w_gate``; a recurrent mixer's
+    ``mamba/in_proj``) or in the tree (``tok_embed``): the placement rules
+    and their divisibility guard (``sharding.param_spec``), at the shapes
+    of one layer. A MoE leaf's spec is resolved at its stacked shape
+    (repeats, E, ...) and its first entry dropped: at one layer's (E, D, F)
+    the dense rules would match through their leading-repeats branch."""
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     F, V = cfg.d_ff, cfg.padded_vocab
     shapes = {"attn/wq": (D, H * hd), "attn/wk": (D, KV * hd),
@@ -161,6 +187,7 @@ def weight_specs(cfg, mesh) -> Dict[str, tuple]:
               "tok_embed": (V, D), "lm_head": (D, V)}
     if cfg.act == "swiglu":
         shapes["ffn/w_gate"] = (D, F)
+    shapes.update(_mixer_shapes(cfg))
     specs = {k: shd.param_spec(tuple(k.split("/")), (s, None), mesh)
              for k, s in shapes.items()}
     if any(ffn == "moe" for _mixer, ffn in cfg.pattern):
@@ -294,9 +321,9 @@ def for_model(act_spec, cfg, tokens) -> Optional[Partition]:
     if what is not None:
         if mesh_lib.world_of(mesh) > 1:
             raise NotImplementedError(
-                f"{cfg.name}: the sharded step runs attention with dense "
-                f"or MoE FFNs only; {what} under a mesh of several ranks is "
-                f"ROADMAP Queue A 10d")
+                f"{cfg.name}: the sharded step runs self-attention, Mamba, "
+                f"mLSTM and sLSTM with dense or MoE FFNs only; {what} under "
+                f"a mesh of several ranks is ROADMAP Queue A 10d")
         return None
     return Partition(act_spec, cfg, tokens.shape[0], tokens.shape[1])
 
@@ -485,16 +512,20 @@ def column(part: Partition, x: torch.Tensor, w: torch.Tensor,
 
 
 def row(part: Partition, x: torch.Tensor, w: torch.Tensor,
-        key: str) -> torch.Tensor:
+        key: str, whole: bool = False) -> torch.Tensor:
     """``x @ w`` of a row-parallel weight on ``x`` (B, S, this rank's
     input columns): the partial sums reduced over ``model``, into the SP
     layout with SP. A weight whose input dim the guard left whole gives the
-    whole sum on every rank, constrained into the step's layout."""
+    whole sum on every rank, constrained into the step's layout. With
+    ``whole`` the sum stays whole over the sequence (all-reduced with SP
+    too): a value a recurrent mixer's scan reads on every rank."""
     CALLS["row"] += 1
     y = layers.dense(x, fsdp_gather(part, w, key))
     if part.specs[key][0] == "model":
+        if whole:
+            return _all_reduce(y, part.group("model"))
         return _reduce_model(part, y)
-    return part.into_layout(y)
+    return y if whole else part.into_layout(y)
 
 
 def sp_gather(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -511,11 +542,14 @@ def head_gather(part: Partition, t: torch.Tensor) -> torch.Tensor:
     return _all_gather(t, t.dim() - 1, part.group("model"))
 
 
-def _heads(part: Partition, t: torch.Tensor, n: int) -> tuple:
+def _heads(part: Partition, t: torch.Tensor, n: int,
+           hd: Optional[int] = None) -> tuple:
     """(t with whole heads, (first, end) of the heads it holds) for a
-    projection of ``n`` heads of hd: this rank's where its columns hold
-    whole heads, all of them (gathered) where they cut one."""
-    hd, mp = part.cfg.hd, part.size["model"]
+    projection of ``n`` heads of ``hd`` columns (the config's head dim by
+    default): this rank's where its columns hold whole heads, all of them
+    (gathered) where they cut one."""
+    hd = part.cfg.hd if hd is None else hd
+    mp = part.size["model"]
     if t.shape[-1] == n * hd:
         return t, (0, n)
     if n % mp:
@@ -688,6 +722,135 @@ def moe(part: Partition, h: torch.Tensor, p: Dict, stats: bool = False,
     return y, aux, moe_mod.MoEStats(
         dropped=sums[0] / lay.groups, stolen=sums[1] / lay.groups,
         load_std=torch.std(sums[2:], correction=0))
+
+
+# ---------------------------------------------------------------------------
+# the recurrent mixers
+# ---------------------------------------------------------------------------
+
+def _span(part: Partition, key: str, dim: int, n: int) -> tuple:
+    """(first, end) of the ``n`` entries of weight ``key``'s dim ``dim``
+    this rank holds: its share where the spec splits the dim on
+    ``model``, all of them where the guard left it whole."""
+    if part.specs[key][dim] != "model":
+        return 0, n
+    c, r = n // part.size["model"], part.coord["model"]
+    return r * c, (r + 1) * c
+
+
+def _input_halves(part: Partition, h: torch.Tensor, w: torch.Tensor,
+                  key: str) -> torch.Tensor:
+    """``h @ w`` of a recurrent mixer's input projection (D, 2E), whose
+    output the mixer cuts at E into x and z: its columns on ``model`` hold
+    x on the first ranks and z on the last, so the output is gathered
+    whole over ``model`` (the x/z exchange, one :func:`head_gather`) and
+    each rank takes from it what its channels read."""
+    xz = column(part, h, w, key)
+    if part.specs[key][1] == "model":
+        xz = head_gather(part, xz)
+    return xz
+
+
+def mamba(part: Partition, h: torch.Tensor, p: Dict) -> torch.Tensor:
+    """A Mamba mixer on the gathered ``h`` (B, S, D): its output in the
+    step's layout. ``p`` is this rank's shards of the mixer's weights.
+
+    The schedule, fixed: ``in_proj`` column-parallel and the x/z exchange
+    (:func:`_input_halves`); this rank's E/|model| channels of x (those of
+    its ``conv_w`` columns) through the causal conv, and the same channels
+    of z; B, C and dt as row products of those channels (``bc_proj`` and
+    ``dt_proj`` split on their rows), each all-reduced over ``model``
+    whatever the layout (the scan reads them over the whole sequence); the
+    scan of this rank's heads (of P channels) with their dt, ``A_log`` and
+    ``D`` — where its channels cut a head, the conv's output is gathered
+    over ``model`` and every rank scans every head —; the gate of its
+    channels; ``out_proj`` row-parallel. The whole leaves ``dt_bias``,
+    ``A_log`` and ``D``, and B, C and dt, which every rank computes alike,
+    are read only for this rank's heads: their cotangents are partial sums
+    (the module's convention), summed by the transposes and
+    :func:`sum_whole_leaves`."""
+    cfg = part.cfg
+    d = ssm_mod.config_dims(cfg)
+    E, P = d.d_inner, d.head_p
+    xz = _input_halves(part, h, p["in_proj"], "mamba/in_proj")
+    c0, c1 = _span(part, "mamba/conv_w", 1, E)
+    xr = ssm_mod.conv_silu(xz[..., c0:c1], p["conv_w"])
+    Bm, Cm, dt = ssm_mod.scan_inputs(
+        row(part, xr, p["bc_proj"], "mamba/bc_proj", whole=True),
+        row(part, xr, p["dt_proj"], "mamba/dt_proj", whole=True),
+        p["dt_bias"])
+    if (c1 - c0) % P:                       # the split cuts a head
+        xs, h0, h1 = head_gather(part, xr), 0, d.n_heads
+    else:
+        xs, h0, h1 = xr, c0 // P, c1 // P
+    y = ssm_mod.ssd_heads(xs, Bm, Cm, dt[..., h0:h1], p["A_log"][h0:h1],
+                          p["D"][h0:h1], P, cfg.ssm_chunk)
+    if (h0 * P, h1 * P) != (c0, c1):
+        y = y[..., c0 - h0 * P:c1 - h0 * P]
+    y = ssm_mod.gate(y, xz[..., E + c0:E + c1])
+    return row(part, y.to(h.dtype), p["out_proj"], "mamba/out_proj")
+
+
+def mlstm(part: Partition, h: torch.Tensor, p: Dict) -> torch.Tensor:
+    """An mLSTM mixer on the gathered ``h`` (B, S, D): its output in the
+    step's layout. ``p`` is this rank's shards of the mixer's weights.
+
+    The schedule, fixed: ``up_proj`` column-parallel and the x/z exchange
+    (:func:`_input_halves`: ``wq``, ``wk`` and ``wv`` read all E rows of
+    x); q, k and v column-parallel, this rank's heads (all of them,
+    gathered, where the split cuts a head: :func:`_heads`); the i and f
+    gates from ``w_if`` (whole on ``model``: every rank computes every
+    head's, and reads its own); the chunked recurrence of its heads; the
+    out-norm scale and silu(z) of its ``down_proj`` rows' channels;
+    ``down_proj`` row-parallel."""
+    cfg = part.cfg
+    d = xlstm_mod.config_dims(cfg)
+    E, hd = int(d.proj_factor * cfg.d_model), d.head_dim
+    H = E // hd
+    xz = _input_halves(part, h, p["up_proj"], "mlstm/up_proj")
+    xr = xz[..., :E]
+    q, (h0, h1) = _heads(part, column(part, xr, p["wq"], "mlstm/wq"), H, hd)
+    k, _ = _heads(part, column(part, xr, p["wk"], "mlstm/wk"), H, hd)
+    v, _ = _heads(part, column(part, xr, p["wv"], "mlstm/wv"), H, hd)
+    i_gate, f_gate = xlstm_mod.mlstm_gates(column(part, xr, p["w_if"],
+                                                  "mlstm/w_if"))
+    y = xlstm_mod.mlstm_heads(q, k, v, i_gate[..., h0:h1],
+                              f_gate[..., h0:h1], hd, cfg.ssm_chunk)
+    c0, c1 = _span(part, "mlstm/down_proj", 0, E)
+    if (h0 * hd, h1 * hd) != (c0, c1):
+        y = y[..., c0 - h0 * hd:c1 - h0 * hd]
+    y = xlstm_mod.mlstm_gate(y, p["out_norm"][c0:c1], xz[..., E + c0:E + c1])
+    return row(part, y.to(h.dtype), p["down_proj"], "mlstm/down_proj")
+
+
+def slstm(part: Partition, h: torch.Tensor, p: Dict) -> torch.Tensor:
+    """An sLSTM mixer on the gathered ``h`` (B, S, D): its output in the
+    step's layout. ``p`` is this rank's shards of the mixer's weights.
+
+    The schedule, fixed: ``w_in`` column-parallel, its (i, f, z, o)
+    blocks of 4·hd columns a head: this rank's heads (all of them,
+    gathered, where the split cuts a head: :func:`_heads`); the recurrence
+    of those heads with their slices of the whole ``r_rec`` and ``bias``;
+    the heads' h gathered over ``model`` where the rank holds only its own
+    (``out_proj`` is column-parallel on its output and reads every input
+    row); ``out_proj``'s output columns gathered over ``model`` and put
+    into the step's layout."""
+    cfg = part.cfg
+    d = xlstm_mod.config_dims(cfg)
+    H, hd = d.n_heads, d.head_dim
+    pre, (h0, h1) = _heads(part, column(part, h, p["w_in"], "slstm/w_in"),
+                           H, 4 * hd)
+    y = xlstm_mod.slstm_scan(pre, p["r_rec"][h0:h1],
+                             p["bias"][4 * hd * h0:4 * hd * h1]).to(h.dtype)
+    if (h0, h1) != (0, H):
+        y = head_gather(part, y)
+    y = column(part, y, p["out_proj"], "slstm/out_proj")
+    if part.specs["slstm/out_proj"][1] == "model":
+        y = head_gather(part, y)
+    return part.into_layout(y)
+
+
+MIXER_PATTERNS = {"mamba": mamba, "mlstm": mlstm, "slstm": slstm}
 
 
 # ---------------------------------------------------------------------------

@@ -46,13 +46,7 @@ def check_slot(mixer: str, ffn: str) -> None:
         raise ValueError(f"unknown ffn {ffn!r}; the FFNs are {FFNS}")
 
 
-def _mamba_dims(cfg: ArchConfig) -> ssm_mod.MambaDims:
-    return ssm_mod.mamba_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_p,
-                              cfg.ssm_state, cfg.ssm_conv)
-
-
-def _xlstm_dims(cfg: ArchConfig) -> xlstm_mod.XlstmDims:
-    return xlstm_mod.xlstm_dims(cfg.d_model, cfg.n_heads)
+_mamba_dims, _xlstm_dims = ssm_mod.config_dims, xlstm_mod.config_dims
 
 
 def _attn_init(gen: Optional[torch.Generator], cfg: ArchConfig, dtype,
@@ -170,12 +164,15 @@ def slot_apply(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x, positions,
     made for it).
 
     ``part``: a sharded step's context (``launch/partition.py``; an
-    ``attn`` mixer and a ``dense`` or ``moe`` FFN): ``x`` is this rank's
-    activation in the step's layout, each norm runs on it, the normed input
-    is gathered over the sequence before the mixer and before a dense FFN
-    (``part.gather_seq``; a MoE FFN takes its groups' tokens,
-    ``partition.moe``), and the row-parallel products and the MoE's
-    reductions bring the outputs back into the step's layout."""
+    ``attn``, ``mamba``, ``mlstm`` or ``slstm`` mixer and a ``dense``,
+    ``moe`` or no FFN): ``x`` is this rank's activation in the step's
+    layout, each norm runs on it, the normed input is gathered over the
+    sequence before the mixer and before a dense FFN (``part.gather_seq``;
+    a MoE FFN takes its groups' tokens, ``partition.moe``), a recurrent
+    mixer runs its pattern on this rank's channels and heads
+    (``partition.MIXER_PATTERNS``), and the row-parallel products, the
+    gathers of sLSTM's output and the MoE's reductions bring the outputs
+    back into the step's layout."""
     check_slot(mixer, ffn)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if part is not None:
@@ -183,6 +180,8 @@ def slot_apply(p: Dict, cfg: ArchConfig, mixer: str, ffn: str, x, positions,
     if mixer in ("attn", "xattn"):
         mix_out = _attention_apply(p["attn"], cfg, h, positions,
                                    causal=causal, part=part)
+    elif part is not None:
+        mix_out = pt.MIXER_PATTERNS[mixer](part, h, p[mixer])
     elif mixer == "mamba":
         mix_out = ssm_mod.mamba_apply(p["mamba"], h, _mamba_dims(cfg),
                                       cfg.ssm_chunk)

@@ -51,6 +51,12 @@ def mamba_dims(d_model: int, expand: int = 2, head_p: int = 64,
                      d_conv)
 
 
+def config_dims(cfg) -> MambaDims:
+    """The Mamba dims of an ``ArchConfig``."""
+    return mamba_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_p,
+                      cfg.ssm_state, cfg.ssm_conv)
+
+
 def mamba_init(gen: Optional[torch.Generator], dims: MambaDims,
                dtype) -> dict:
     E, N, Hm, K = dims.d_inner, dims.d_state, dims.n_heads, dims.d_conv
@@ -130,25 +136,53 @@ def _ssd_chunked(xh, Bm, Cm, dt, A, chunk: int):
     return torch.cat(ys, dim=1), h
 
 
+def conv_silu(xr: torch.Tensor, conv_w: torch.Tensor) -> torch.Tensor:
+    """silu of the causal conv of ``xr`` (B, S, C) over ``conv_w`` (K, C),
+    in ``xr``'s dtype: depthwise, so any C channels with their taps."""
+    return F.silu(_causal_conv(xr, conv_w).float()).to(xr.dtype)
+
+
+def scan_inputs(bc: torch.Tensor, dt_raw: torch.Tensor,
+                dt_bias: torch.Tensor) -> tuple:
+    """(B, C (B, S, N) and dt (B, S, Hm), float32) from the products of the
+    conv's output with ``bc_proj`` and ``dt_proj``."""
+    Bm, Cm = torch.chunk(bc.float(), 2, dim=-1)
+    return Bm, Cm, _softplus(dt_raw.float() + dt_bias)
+
+
+def ssd_heads(xr: torch.Tensor, Bm, Cm, dt, A_log, D, head_p: int,
+              chunk: int) -> torch.Tensor:
+    """The scan of the heads ``xr`` (B, S, Hl·P) holds, with their dt
+    (B, S, Hl), ``A_log`` and ``D`` (Hl,) and the B, C every head shares,
+    plus the D skip: y (B, S, Hl·P) float32."""
+    B, S, C = xr.shape
+    xh = xr.reshape(B, S, C // head_p, head_p)
+    A = -torch.exp(A_log)                                      # (Hl,) < 0
+    y, _ = _ssd_chunked(xh, Bm, Cm, dt, A, chunk)
+    y = y + xh.float() * D[None, None, :, None]
+    return y.reshape(B, S, C)
+
+
+def gate(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """y (float32) times silu(z), channel by channel."""
+    return y * F.silu(z.float())
+
+
 def mamba_apply(params: dict, x: torch.Tensor, dims: MambaDims,
                 chunk: int = 128) -> torch.Tensor:
-    """Full-sequence (prefill) forward. x: (B, S, D)."""
-    B, S, D = x.shape
-    E, Hm, P = dims.d_inner, dims.n_heads, dims.head_p
+    """Full-sequence (prefill) forward. x: (B, S, D). The pieces
+    (:func:`conv_silu`, :func:`scan_inputs`, :func:`ssd_heads`,
+    :func:`gate`) are those the sharded step runs on a rank's channels
+    and heads (``launch/partition.py::mamba``)."""
+    E = dims.d_inner
     xz = dense(x, params["in_proj"])
     xr, z = xz[..., :E], xz[..., E:]                           # (B,S,E)
-    xr = _causal_conv(xr, params["conv_w"])
-    xr = F.silu(xr.float()).to(x.dtype)
-    bc = dense(xr, params["bc_proj"]).float()
-    Bm, Cm = torch.chunk(bc, 2, dim=-1)                        # (B,S,N)
-    dt = _softplus(dense(xr, params["dt_proj"]).float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])                            # (Hm,) < 0
-    xh = xr.reshape(B, S, Hm, P)
-    y, _ = _ssd_chunked(xh, Bm, Cm, dt, A, chunk)
-    y = y + xh.float() * params["D"][None, None, :, None]
-    y = y.reshape(B, S, E)
-    y = y * F.silu(z.float())
-    return dense(y.to(x.dtype), params["out_proj"])
+    xr = conv_silu(xr, params["conv_w"])
+    Bm, Cm, dt = scan_inputs(dense(xr, params["bc_proj"]),
+                             dense(xr, params["dt_proj"]), params["dt_bias"])
+    y = ssd_heads(xr, Bm, Cm, dt, params["A_log"], params["D"],
+                  dims.head_p, chunk)
+    return dense(gate(y, z).to(x.dtype), params["out_proj"])
 
 
 def mamba_cache_init(dims: MambaDims, batch: int, dtype=torch.float32,

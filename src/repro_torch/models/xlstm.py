@@ -50,6 +50,11 @@ def xlstm_dims(d_model: int, n_heads: int) -> XlstmDims:
     return XlstmDims(d_model, n_heads, d_model // n_heads)
 
 
+def config_dims(cfg) -> XlstmDims:
+    """The xLSTM dims of an ``ArchConfig``: head dim d_model // n_heads."""
+    return xlstm_dims(cfg.d_model, cfg.n_heads)
+
+
 def _upper_mask(L: int, device) -> torch.Tensor:
     """(L, L) float32: 0 on and below the diagonal, -inf above it; added to
     an exponent, it masks the future with no ``where`` on data (the JAX
@@ -118,6 +123,12 @@ def _mlstm_chunked(q, k, v, i_gate, f_gate, chunk: int):
     return torch.cat(ys, dim=1), (C, n)
 
 
+def mlstm_gates(gif: torch.Tensor) -> tuple:
+    """(i, f) gates (..., H) in float32 from the ``w_if`` product (..., 2H)."""
+    i_gate, f_gate = torch.chunk(torch.sigmoid(gif.float()), 2, dim=-1)
+    return i_gate, f_gate
+
+
 def _mlstm_project(params: dict, x: torch.Tensor, dims: XlstmDims):
     """(q, k, v (..., E), z (..., E), i and f gates (..., E // hd) in
     float32) of x (..., D)."""
@@ -127,30 +138,45 @@ def _mlstm_project(params: dict, x: torch.Tensor, dims: XlstmDims):
     q = dense(xr, params["wq"])
     k = dense(xr, params["wk"])
     v = dense(xr, params["wv"])
-    gif = dense(xr, params["w_if"]).float()
-    i_gate, f_gate = torch.chunk(torch.sigmoid(gif), 2, dim=-1)
+    i_gate, f_gate = mlstm_gates(dense(xr, params["w_if"]))
     return q, k, v, z, i_gate, f_gate
+
+
+def mlstm_heads(q, k, v, i_gate, f_gate, head_dim: int,
+                chunk: int) -> torch.Tensor:
+    """The chunked recurrence of the heads q, k, v (B, S, Hl·hd) hold, with
+    their gates (B, S, Hl): y (B, S, Hl·hd) float32."""
+    B, S, C = q.shape
+    shape = (B, S, C // head_dim, head_dim)
+    y, _ = _mlstm_chunked(q.reshape(shape), k.reshape(shape),
+                          v.reshape(shape), i_gate, f_gate, chunk)
+    return y.reshape(B, S, C)
+
+
+def mlstm_gate(y: torch.Tensor, out_norm: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    """y (float32, (..., C)) times the out-norm scale and silu(z), channel
+    by channel: ``down_proj``'s input before its cast."""
+    y = y * out_norm.float()
+    return y * F.silu(z.float())
 
 
 def _mlstm_out(params: dict, y: torch.Tensor, z: torch.Tensor,
                x: torch.Tensor) -> torch.Tensor:
     """``down_proj`` of y (float32, (..., E)) times the out-norm scale and
     silu(z), cast to x's dtype first."""
-    y = y * params["out_norm"].float()
-    y = y * F.silu(z.float())
-    return dense(y.to(x.dtype), params["down_proj"])
+    return dense(mlstm_gate(y, params["out_norm"], z).to(x.dtype),
+                 params["down_proj"])
 
 
 def mlstm_apply(params: dict, x: torch.Tensor, dims: XlstmDims,
                 chunk: int = 128) -> torch.Tensor:
-    B, S, D = x.shape
-    E = int(dims.proj_factor * D)
-    hd = dims.head_dim
-    H = E // hd
+    """Over a whole sequence. The pieces (:func:`mlstm_gates`,
+    :func:`mlstm_heads`, :func:`mlstm_gate`) are those the sharded step runs
+    on a rank's heads and channels (``launch/partition.py::mlstm``)."""
     q, k, v, z, i_gate, f_gate = _mlstm_project(params, x, dims)
-    y, _ = _mlstm_chunked(q.reshape(B, S, H, hd), k.reshape(B, S, H, hd),
-                          v.reshape(B, S, H, hd), i_gate, f_gate, chunk)
-    return _mlstm_out(params, y.reshape(B, S, E), z, x)
+    y = mlstm_heads(q, k, v, i_gate, f_gate, dims.head_dim, chunk)
+    return _mlstm_out(params, y, z, x)
 
 
 def mlstm_cache_init(dims: XlstmDims, batch: int, device=None) -> dict:
@@ -214,16 +240,15 @@ def slstm_init(gen: Optional[torch.Generator], dims: XlstmDims,
     }
 
 
-def _slstm_cell(params: dict, dims: XlstmDims, x_t, state: dict,
-                r_rec: torch.Tensor):
-    """x_t: (B, 4D) pre-activations from the input; state: dict of
-    (B, H, hd) float32; ``r_rec``: ``params["r_rec"]`` in float32 (a
-    sequence casts it once for all its steps). Returns (new state, h)."""
-    H, hd = dims.n_heads, dims.head_dim
+def _slstm_cell(x_t, state: dict, r_rec: torch.Tensor, bias: torch.Tensor):
+    """x_t: (B, Hl·4hd) pre-activations from the input of the Hl heads
+    ``r_rec`` (Hl, hd, 4hd), float32 (a sequence casts it once for all its
+    steps), and ``bias`` (Hl·4hd,) hold; state: dict of (B, Hl, hd)
+    float32. Returns (new state, h)."""
+    H, hd = r_rec.shape[0], r_rec.shape[1]
     B = x_t.shape[0]
     rec = torch.einsum("bhd,hdk->bhk", state["h"].float(), r_rec)  # (B,H,4hd)
-    pre = x_t.reshape(B, H, 4 * hd).float() + rec + \
-        params["bias"].reshape(H, 4 * hd)
+    pre = x_t.reshape(B, H, 4 * hd).float() + rec + bias.reshape(H, 4 * hd)
     i, f, zc, o = torch.chunk(pre, 4, dim=-1)                   # (B,H,hd)
     i = torch.exp(torch.clamp_max(i, 10.0))  # exponential input gate
     f = torch.sigmoid(f)
@@ -235,24 +260,35 @@ def _slstm_cell(params: dict, dims: XlstmDims, x_t, state: dict,
     return {"h": h, "c": c, "n": n}, h
 
 
+def slstm_scan(pre: torch.Tensor, r_rec: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """The recurrence, one timestep at a time, of the Hl heads whose
+    pre-activations ``pre`` (B, S, Hl·4hd), recurrent weights ``r_rec``
+    (Hl, hd, 4hd) and ``bias`` (Hl·4hd,) are given: h (B, S, Hl·hd)
+    float32."""
+    B, S, _ = pre.shape
+    H, hd = r_rec.shape[0], r_rec.shape[1]
+    r_rec = r_rec.float()
+    state = {k: torch.zeros((B, H, hd), dtype=torch.float32,
+                            device=pre.device) for k in ("h", "c", "n")}
+    hs = []
+    for t in range(S):
+        state, h = _slstm_cell(pre[:, t], state, r_rec, bias)
+        hs.append(h)
+    return torch.stack(hs, dim=1).reshape(B, S, H * hd)
+
+
 def slstm_apply(params: dict, x: torch.Tensor, dims: XlstmDims,
                 chunk: int = 256) -> torch.Tensor:
-    """Over a whole sequence, one timestep at a time. ``chunk`` is the JAX
+    """Over a whole sequence, one timestep at a time (:func:`slstm_scan`,
+    which the sharded step runs on a rank's heads). ``chunk`` is the JAX
     package's remat chunk: S must be a multiple of min(chunk, S), as
     there."""
-    B, S, D = x.shape
-    H, hd = dims.n_heads, dims.head_dim
+    S = x.shape[1]
     pre = dense(x, params["w_in"])                              # (B,S,4D)
     L = min(chunk, S)
     assert (S // L) * L == S
-    r_rec = params["r_rec"].float()
-    state = {k: torch.zeros((B, H, hd), dtype=torch.float32,
-                            device=x.device) for k in ("h", "c", "n")}
-    hs = []
-    for t in range(S):
-        state, h = _slstm_cell(params, dims, pre[:, t], state, r_rec)
-        hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, S, D)
+    h = slstm_scan(pre, params["r_rec"], params["bias"])
     return dense(h.to(x.dtype), params["out_proj"])
 
 
@@ -267,8 +303,8 @@ def slstm_decode_step(params: dict, x: torch.Tensor, cache: dict,
     """x (B, 1, D) -> ((B, 1, D), cache): h, c and n written into ``cache``
     in place."""
     pre = dense(x[:, 0], params["w_in"])
-    new_state, h = _slstm_cell(params, dims, pre, cache,
-                               params["r_rec"].float())
+    new_state, h = _slstm_cell(pre, cache, params["r_rec"].float(),
+                               params["bias"])
     B = x.shape[0]
     out = dense(h.reshape(B, -1).to(x.dtype), params["out_proj"])
     # in place, once every new value is formed from the old ones

@@ -1482,6 +1482,104 @@ def test_sharded_train_step_on_an_nccl_mesh_of_one_is_bit_equal(nccl_mesh,
             assert torch.equal(a, w), path
 
 
+#: (the sharded prefill's collectives, the train step's forward and
+#: backward ones) on a (1, 1) mesh without SP, by PERF.md's formula for the
+#: recurrent mixers (tests/test_torch_sharded_recurrent.py::
+#: recurrent_formula): jamba's first five slots (Mamba with a dense and a
+#: MoE FFN twice, attention with a dense FFN) and xlstm's two (mLSTM,
+#: sLSTM)
+RECURRENT_COLLECTIVES = {
+    "jamba-v0.1-52b": (
+        dict(all_gather=33, reduce_scatter=2, all_reduce=19, broadcast=0,
+             all_to_all=4),
+        dict(all_gather=33, reduce_scatter=2, all_reduce=23, broadcast=0,
+             all_to_all=4),
+        dict(all_gather=2, reduce_scatter=33, all_reduce=21, all_to_all=4,
+             leaf_sum=37, norm_sum=1)),
+    "xlstm-350m": (
+        dict(all_gather=12, reduce_scatter=0, all_reduce=2, broadcast=0,
+             all_to_all=0),
+        dict(all_gather=12, reduce_scatter=0, all_reduce=6, broadcast=0,
+             all_to_all=0),
+        dict(all_gather=0, reduce_scatter=12, all_reduce=4, all_to_all=0,
+             leaf_sum=7, norm_sum=1))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ("bfloat16", "float32"))
+@pytest.mark.parametrize("arch", sorted(RECURRENT_COLLECTIVES))
+def test_sharded_recurrent_on_an_nccl_mesh_of_one_is_bit_equal(nccl_mesh,
+                                                               arch, dtype):
+    """A reduced jamba (its first five slots) and xlstm (one mLSTM, one
+    sLSTM) with their weights and AdamW moments laid out by the placement
+    rules on a (1, 1) NCCL mesh, the layout ``plan_cell`` gives a stack
+    that is not attention-only (SP off): the prefill's logits and two train
+    steps' metrics, weights and moments are the unsharded steps' bit for
+    bit, through the kernels (one ``rms_norm`` a norm and one
+    ``flash_attention`` an attention layer a step), with the collectives
+    of PERF.md's formula."""
+    import dataclasses
+    from repro_torch import tree as ptr
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import partition as ppart
+    from repro_torch.launch import sharding as pshd
+    from repro_torch.launch.steps import (build_prefill_step,
+                                          build_train_step,
+                                          make_act_constrainer)
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    full = get_config(arch)
+    cfg = dataclasses.replace(full.reduced(
+        d_model=256, head_dim=128, repeats=1, pattern=full.pattern[:5]),
+        param_dtype=dtype)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(2))
+    rng = np.random.default_rng(5)
+    batches = [{k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 64)),
+                                   dtype=torch.int64, device="cuda")
+                for k in ("tokens", "labels")} for _ in range(2)]
+    act = make_act_constrainer(nccl_mesh, ("data",), sequence_parallel=False)
+    prefill, fwd, bwd = RECURRENT_COLLECTIVES[arch]
+    rms = cfg.n_layers + sum(f != "none" for _m, f in cfg.pattern) + 1
+    attn = sum(m == "attn" for m, _f in cfg.pattern)
+    local = pshd.local_params(params, pshd.shard_params(
+        model.param_shapes(), nccl_mesh), nccl_mesh)
+    want = build_prefill_step(model)(params, {"tokens": batches[0]["tokens"]})
+    ops.reset_counts()
+    ppart.reset_counts()
+    got = build_prefill_step(model, act_spec=act)(
+        local, shard_batch({"tokens": batches[0]["tokens"]}, nccl_mesh))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ops.launch_counts()["rms_norm"] == rms
+    assert ops.launch_counts()["flash_attention"] == attn
+    assert ppart.counts()["collectives"] == prefill
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=10)
+    plain, sharded = build_train_step(model, opt), \
+        build_train_step(model, opt, act_spec=act)
+    want_p, want_o = params, adamw.init(params)
+    got_p, got_o = local, adamw.init(local)
+    for b in batches:
+        want_p, want_o, want_m = plain(want_p, want_o, b)
+        ops.reset_counts()
+        ppart.reset_counts()
+        got_p, got_o, got_m = sharded(got_p, got_o, shard_batch(b,
+                                                                nccl_mesh))
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["rms_norm"] == rms
+        assert ops.launch_counts()["flash_attention"] == attn
+        assert ppart.counts()["collectives"] == fwd
+        assert ppart.backward_counts() == bwd
+        for k, v in want_m.items():
+            assert torch.equal(got_m[k], v), k
+        for (path, a), (_p, w) in zip(
+                ptr.flatten_with_path({"p": got_p, "o": got_o}),
+                ptr.flatten_with_path({"p": want_p, "o": want_o})):
+            assert torch.equal(a, w), path
+
+
 @pytest.mark.gpu
 def test_run_rows_on_an_nccl_mesh_equals_run_rows(nccl_mesh):
     """Each body's sweep through ``run_rows(mesh=)`` on the card: one launch,

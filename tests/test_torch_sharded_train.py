@@ -266,9 +266,10 @@ for name, (shape, sp, key, mb) in cases.items():
         _p, _o, met = plan.fn(p0, adamw.init(p0), batch(mesh, 0))
         out["plan"] = dict(metrics={m: float(v) for m, v in met.items()},
                            params=arrays(_p))
-        # a config the sharded step does not run, on four ranks: jamba's
-        # Mamba slots (its MoE slots alone would run)
-        rec = build_model(get_config("jamba-v0.1-52b").reduced(),
+        # a config the sharded step does not run, on four ranks:
+        # whisper's encoder and cross-attention (jamba's Mamba slots run
+        # since the recurrent mixers' slice)
+        rec = build_model(get_config("whisper-large-v3").reduced(),
                           device="cpu")
         rp = rec.init_params(torch.Generator().manual_seed(0))
         rlp = shd.local_params(rp, shd.shard_params(rec.param_shapes(),
@@ -552,10 +553,14 @@ def test_the_cell_plan_s_train_fn_runs_the_sharded_step(ranks):
 
 
 def test_a_recurrent_config_on_four_ranks_names_queue_a_10d(ranks):
+    """A config the sharded train step does not run yet — whisper's
+    cross-attention and encoder; the recurrent mixers run since their
+    slice (``tests/test_torch_sharded_recurrent.py``) — raises on four
+    ranks, naming Queue A 10d."""
     for r in ranks["ranks"]:
         got = r["recurrent"]
         assert got is not None and "Queue A 10d" in got
-        assert "'mamba'" in got
+        assert "'xattn'" in got
 
 
 # ---------------------------------------------------------------------------
